@@ -1,0 +1,71 @@
+"""PBR lighting resolve for one directional light, without atmosphere.
+
+Port of `garden_tpu.render.lighting` on its no-atmosphere branch: direct
+GGX lighting, hemisphere ambient, emissive, and an analytic sky where no
+geometry was drawn.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from garden_tpu_torch.core import math3d as m3
+from garden_tpu_torch.render import brdf
+
+Tensor = torch.Tensor
+
+
+def sky_color(view_dir: Tensor, light_dir: Tensor) -> Tensor:
+    """Cheap analytic sky; view_dir (..., 3) points from the camera."""
+    dev = view_dir.device
+    vec = lambda *c: torch.tensor(c, dtype=torch.float32, device=dev)
+    up = torch.clamp(view_dir[..., 1], -1.0, 1.0)
+    horizon = torch.exp(-torch.abs(up) * 3.0)
+    zenith = torch.clamp(up, 0.0, 1.0)
+    base = (vec(0.20, 0.35, 0.65) * (1.0 - horizon)[..., None]
+            + vec(0.65, 0.75, 0.85) * horizon[..., None])
+    base = base * (0.3 + 0.7 * torch.clamp(light_dir[1], 0.0, 1.0))
+    cos_sun = m3.dot(view_dir, light_dir)
+    glow = torch.pow(torch.clamp(cos_sun, 0.0, 1.0), 64.0) * 0.5
+    disk = torch.where(cos_sun > 0.9997, 40.0, 0.0)
+    sun = (glow + disk)[..., None] * vec(1.0, 0.95, 0.85)
+    ground = vec(0.08, 0.07, 0.06) * torch.ones_like(base)
+    sky = base + sun
+    return torch.where((up < 0.0)[..., None], ground, sky) * (0.5 + zenith[..., None])
+
+
+def view_rays(g: Dict[str, Tensor], constants: Dict[str, Tensor]) -> Tensor:
+    """Per-pixel world-space ray directions from the inverse projection."""
+    h, w = g["depth"].shape
+    dev = g["depth"].device
+    x = ((torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w * 2.0 - 1.0)[None, :]
+    y = (1.0 - (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h * 2.0)[:, None]
+    m = constants["inv_view_proj"]
+    comps = [m[i, 0] * x + m[i, 1] * y + (m[i, 2] * 0.5 + m[i, 3]) for i in range(4)]
+    inv_w4 = 1.0 / torch.clamp(comps[3], min=1e-9)
+    world = torch.stack([comps[0] * inv_w4, comps[1] * inv_w4, comps[2] * inv_w4],
+                        dim=-1)
+    return m3.normalize(world - constants["camera_pos"])
+
+
+SUN_INTENSITY = 4.0
+AMBIENT_INTENSITY = 0.35
+
+
+def resolve(g: Dict[str, Tensor], constants: Dict[str, Tensor]) -> Tensor:
+    """G-buffer + constants -> HDR radiance (H, W, 3). Shadow and AO
+    factors come with their passes (not ported yet)."""
+    dev = g["normal"].device
+    l = -constants["light_dir"]
+    v = m3.normalize(constants["camera_pos"] - g["position"])
+    direct = brdf.evaluate(g["normal"], v, l.expand(g["normal"].shape),
+                           g["base_color"], g["metallic"], g["roughness"],
+                           g["reflectance"]) * SUN_INTENSITY
+    sky_up = torch.tensor([0.45, 0.55, 0.70], device=dev) * AMBIENT_INTENSITY
+    ground_dn = torch.tensor([0.12, 0.10, 0.08], device=dev) * AMBIENT_INTENSITY
+    amb = brdf.ambient(g["normal"], g["base_color"], g["metallic"], sky_up, ground_dn)
+    radiance = direct + amb + g["emissive"]
+    sky = sky_color(view_rays(g, constants), l)
+    return torch.where(g["visible"][..., None], radiance, sky)

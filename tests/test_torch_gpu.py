@@ -1,0 +1,117 @@
+"""Tests of the port's CUDA kernels; they need an NVIDIA card (sm_90a) and
+the CUDA toolkit, and skip without one. This file imports no JAX, so on a
+machine without JAX run it with the repository's conftest disabled:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
+
+The raster_shade kernel must agree with its plain PyTorch version run on
+the card: tri_id, depth and barycentrics exactly (the kernel is built with
+-fmad=false and evaluates the same ops in the same order), the G-buffer
+planes to 2e-5 (the kernel's rsqrtf may differ from torch.rsqrt by an ulp).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from garden_tpu_torch.entry import SLICE_OVERRIDES, build
+from garden_tpu_torch.render import raster
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _scene(seed, n, w, h, ties):
+    """Setup and shading records of random small triangles; with `ties`,
+    every triangle appears several times (exactly equal depths)."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(-0.9, 0.9, (n, 2))
+    d1 = rng.uniform(0.05, 0.5, (n, 2))
+    rot = np.stack([-d1[:, 1], d1[:, 0]], -1)
+    zz = rng.uniform(0.2, 1.6, (n, 1))
+    corners = np.stack([base, base + d1, base + rot], 0) * 2.0     # (3, n, 2)
+    if ties:
+        corners = np.concatenate([corners] * 3, axis=1)[:, rng.permutation(3 * n)]
+        zz = np.concatenate([zz] * 3)[: 3 * n]
+        zz[:] = 0.5
+    t = corners.shape[1]
+    planes = [torch.tensor(corners[..., 0], dtype=torch.float32),
+              torch.tensor(corners[..., 1], dtype=torch.float32),
+              torch.tensor(np.broadcast_to(zz[:, 0], (3, t)), dtype=torch.float32),
+              torch.full((3, t), 2.0)]
+    setup = raster.setup_triangles_planes(*planes, torch.ones(t, dtype=torch.bool),
+                                          w, h)
+    rec = rng.uniform(0, 1, (t, 36)).astype(np.float32)
+    rec[:, 32:35] += 0.4
+    return setup, torch.from_numpy(rec)
+
+
+@pytest.mark.parametrize("tile,tile_h", [(128, 32), (64, 64), (128, 16),
+                                         (128, 128)])
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+def test_kernel_matches_plain_on_card(cuda, tile, tile_h, ties):
+    w, h = 320, 200                                  # ragged last tiles
+    setup, rec = _scene(3, 60, w, h, ties)
+    bins = raster.bin_triangles(setup, w, h, tile, 96, max_big=32,
+                                tile_h=tile_h, foot=2, foot_y=2)
+    to = lambda x: {k: v.to(cuda) for k, v in x.items()} if isinstance(x, dict) \
+        else x.to(cuda)
+    args = raster.kernel_args(to(setup), to(rec), *[to(b) for b in bins], w, h,
+                              tile, tile_h)
+    kvis, kg = raster.raster_shade_cuda(*args)
+    pvis, pg = raster.raster_shade_plain(*args)
+    torch.cuda.synchronize()
+    for k in ("tri_id", "depth", "b0", "b1"):
+        assert torch.equal(kvis[k], pvis[k]), k
+    assert (kg - pg).abs().max().item() <= 2e-5
+    assert (kvis["tri_id"] >= 0).float().mean().item() > 0.2
+
+
+def test_wrapper_launches_kernel_and_counts(cuda):
+    w, h = 256, 128
+    setup, rec = _scene(4, 40, w, h, False)
+    bins = raster.bin_triangles(setup, w, h, 128, 96, tile_h=32)
+    cpu_vis, cpu_g = raster.rasterize_visibility_shaded(setup, rec, *bins, w, h,
+                                                        128, tile_h=32)
+    before = raster.rasterize_visibility_shaded.launches
+    g_vis, g_g = raster.rasterize_visibility_shaded(
+        {k: v.to(cuda) for k, v in setup.items()}, rec.to(cuda),
+        *[b.to(cuda) for b in bins], w, h, 128, tile_h=32)
+    assert raster.rasterize_visibility_shaded.launches == before + 1
+    assert torch.equal(g_vis["tri_id"].cpu(), cpu_vis["tri_id"])
+    assert (g_g.cpu() - cpu_g).abs().max().item() <= 2e-5
+
+
+def test_kernel_rejects_bad_inputs(cuda):
+    w, h = 256, 128
+    setup, rec = _scene(5, 10, w, h, False)
+    bins = raster.bin_triangles(setup, w, h, 128, 96, tile_h=32)
+    args = list(raster.kernel_args({k: v.to(cuda) for k, v in setup.items()},
+                                   rec.to(cuda), *[b.to(cuda) for b in bins],
+                                   w, h, 128, 32))
+    bad = list(args)
+    bad[2] = bad[2].long()                         # tile lists must be int32
+    with pytest.raises(ValueError):
+        raster.raster_shade_cuda(*bad)
+    bad = list(args)
+    bad[0] = bad[0].cpu()                          # mixed devices
+    with pytest.raises(ValueError):
+        raster.raster_shade_cuda(*bad)
+
+
+def test_small_combined_step_matches_cpu(cuda):
+    out = {}
+    for dev in ("cpu", cuda):
+        step, state = build(32, 256, 128, grid_dim=8,
+                            cfg_overrides=SLICE_OVERRIDES, device=dev)
+        nxt, img = step(state)
+        out[str(dev)] = (img.cpu(), nxt["physics"]["bodies"]["pos"].cpu())
+    d = (out["cpu"][0].int() - out["cuda"][0].int()).abs().amax(-1)
+    assert (d <= 2).float().mean().item() >= 0.995
+    assert (out["cpu"][1] - out["cuda"][1]).abs().max().item() <= 1e-4

@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Profile the PyTorch port's combined step on one CUDA card.
+
+    python3 tools/profile_torch_step.py [--steps 3] [--trace trace.json]
+
+Builds the full-size combined step (10,240 bodies, 1920x1080, the port's
+pass set) and warms it up. First, without the profiler, it prints the
+median wall time (host clock, synchronized) of the physics step, the
+render and the whole step over 10 runs each. Then it profiles `--steps`
+steps with torch.profiler and prints the wall time per step, the device's
+busy time (kernel and copy time, and its share of the wall time), the host
+and device time of each stage (physics, instance matrices, render) and the
+operators with the most device time; the profiler adds host overhead to
+every launch. `--trace` also writes a Chrome trace.
+"""
+
+import argparse
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+
+def main() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--trace", help="write a Chrome trace to this file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_step: CUDA is not available", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"card: {card.splitlines()[0]}")
+
+    from garden_tpu_torch.entry import SLICE_OVERRIDES, build
+    step, state = build(n_bodies=10240, width=1920, height=1080, grid_dim=64,
+                        cfg_overrides=SLICE_OVERRIDES, device="cuda")
+    for _ in range(3):
+        state, _ = step(state)
+    torch.cuda.synchronize()
+
+    def wall_ms(fn, reps=10):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+    mats = step.instance_matrices(state["physics"])
+    phys_ms = wall_ms(lambda: step.physics(state["physics"]))
+    render_ms = wall_ms(lambda: step.render(mats, state["frame"]))
+    step_ms = wall_ms(lambda: step(state))
+    print(f"no profiler, median of 10: physics {phys_ms:.3f} ms, render "
+          f"{render_ms:.3f} ms, combined step {step_ms:.3f} ms")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            with record_function("physics"):
+                phys = step.physics(state["physics"])
+            with record_function("instances"):
+                mats = step.instance_matrices(phys)
+            with record_function("render"):
+                out = step.render(mats, state["frame"])
+            state = {"physics": phys, "frame": out["frame_state"]}
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+
+    # device time of each stage: the kernels and copies launched inside the
+    # stage's range; the rest of the wall time the device sits idle
+    events = prof.events()
+    busy_ms = 0.0
+    lines = []
+    for name in ("physics", "instances", "render"):
+        ranges = [e for e in events if e.name == name
+                  and e.device_type == torch.autograd.DeviceType.CPU]
+        ms = sum(r.device_time_total for r in ranges) / 1e3 / args.steps
+        host = sum(r.time_range.elapsed_us() for r in ranges) / 1e3 / args.steps
+        busy_ms += ms
+        lines.append(f"stage {name}: host {host:.3f} ms, device {ms:.3f} ms per step")
+    print(f"profiled: wall per step {prof_ms:.3f} ms; device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / prof_ms:.1f}% of wall, idle the rest)")
+    print("\n".join(lines))
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25,
+                                    max_name_column_width=60))
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
