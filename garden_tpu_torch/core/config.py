@@ -40,7 +40,7 @@ class PhysicsConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ShadowConfig:
-    """Cascaded shadow maps (not ported yet; kept so configs mirror)."""
+    """Cascaded shadow maps."""
 
     cascade_count: int = 3
     map_size: int = 2048
@@ -145,8 +145,8 @@ QUALITY_PRESETS = {
                   shadow=ShadowConfig(map_size=2048, pcf_radius=2)),
 }
 
-# The pass set the port runs today: the "potato" preset's switches at full
-# render scale. Everything else keeps the combined step's settings.
+# The pass set of the port's first slice: the "potato" preset's switches at
+# full render scale. Everything else keeps the combined step's settings.
 SLICE_OVERRIDES = dict(use_shadows=False, use_hbao=False, use_bloom=False,
                        use_atmosphere=False, use_fxaa=False)
 

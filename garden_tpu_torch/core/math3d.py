@@ -156,6 +156,31 @@ def perspective_reverse_z(fov_y: float, aspect: float, near: float,
     return m
 
 
+def orthographic(left, right, bottom, top, near, far, reverse_z: bool = True,
+                 device=None) -> Tensor:
+    """Orthographic projection. With reverse_z, depth is 1 at near, 0 at far.
+    The bounds may be float32 scalar tensors (their device is used) or
+    numbers (then `device` names it)."""
+    b = [x for x in (left, right, bottom, top, near, far) if isinstance(x, Tensor)]
+    dev = b[0].device if b else device
+    left, right, bottom, top, near, far = (
+        torch.as_tensor(x, dtype=torch.float32, device=dev)
+        for x in (left, right, bottom, top, near, far))
+    m = torch.zeros((4, 4), dtype=torch.float32, device=dev)
+    m[0, 0] = 2.0 / (right - left)
+    m[1, 1] = 2.0 / (top - bottom)
+    m[0, 3] = -(right + left) / (right - left)
+    m[1, 3] = -(top + bottom) / (top - bottom)
+    if reverse_z:
+        m[2, 2] = 1.0 / (far - near)
+        m[2, 3] = far / (far - near)
+    else:
+        m[2, 2] = -1.0 / (far - near)
+        m[2, 3] = -near / (far - near)
+    m[3, 3] = 1.0
+    return m
+
+
 def mat4_inverse(m: Tensor) -> Tensor:
     return torch.linalg.inv(m)
 

@@ -55,22 +55,37 @@ def library_path(name: str) -> Path:
 
 def build(name: str, verbose: bool = False) -> Path:
     """Compile csrc/<name>.cu unless its library is already built."""
-    out = library_path(name)
-    if out.exists():
-        return out
+    return build_all([name], verbose)[name]
+
+
+def build_all(names, verbose: bool = False) -> Dict[str, Path]:
+    """Compile the named sources that are not built yet, one nvcc process
+    each, all running at once; -> {name: library path}. With `verbose`,
+    print ptxas's register, shared-memory and spill report of each."""
+    out = {name: library_path(name) for name in names}
+    todo = {n: p for n, p in out.items() if not p.exists()}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)
+    procs = {}
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed for {name}.cu:\n{err}")
+            continue
+        if verbose:
+            print(err, end="")
+        os.replace(tmp, todo[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return out
 
 

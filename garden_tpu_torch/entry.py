@@ -4,6 +4,13 @@
 world (a pile of 0.9 m boxes on a static ground plane), scene, camera and
 configs, built from `garden_tpu_torch` modules on an explicit device. It
 returns `(step, state)` with `step(state) -> (state, image)`.
+
+With no overrides the frame is the flagship's: cascaded shadows on the
+split atlas raster, half-res HBAO, the atmosphere, bloom, auto exposure and
+FXAA. `cfg_overrides=DENSE_SHADOW_OVERRIDES` gives the reference-parity
+shadows (`ShadowConfig()` defaults: three 2048 cascades drawn by the dense
+depth raster); `cfg_overrides=SLICE_OVERRIDES` turns shadows, HBAO, bloom,
+the atmosphere and FXAA off.
 """
 
 from __future__ import annotations
@@ -20,7 +27,11 @@ from garden_tpu_torch.render import mesh as rmesh
 from garden_tpu_torch.render.deferred import DeferredRenderer
 from garden_tpu_torch.systems.camera import common_constants
 
-__all__ = ["CombinedStep", "SLICE_OVERRIDES", "build"]
+__all__ = ["CombinedStep", "DENSE_SHADOW_OVERRIDES", "SLICE_OVERRIDES", "build"]
+
+# the reference-parity shadow preset: the dense depth raster over a
+# 6144x2048 atlas of 128x128 tiles
+DENSE_SHADOW_OVERRIDES = dict(shadow=ShadowConfig())
 
 
 class CombinedStep:

@@ -1,0 +1,73 @@
+"""2x decimation and upsampling of screen-space images.
+
+Port of the parts of `garden_tpu.ops.blur` on the frame path: the 2x mean
+decimation behind every half-res pass, the tent upsample of the sky and
+specular ambient, and the depth-guided (joint bilateral) upsample of the
+shadow and AO factors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from garden_tpu_torch.ops.shifts import Shifter, edge_pad
+
+Tensor = torch.Tensor
+
+
+def decimate2x(img: Tensor) -> Tensor:
+    """(H, W[, C]) -> (H//2, W//2[, C]) mean of each 2x2 block; an odd last
+    row or column is dropped (the reference's VALID window over
+    shape & ~1). The four taps add in row-major order, as its window
+    reduction does."""
+    h, w = img.shape[0] & ~1, img.shape[1] & ~1
+    x = img[:h, :w]
+    return (x[0::2, 0::2] + x[0::2, 1::2] + x[1::2, 0::2] + x[1::2, 1::2]) * 0.25
+
+
+def _tent3x3(up: Tensor) -> Tensor:
+    """3x3 tent (1 2 1 / 2 4 2 / 1 2 1) / 16 with edge clamping."""
+    h, w = up.shape[0], up.shape[1]
+    p = edge_pad(up, (1, 1), (1, 1))
+    return (p[0:h, 0:w] + 2 * p[0:h, 1:w + 1] + p[0:h, 2:w + 2]
+            + 2 * p[1:h + 1, 0:w] + 4 * p[1:h + 1, 1:w + 1] + 2 * p[1:h + 1, 2:w + 2]
+            + p[2:h + 2, 0:w] + 2 * p[2:h + 2, 1:w + 1] + p[2:h + 2, 2:w + 2]) / 16.0
+
+
+def upsample2x_to(x: Tensor, th: int, tw: int) -> Tensor:
+    """(h, w[, C]) -> (th, tw[, C]): repeat each pixel 2x2, edge-pad or crop
+    to the target, then a 3x3 tent."""
+    up = x.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
+    if up.shape[0] < th or up.shape[1] < tw:
+        up = edge_pad(up, (0, max(th - up.shape[0], 0)),
+                      (0, max(tw - up.shape[1], 0)))
+    return _tent3x3(up[:th, :tw])
+
+
+def bilateral_upsample_to(x: Tensor, guide_lo: Tensor, guide_full: Tensor,
+                          th: int, tw: int) -> Tensor:
+    """Depth-guided upsample of a low-res factor `x` (h, w[, c]) to
+    (th, tw[, c]) with a low-res guide (h, w) and the full-res guide
+    (th, tw): six taps of the repeated low-res neighbourhood, each weighted
+    by 1 / (|guide - guide_full| / max(|guide_full|, 1) + 1e-3)."""
+    chan = x.ndim == 3
+    if not chan:
+        x = x[..., None]
+
+    def up_to(a, h, w):
+        while a.shape[0] < h or a.shape[1] < w:
+            a = a.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
+        return a[:h, :w]
+
+    x_at = Shifter(up_to(x, th, tw), 1, 1)
+    g_at = Shifter(up_to(guide_lo[..., None], th, tw)[..., 0], 1, 1)
+    eps = 1e-3
+    acc = torch.zeros((th, tw, x.shape[-1]), dtype=x.dtype, device=x.device)
+    wsum = torch.zeros((th, tw, 1), dtype=x.dtype, device=x.device)
+    scale = torch.clamp(torch.abs(guide_full), min=1.0)
+    for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1), (0, -1), (-1, 0)):
+        w = 1.0 / (torch.abs(g_at(dy, dx) - guide_full) / scale + eps)
+        acc = acc + x_at(dy, dx) * w[..., None]
+        wsum = wsum + w[..., None]
+    out = acc / torch.clamp(wsum, min=1e-9)
+    return out if chan else out[..., 0]

@@ -1,18 +1,19 @@
-"""PBR lighting resolve for one directional light, without atmosphere.
+"""PBR lighting resolve for one directional light.
 
-Port of `garden_tpu.render.lighting` on its no-atmosphere branch: direct
-GGX lighting, hemisphere ambient, emissive, and an analytic sky where no
-geometry was drawn.
+Port of `garden_tpu.render.lighting`: direct GGX lighting scaled by the
+shadow factor, diffuse ambient from the sky's SH irradiance (or a
+hemisphere ambient without atmosphere), the split-sum specular ambient,
+AO on the ambient, emissive, and the sky where no geometry was drawn.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from garden_tpu_torch.core import math3d as m3
-from garden_tpu_torch.render import brdf
+from garden_tpu_torch.render import atmosphere, brdf, ibl
 
 Tensor = torch.Tensor
 
@@ -54,18 +55,52 @@ SUN_INTENSITY = 4.0
 AMBIENT_INTENSITY = 0.35
 
 
-def resolve(g: Dict[str, Tensor], constants: Dict[str, Tensor]) -> Tensor:
-    """G-buffer + constants -> HDR radiance (H, W, 3). Shadow and AO
-    factors come with their passes (not ported yet)."""
+def resolve(g: Dict[str, Tensor], constants: Dict[str, Tensor],
+            sun_intensity: float = SUN_INTENSITY,
+            shadow: Optional[Tensor] = None, ao: Optional[Tensor] = None,
+            ambient_intensity: float = AMBIENT_INTENSITY,
+            ambient_sh: Optional[Tensor] = None, sky: Optional[Tensor] = None,
+            specular_ambient: Optional[Tensor] = None,
+            reflection: Optional[Tensor] = None,
+            reflection_conf: Optional[Tensor] = None,
+            gi: Optional[Tensor] = None) -> Tensor:
+    """G-buffer + constants -> HDR radiance (H, W, 3).
+
+    shadow (H, W[, 1 or 3]) scales the direct light and ao (H, W) the
+    ambient. With `ambient_sh` (9, 3) the diffuse ambient is the SH
+    irradiance, otherwise a hemisphere ambient; `specular_ambient` adds the
+    split-sum environment specular; `sky` (H, W, 3) fills the pixels with
+    no geometry, otherwise the analytic `sky_color` does. The SSR and SSGI
+    inputs are not ported."""
+    for name, x in (("reflection", reflection), ("reflection_conf", reflection_conf),
+                    ("gi", gi)):
+        if x is not None:
+            raise NotImplementedError(
+                f"lighting.resolve({name}=...): SSR and SSGI are not ported yet "
+                "(ROADMAP Queue 1 item 13)")
     dev = g["normal"].device
     l = -constants["light_dir"]
     v = m3.normalize(constants["camera_pos"] - g["position"])
     direct = brdf.evaluate(g["normal"], v, l.expand(g["normal"].shape),
                            g["base_color"], g["metallic"], g["roughness"],
-                           g["reflectance"]) * SUN_INTENSITY
-    sky_up = torch.tensor([0.45, 0.55, 0.70], device=dev) * AMBIENT_INTENSITY
-    ground_dn = torch.tensor([0.12, 0.10, 0.08], device=dev) * AMBIENT_INTENSITY
-    amb = brdf.ambient(g["normal"], g["base_color"], g["metallic"], sky_up, ground_dn)
+                           g["reflectance"]) * sun_intensity
+    if shadow is not None:
+        direct = direct * (shadow[..., None] if shadow.ndim == 2 else shadow)
+    if ambient_sh is not None:
+        irradiance = atmosphere.sh_irradiance(g["normal"], ambient_sh)
+        amb = g["base_color"] * (1.0 - g["metallic"][..., None]) * irradiance
+    else:
+        sky_up = torch.tensor([0.45, 0.55, 0.70], device=dev) * ambient_intensity
+        ground_dn = torch.tensor([0.12, 0.10, 0.08], device=dev) * ambient_intensity
+        amb = brdf.ambient(g["normal"], g["base_color"], g["metallic"], sky_up,
+                           ground_dn)
+    if specular_ambient is not None:
+        nov = torch.clamp(m3.dot(g["normal"], v), min=1e-4)
+        f0 = brdf.f0_from_material(g["base_color"], g["metallic"], g["reflectance"])
+        amb = amb + specular_ambient * ibl.specular_env_brdf(f0, nov, g["roughness"])
+    if ao is not None:
+        amb = amb * ao[..., None]
     radiance = direct + amb + g["emissive"]
-    sky = sky_color(view_rays(g, constants), l)
+    if sky is None:
+        sky = sky_color(view_rays(g, constants), l)
     return torch.where(g["visible"][..., None], radiance, sky)

@@ -1,19 +1,24 @@
-"""Software rasterization: triangle setup, tile binning and the fused
-visibility + G-buffer raster.
+"""Software rasterization: triangle setup, tile binning, the fused
+visibility + G-buffer raster and the depth-only raster of the shadow atlas.
 
-Port of the main-view path of `garden_tpu.render.raster`:
+Port of `garden_tpu.render.raster`'s main-view and cascade paths:
 
 1. `setup_triangles_planes`: clip-space corners -> screen coordinates,
    reverse-Z depth, 1/w, backface and near culls, screen bounds.
 2. `bin_triangles`: each small triangle emits (tile, triangle) pairs for
    its tile footprint; one sort by (tile, depth bucket, triangle) gives
    every tile a contiguous run. Triangles with a larger footprint go to a
-   short "big" list that every tile draws first.
+   short "big" list that every tile draws first. `bin_triangles_corner`
+   (one sorted entry per caster, lists assembled from four neighbour runs)
+   and `bin_big_supertiles` bin the cascade atlas.
 3. `rasterize_visibility_shaded`: per tile, scan the big list and then the
    tile's own list, keep the nearest hit per pixel, and finish the
    G-buffer planes from the winner's shading record. On a CUDA tensor this
    launches the hand-written kernel `csrc/raster_shade.cu`; on a CPU tensor
    it runs `raster_shade_plain`, the same computation in PyTorch.
+4. `rasterize_depth`: the max-reduce depth raster, dense (kernel
+   depth_dense) or split (depth_super, then depth_grid), from
+   `csrc/depth_raster.cu`, each with its plain version.
 
 Depth is reverse-Z: larger is nearer, 0 is empty.
 """
@@ -66,6 +71,14 @@ def setup_triangles_planes(cx: Tensor, cy: Tensor, cz: Tensor, cw: Tensor,
             "valid": valid}
 
 
+def _grid(width: int, height: int, tile: int, tile_h: int):
+    """(tiles_x, tiles_y, tiles) of a width x height frame in tile x tile_h
+    tiles."""
+    tiles_x = -(-width // tile)
+    tiles_y = -(-height // tile_h)
+    return tiles_x, tiles_y, tiles_x * tiles_y
+
+
 def bin_triangles(setup: Dict[str, Tensor], width: int, height: int, tile: int,
                   max_per_tile: int, max_big: int = 64,
                   bucket_priority: Tensor = None, foot: int = 4,
@@ -81,18 +94,10 @@ def bin_triangles(setup: Dict[str, Tensor], width: int, height: int, tile: int,
     The big list is ordered the same way."""
     th = tile_h or tile
     foot_y = foot_y or foot
-    tiles_x = -(-width // tile)
-    tiles_y = -(-height // th)
-    n_tiles = tiles_x * tiles_y
+    tiles_x, tiles_y, n_tiles = _grid(width, height, tile, th)
     t = setup["valid"].shape[0]
     dev = setup["valid"].device
-
-    def span(lo, hi, size, n):
-        a = torch.clamp(torch.floor(lo / size).long(), 0, n - 1)
-        b = torch.clamp(torch.floor(hi / size).long(), 0, n - 1)
-        return a, b - a + 1
-    tx0, nx = span(setup["xmin"], setup["xmax"], tile, tiles_x)
-    ty0, ny = span(setup["ymin"], setup["ymax"], th, tiles_y)
+    tx0, nx, ty0, ny = _tile_spans(setup, tile, th, tiles_x, tiles_y)
     small = setup["valid"] & (nx <= foot) & (ny <= foot_y)
     big = setup["valid"] & ~small
 
@@ -141,11 +146,165 @@ def bin_triangles(setup: Dict[str, Tensor], width: int, height: int, tile: int,
     return tile_tris, counts, big_list
 
 
-def _pack_edge_records(setup: Dict[str, Tensor]) -> Tensor:
+def _tile_spans(setup: Dict[str, Tensor], tile: int, th: int, tiles_x: int,
+                tiles_y: int):
+    """Per triangle: first tile column and row of its bounds, and how many
+    tile columns and rows the bounds span (clamped to the grid)."""
+    def span(lo, hi, size, n):
+        a = torch.clamp(torch.floor(lo / size).long(), 0, n - 1)
+        b = torch.clamp(torch.floor(hi / size).long(), 0, n - 1)
+        return a, b - a + 1
+    tx0, nx = span(setup["xmin"], setup["xmax"], tile, tiles_x)
+    ty0, ny = span(setup["ymin"], setup["ymax"], th, tiles_y)
+    return tx0, nx, ty0, ny
+
+
+def _sort_runs(key: Tensor, payload: Tensor, n_payload: int, n_keys: int):
+    """Sort (key, payload) pairs, payloads in [0, n_payload), by key and
+    then payload in one packed int64 sort; -> (sorted payloads, run
+    edges): edges[k] is the first position whose key is >= k, for k in
+    [0, n_keys]."""
+    bits = max(int(np.ceil(np.log2(max(n_payload, 2)))), 1)
+    packed = torch.sort((key.long() << bits) | payload.long()).values
+    probes = torch.arange(n_keys + 1, device=key.device)
+    edges = torch.searchsorted(packed >> bits, probes, side="left")
+    return packed & ((1 << bits) - 1), edges
+
+
+INT32_MAX = 2147483647
+
+
+def _top_tiles(cnt: Tensor, n_tiles: int, a: int) -> Tensor:
+    """The `a` tiles with the largest counts, largest first; among equal
+    counts the higher tile index comes first (the reference's descending
+    order of the packed (count << bits | tile) key, counts clamped so the
+    key keeps 30 bits)."""
+    bits_t = max(int(np.ceil(np.log2(n_tiles + 1))), 1)
+    cnt_c = torch.clamp(cnt.long(), max=(1 << (30 - bits_t)) - 1)
+    packed = torch.sort((cnt_c << bits_t)
+                        | torch.arange(n_tiles, device=cnt.device)).values
+    return (packed.flip(0)[:a] & ((1 << bits_t) - 1)).int()
+
+
+def bin_triangles_corner(setup: Dict[str, Tensor], width: int, height: int,
+                         tile: int, max_per_tile: int, max_big: int = 64,
+                         tile_h: int = None, max_active: int = None
+                         ) -> Tuple[Tensor, ...]:
+    """Binning for order-free consumers (the depth raster's max-reduce):
+    each small triangle (bounds within 2x2 tiles) is sorted once by its
+    top-left tile, and each tile assembles its list from the four runs
+    that can reach it (own, left, up, up-left), keeping only entries whose
+    footprint extends into it. Larger triangles go to the big list.
+
+    Returns (tile_tris (tiles, max_per_tile) int32 padded with -1 and
+    compacted in ascending id order, counts (tiles,), big_list
+    (max_big,)); with max_active, only the max_active tiles with the most
+    candidates keep a list, and a fourth output act_ids (max_active,)
+    names them."""
+    th = tile_h or tile
+    tiles_x, tiles_y, n_tiles = _grid(width, height, tile, th)
+    t = setup["valid"].shape[0]
+    dev = setup["valid"].device
+    tx0, nx, ty0, ny = _tile_spans(setup, tile, th, tiles_x, tiles_y)
+    small = setup["valid"] & (nx <= 2) & (ny <= 2)
+    big = setup["valid"] & ~small
+    key = torch.where(small, ty0 * tiles_x + tx0,
+                      torch.where(big, n_tiles, n_tiles + 1))
+    pay_sorted, edges = _sort_runs(key, torch.arange(t, device=dev), t,
+                                   n_tiles + 1)
+    start = edges[:n_tiles]
+    length = edges[1:n_tiles + 1] - start
+
+    # the runs of the tile itself, its left, upper and upper-left
+    # neighbours; runs across the frame's left or top border are empty
+    idx = torch.arange(n_tiles, device=dev)
+    col0 = (idx % tiles_x) == 0
+    row0 = idx < tiles_x
+    runs = [(start, length)]
+    for shift, dead in ((1, col0), (tiles_x, row0), (tiles_x + 1, row0 | col0)):
+        runs.append((torch.roll(start, shift),
+                     torch.where(dead, 0, torch.roll(length, shift))))
+    act_ids = None
+    if max_active is not None:
+        act_ids = _top_tiles(sum(l for _, l in runs), n_tiles,
+                             min(max_active, n_tiles))
+        runs = [(s[act_ids.long()], l[act_ids.long()]) for s, l in runs]
+
+    # slot j of a list walks the concatenation of the four runs
+    j = torch.arange(max_per_tile, device=dev)[None, :]
+    src = torch.zeros((runs[0][0].shape[0], max_per_tile), dtype=torch.long,
+                      device=dev)
+    need = torch.zeros_like(src)
+    any_run = torch.zeros(src.shape, dtype=torch.bool, device=dev)
+    lo = torch.zeros_like(runs[0][1])
+    for r, (s, l) in enumerate(runs):
+        inr = (j >= lo[:, None]) & (j < (lo + l)[:, None])
+        src = torch.where(inr, s[:, None] + (j - lo[:, None]), src)
+        need = need | torch.where(inr, r, 0)   # run r needs footprint bits r
+        any_run = any_run | inr
+        lo = lo + l
+    pay = pay_sorted[torch.clamp(src, 0, t - 1)]
+    # footprint bits: 1 = reaches the next tile column, 2 = the next row
+    fp = (nx > 1).long() | ((ny > 1).long() << 1)
+    fpe = fp[torch.clamp(pay, 0, t - 1)]
+    covered = any_run & ((fpe & need) == need)
+    slot_val = torch.sort(torch.where(covered, pay, INT32_MAX), dim=1).values
+    tile_tris = torch.where(slot_val == INT32_MAX, -1, slot_val).int()
+    counts = covered.sum(dim=1).int()
+
+    max_big = min(max_big, t)
+    big_cnt = edges[n_tiles + 1] - edges[n_tiles]
+    slots = torch.arange(max_big, device=dev)
+    big_pay = pay_sorted[torch.clamp(edges[n_tiles] + slots, 0, t - 1)]
+    big_list = torch.where(slots < big_cnt, big_pay, -1).int()
+    if act_ids is not None:
+        return tile_tris, counts, big_list, act_ids
+    return tile_tris, counts, big_list
+
+
+def bin_big_supertiles(setup: Dict[str, Tensor], big_list: Tensor, width: int,
+                       height: int, tile: int, tile_h: int, sup_x: int,
+                       sup_y: int, cap: int
+                       ) -> Tuple[Tensor, Tensor, Tuple[int, int, int]]:
+    """Per super-tile big lists: each big triangle of `big_list` is binned
+    onto a coarse grid of sup_x x sup_y tiles, into every super-tile its
+    bounds overlap (no footprint limit). Returns (sup_tris (n_sup, cap)
+    int32 padded with -1, sup_counts (n_sup,), (sup_x, sup_y, sups_x))."""
+    th = tile_h or tile
+    tiles_x, tiles_y, _ = _grid(width, height, tile, th)
+    sups_x = -(-tiles_x // sup_x)
+    n_sup = sups_x * -(-tiles_y // sup_y)
+    spw = float(tile * sup_x)
+    sph = float(th * sup_y)
+    t = setup["valid"].shape[0]
+    dev = big_list.device
+    safe = torch.clamp(big_list.long(), 0, t - 1)
+    ok = big_list >= 0
+    x0, x1 = setup["xmin"][safe][:, None], setup["xmax"][safe][:, None]
+    y0, y1 = setup["ymin"][safe][:, None], setup["ymax"][safe][:, None]
+    s = torch.arange(n_sup, device=dev)
+    sx0 = (s % sups_x).float()[None, :] * spw
+    sy0 = torch.div(s, sups_x, rounding_mode="floor").float()[None, :] * sph
+    hit = (ok[:, None] & (x1 >= sx0) & (x0 < sx0 + spw)
+           & (y1 >= sy0) & (y0 < sy0 + sph))
+    key = torch.where(hit, s[None, :], n_sup).reshape(-1)
+    payload = safe[:, None].expand(-1, n_sup).reshape(-1)
+    pay_sorted, edges = _sort_runs(key, payload, t, n_sup)
+    start, end = edges[:-1], edges[1:]
+    gather = start[:, None] + torch.arange(cap, device=dev)[None, :]
+    in_range = gather < end[:, None]
+    gather = torch.clamp(gather, 0, key.shape[0] - 1)
+    sup_tris = torch.where(in_range, pay_sorted[gather], -1).int()
+    sup_counts = torch.clamp(end - start, max=cap).int()
+    return sup_tris, sup_counts, (sup_x, sup_y, sups_x)
+
+
+def _pack_edge_records(setup: Dict[str, Tensor], tri_atlas: Tensor = None) -> Tensor:
     """(T + 1, 16) per-triangle records in edge-coefficient form:
-    [a0 a1 a2 | b0 b1 b2 | c0 c1 c2 | S | z2 | dz0 | dz1 | inv_area | id | 0]
-    with e_k = a_k px + b_k py + c_k and e0 + e1 + e2 = S. Row T is a
-    sentinel (id -1) that empty list slots point at."""
+    [a0 a1 a2 | b0 b1 b2 | c0 c1 c2 | S | z2 | dz0 | dz1 | inv_area | id |
+    atlas] with e_k = a_k px + b_k py + c_k and e0 + e1 + e2 = S; `atlas`
+    is the triangle's cascade index (tri_atlas) or 0. Row T is a sentinel
+    (id -1) that empty list slots point at."""
     sx, sy, z = setup["sx"], setup["sy"], setup["z"]
     a, b, c = [], [], []
     for k in range(3):
@@ -157,9 +316,9 @@ def _pack_edge_records(setup: Dict[str, Tensor]) -> Tensor:
     s_const = a[0] * sx[0] + b[0] * sy[0] + c[0]
     t_count = sx.shape[1]
     ids = torch.arange(t_count, dtype=torch.float32, device=sx.device)
+    atlas = tri_atlas.float() if tri_atlas is not None else torch.zeros_like(ids)
     rec = torch.stack(a + b + c + [s_const, z[2], z[0] - z[2], z[1] - z[2],
-                                   setup["inv_area"], ids, torch.zeros_like(ids)],
-                      dim=-1)
+                                   setup["inv_area"], ids, atlas], dim=-1)
     sentinel = torch.zeros((1, EDGE_WIDTH), device=sx.device)
     sentinel[0, 14] = -1.0
     return torch.cat([rec, sentinel], dim=0)
@@ -202,6 +361,17 @@ def _tiles_to_image(x: Tensor, tiles_y: int, tiles_x: int, th: int, tw: int,
     return x.reshape(lead + (tiles_y * th, tiles_x * tw))[..., :height, :width]
 
 
+def _tile_coords(tiles: Tensor, tiles_x: int, tile: int, th: int):
+    """Pixel centres (rows, th * tile) of the given tiles, row-major."""
+    pix = torch.arange(th * tile, device=tiles.device)
+    col = (pix % tile).float()[None, :]
+    row = torch.div(pix, tile, rounding_mode="floor").float()[None, :]
+    px = ((tiles % tiles_x) * tile).float()[:, None] + 0.5 + col
+    py = (torch.div(tiles, tiles_x, rounding_mode="floor") * th).float()[:, None] \
+        + 0.5 + row
+    return px, py
+
+
 def raster_shade_plain(edge: Tensor, shade: Tensor, tile_tris: Tensor,
                        counts: Tensor, big_list: Tensor, width: int,
                        height: int, tile: int, tile_h: int,
@@ -212,9 +382,7 @@ def raster_shade_plain(edge: Tensor, shade: Tensor, tile_tris: Tensor,
     pixels) temporaries stay under `max_elems` elements each."""
     dev = edge.device
     th = tile_h
-    tiles_x = -(-width // tile)
-    tiles_y = -(-height // th)
-    n_tiles = tiles_x * tiles_y
+    tiles_x, tiles_y, n_tiles = _grid(width, height, tile, th)
     t_count = edge.shape[0] - 1
     n_px = th * tile
     lists = torch.cat([big_list[None, :].expand(n_tiles, -1), tile_tris], dim=1)
@@ -228,9 +396,6 @@ def raster_shade_plain(edge: Tensor, shade: Tensor, tile_tris: Tensor,
     rank = slot - slot % TRI_BLOCK + bitrev[slot % TRI_BLOCK]
     slot_of_rank = torch.empty_like(rank)
     slot_of_rank[rank] = slot
-    pix = torch.arange(n_px, device=dev)
-    col = (pix % tile).float()
-    row = torch.div(pix, tile, rounding_mode="floor").float()
 
     depth = torch.zeros((n_tiles, n_px), device=dev)
     tri_id = torch.full((n_tiles, n_px), -1, dtype=torch.int32, device=dev)
@@ -240,9 +405,7 @@ def raster_shade_plain(edge: Tensor, shade: Tensor, tile_tris: Tensor,
     step = max(1, max_elems // (n_slots * n_px))
     for t0 in range(0, n_tiles, step):
         tiles = torch.arange(t0, min(t0 + step, n_tiles), device=dev)
-        px = ((tiles % tiles_x) * tile).float()[:, None] + 0.5 + col[None, :]
-        py = (torch.div(tiles, tiles_x, rounding_mode="floor") * th).float()[:, None] \
-            + 0.5 + row[None, :]
+        px, py = _tile_coords(tiles, tiles_x, tile, th)
         sid = safe[tiles]                               # (nt, S)
         d = edge[sid][..., None]                        # (nt, S, 16, 1)
         pxs, pys = px[:, None, :], py[:, None, :]
@@ -278,20 +441,33 @@ def raster_shade_plain(edge: Tensor, shade: Tensor, tile_tris: Tensor,
     return vis, img(planes)
 
 
-def _check(name: str, x: Tensor, dtype: torch.dtype, shape: tuple, device):
+def _check(name: str, x: Tensor, dtype: torch.dtype, shape: tuple, device,
+           kernel: str = "raster_shade"):
     if x.device != device:
-        raise ValueError(f"raster_shade: {name} is on {x.device}, expected {device}")
+        raise ValueError(f"{kernel}: {name} is on {x.device}, expected {device}")
     if x.dtype != dtype:
-        raise ValueError(f"raster_shade: {name} has dtype {x.dtype}, expected {dtype}")
+        raise ValueError(f"{kernel}: {name} has dtype {x.dtype}, expected {dtype}")
     if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"raster_shade: {name} has shape {tuple(x.shape)}, "
+        raise ValueError(f"{kernel}: {name} has shape {tuple(x.shape)}, "
                          f"expected {tuple(shape)}")
     if not x.is_contiguous():
-        raise ValueError(f"raster_shade: {name} is not contiguous")
+        raise ValueError(f"{kernel}: {name} is not contiguous")
 
 
 _THREADS = 256
 _MAX_SMEM = 232448     # per-block shared memory limit on Hopper
+
+
+def _ptr(x: Tensor):
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def _call(fn, argtypes, kernel: str, *args) -> None:
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
 
 
 def raster_shade_cuda(edge: Tensor, shade: Tensor, tile_tris: Tensor,
@@ -306,9 +482,7 @@ def raster_shade_cuda(edge: Tensor, shade: Tensor, tile_tris: Tensor,
     if dev.type != "cuda":
         raise ValueError(f"raster_shade_cuda needs CUDA tensors, got {dev}")
     th = tile_h
-    tiles_x = -(-width // tile)
-    tiles_y = -(-height // th)
-    n_tiles = tiles_x * tiles_y
+    tiles_x, tiles_y, n_tiles = _grid(width, height, tile, th)
     t1 = edge.shape[0]
     cap = tile_tris.shape[1]
     n_big = big_list.shape[0]
@@ -334,20 +508,15 @@ def raster_shade_cuda(edge: Tensor, shade: Tensor, tile_tris: Tensor,
     b0 = torch.empty((height, width), device=dev)
     b1 = torch.empty((height, width), device=dev)
     planes = torch.empty((GBUF_PLANES, height, width), device=dev)
-    lib = cuda_build.load("raster_shade")
-    fn = lib.raster_shade_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
-                   + [ctypes.c_void_p] * 6)
-    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(ptr(edge), ptr(shade), ptr(tile_tris), ptr(counts), ptr(big_list),
-             n_big, cap, t1 - 1, shade.shape[1], n_tiles, tiles_x, tile, th,
-             width, height, smem,
-             ptr(depth), ptr(tri_id), ptr(b0), ptr(b1), ptr(planes),
-             ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"raster_shade kernel launch failed: CUDA error {err}")
+    _call(cuda_build.load("raster_shade").raster_shade_launch,
+          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 6,
+          "raster_shade",
+          _ptr(edge), _ptr(shade), _ptr(tile_tris), _ptr(counts), _ptr(big_list),
+          n_big, cap, t1 - 1, shade.shape[1], n_tiles, tiles_x, tile, th,
+          width, height, smem,
+          _ptr(depth), _ptr(tri_id), _ptr(b0), _ptr(b1), _ptr(planes),
+          ctypes.c_void_p(stream))
     rasterize_visibility_shaded.launches += 1
     return {"depth": depth, "tri_id": tri_id, "b0": b0, "b1": b1}, planes
 
@@ -391,3 +560,387 @@ def rasterize_visibility_shaded(setup: Dict[str, Tensor], shade_records: Tensor,
 
 
 rasterize_visibility_shaded.launches = 0
+
+
+# -- depth-only raster (the shadow cascades) ----------------------------------
+#
+# Three kernels share one inner loop: per list slot and pixel, the edge test,
+# the interpolated reverse-Z and a max-reduce. `depth_dense` (one pass: the
+# shared big list, then each tile's list) and the split pair `depth_super`
+# (every tile draws its super-tile's big list) + `depth_grid` (the active
+# tiles merge their lists onto that result in place). Each has a plain
+# PyTorch version, which CPU tensors take, and a CUDA kernel in
+# csrc/depth_raster.cu, which CUDA tensors launch.
+
+DEPTH_THREADS = 256
+MAX_ATLAS_RECTS = 8
+
+
+def _pad_slots(lists: Tensor) -> Tensor:
+    """(rows, C) int32 lists padded with -1 to a multiple of TRI_BLOCK."""
+    pad = (-lists.shape[-1]) % TRI_BLOCK
+    return torch.nn.functional.pad(lists.int(), (0, pad), value=-1).contiguous()
+
+
+def _bound_table(records: Tensor, lists: Tensor) -> Tensor:
+    """(rows, nb + 1) early-exit bounds of (rows, nb * 16) lists: column cb
+    is the largest zmax = z2 + max(dz0, dz1, 0) of any record in blocks
+    cb.. of the row's list (a suffix max over 16-slot blocks), and the
+    last column is -1. A tile whose every pixel is already at depth >=
+    bound[cb + 1] after block cb cannot gain from the rest."""
+    t_count = records.shape[0] - 1
+    zmax = records[:, 10] + torch.clamp(
+        torch.maximum(records[:, 11], records[:, 12]), min=0.0)
+    rz = torch.where(lists >= 0, zmax[torch.where(lists >= 0, lists, t_count).long()],
+                     -1.0)
+    rows = lists.shape[0]
+    blk = rz.reshape(rows, -1, TRI_BLOCK).amax(dim=2)
+    suffix = torch.cummax(blk.flip(1), dim=1).values.flip(1)
+    return torch.cat([suffix, torch.full((rows, 1), -1.0, device=lists.device)],
+                     dim=1).contiguous()
+
+
+def _image_tiles(img: Tensor, tiles_x: int, tile: int, th: int) -> Tensor:
+    """A padded (tiles_y * th, tiles_x * tile) image -> (tiles, th * tile)."""
+    tiles_y = img.shape[0] // th
+    return img.reshape(tiles_y, th, tiles_x, tile).transpose(1, 2) \
+        .reshape(tiles_y * tiles_x, th * tile)
+
+
+def _atlas_guard(idx: Tensor, px: Tensor, py: Tensor, atlas_bounds: tuple) -> Tensor:
+    """Cascade-atlas clip: a record counts only inside the (x0, x1, y0, y1)
+    rect of its cascade (record lane 15); an index that names no rect
+    covers nothing."""
+    x0a = torch.zeros_like(idx)
+    x1a = torch.zeros_like(idx)
+    y0a = torch.zeros_like(idx)
+    y1a = torch.zeros_like(idx)
+    for ci, (x0, x1, y0, y1) in enumerate(atlas_bounds):
+        m = idx == float(ci)
+        x0a = torch.where(m, float(x0), x0a)
+        x1a = torch.where(m, float(x1), x1a)
+        y0a = torch.where(m, float(y0), y0a)
+        y1a = torch.where(m, float(y1), y1a)
+    return (px >= x0a) & (px < x1a) & (py >= y0a) & (py < y1a)
+
+
+def _depth_candidates(d: Tensor, px: Tensor, py: Tensor, atlas_bounds: tuple
+                      ) -> Tensor:
+    """Reverse-Z depth of each record d (rows, S, 16, 1) at pixel centres
+    (rows, 1, n_px) where the pixel is inside, 0 elsewhere."""
+    e0 = d[:, :, 0] * px + d[:, :, 3] * py + d[:, :, 6]
+    e1 = d[:, :, 1] * px + d[:, :, 4] * py + d[:, :, 7]
+    e2 = d[:, :, 9] - e0 - e1
+    inv_area = d[:, :, 13]
+    z = d[:, :, 10] + e0 * inv_area * d[:, :, 11] + e1 * inv_area * d[:, :, 12]
+    cand = ((e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (z <= 1.0) & (z > 0.0)
+            & (d[:, :, 14] >= 0.0))
+    if atlas_bounds:
+        cand = cand & _atlas_guard(d[:, :, 15], px, py, atlas_bounds)
+    return torch.where(cand, z, torch.zeros_like(z))
+
+
+def _depth_blocks(records: Tensor, lists: Tensor, n_blocks: Tensor,
+                  depth: Tensor, px: Tensor, py: Tensor, atlas_bounds: tuple,
+                  bound: Tensor = None) -> Tensor:
+    """Max-merge the 16-slot blocks 0 .. n_blocks - 1 of each row's list
+    into depth (rows, n_px). With `bound`, a row stops after block cb once
+    its smallest depth is >= bound[:, cb + 1] (the kernels' early exit)."""
+    t_count = records.shape[0] - 1
+    n_blocks = torch.clamp(n_blocks.long(), max=lists.shape[1] // TRI_BLOCK)
+    done = torch.zeros(lists.shape[0], dtype=torch.bool, device=lists.device)
+    px, py = px[:, None, :], py[:, None, :]
+    for cb in range(int(n_blocks.max()) if n_blocks.numel() else 0):
+        ids = lists[:, cb * TRI_BLOCK:(cb + 1) * TRI_BLOCK]
+        d = records[torch.where(ids >= 0, ids, t_count).long()][..., None]
+        zs = torch.amax(_depth_candidates(d, px, py, atlas_bounds), dim=1)
+        act = (cb < n_blocks) & ~done
+        depth = torch.where(act[:, None], torch.maximum(depth, zs), depth)
+        if bound is not None:
+            done = done | (act & (torch.amin(depth, dim=1) >= bound[:, cb + 1]))
+    return depth
+
+
+def _blocks_of(counts: Tensor) -> Tensor:
+    return torch.div(counts.long() + TRI_BLOCK - 1, TRI_BLOCK, rounding_mode="floor")
+
+
+def depth_super_plain(records: Tensor, sup_tris: Tensor, sup_counts: Tensor,
+                      sup_grid: tuple, width: int, height: int, tile: int,
+                      tile_h: int, atlas_bounds: tuple = (),
+                      max_elems: int = 1 << 23) -> Tensor:
+    """Split pass 1, plain version of the depth_super kernel: every tile
+    max-reduces its super-tile's big list. -> the padded depth image
+    (tiles_y * tile_h, tiles_x * tile). Tiles run in chunks whose
+    (tiles, 16, pixels) temporaries stay under `max_elems` elements."""
+    sup_x, sup_y, sups_x = sup_grid
+    tiles_x, tiles_y, n_tiles = _grid(width, height, tile, tile_h)
+    n_px = tile * tile_h
+    dev = records.device
+    out = torch.zeros((n_tiles, n_px), device=dev)
+    step = max(1, max_elems // (TRI_BLOCK * n_px))
+    for t0 in range(0, n_tiles, step):
+        tiles = torch.arange(t0, min(t0 + step, n_tiles), device=dev)
+        sup = (torch.div(tiles, tiles_x * sup_y, rounding_mode="floor") * sups_x
+               + torch.div(tiles % tiles_x, sup_x, rounding_mode="floor"))
+        px, py = _tile_coords(tiles, tiles_x, tile, tile_h)
+        out[tiles] = _depth_blocks(records, sup_tris[sup], _blocks_of(sup_counts[sup]),
+                                   out[tiles], px, py, atlas_bounds)
+    return _tiles_to_image(out, tiles_y, tiles_x, tile_h, tile, tiles_y * tile_h,
+                           tiles_x * tile)
+
+
+def depth_grid_plain(depth: Tensor, records: Tensor, act_ids: Tensor,
+                     act_cnt: Tensor, tile_tris: Tensor, bound: Tensor,
+                     width: int, height: int, tile: int, tile_h: int,
+                     atlas_bounds: tuple = (), max_elems: int = 1 << 23) -> Tensor:
+    """Split pass 2, plain version of the depth_grid kernel: row i of the
+    compacted lists belongs to tile act_ids[i], whose pixels of the padded
+    `depth` image it max-merges its list onto, with the early exit. Updates
+    `depth` in place and returns it; other tiles keep their values."""
+    tiles_x, _, _ = _grid(width, height, tile, tile_h)
+    n_px = tile * tile_h
+    img = _image_tiles(depth, tiles_x, tile, tile_h).clone()
+    rows = act_ids.shape[0]
+    step = max(1, max_elems // (TRI_BLOCK * n_px))
+    for r0 in range(0, rows, step):
+        r = torch.arange(r0, min(r0 + step, rows), device=depth.device)
+        tiles = act_ids[r].long()
+        px, py = _tile_coords(tiles, tiles_x, tile, tile_h)
+        img[tiles] = _depth_blocks(records, tile_tris[r], _blocks_of(act_cnt[r]),
+                                   img[tiles], px, py, atlas_bounds, bound[r])
+    depth.copy_(_tiles_to_image(img, depth.shape[0] // tile_h, tiles_x, tile_h,
+                                tile, depth.shape[0], depth.shape[1]))
+    return depth
+
+
+def depth_dense_plain(records: Tensor, tile_tris: Tensor, counts: Tensor,
+                      big_list: Tensor, bound: Tensor, width: int, height: int,
+                      tile: int, tile_h: int, atlas_bounds: tuple = (),
+                      max_elems: int = 1 << 23) -> Tensor:
+    """Plain version of the depth_dense kernel: every tile max-reduces the
+    shared big list, then its own list with the early exit. -> the padded
+    depth image."""
+    tiles_x, tiles_y, n_tiles = _grid(width, height, tile, tile_h)
+    n_px = tile * tile_h
+    dev = records.device
+    out = torch.zeros((n_tiles, n_px), device=dev)
+    big_blocks = _blocks_of((big_list >= 0).sum())
+    step = max(1, max_elems // (TRI_BLOCK * n_px))
+    for t0 in range(0, n_tiles, step):
+        tiles = torch.arange(t0, min(t0 + step, n_tiles), device=dev)
+        px, py = _tile_coords(tiles, tiles_x, tile, tile_h)
+        d = _depth_blocks(records, big_list[None, :].expand(len(tiles), -1),
+                          big_blocks.expand(len(tiles)), out[tiles], px, py,
+                          atlas_bounds)
+        out[tiles] = _depth_blocks(records, tile_tris[tiles], _blocks_of(counts[tiles]),
+                                   d, px, py, atlas_bounds, bound[tiles])
+    return _tiles_to_image(out, tiles_y, tiles_x, tile_h, tile, tiles_y * tile_h,
+                           tiles_x * tile)
+
+
+def _depth_kernel_setup(kernel: str, records: Tensor, tile: int, tile_h: int,
+                        atlas_bounds: tuple):
+    """Checks shared by the depth kernels' wrappers; -> (library, rects
+    tensor (n, 4) as x0 x1 y0 y1, number of rects, stream)."""
+    from garden_tpu_torch import cuda_build
+
+    dev = records.device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel}_cuda needs CUDA tensors, got {dev}")
+    _check("records", records, torch.float32, (records.shape[0], EDGE_WIDTH), dev,
+           kernel)
+    n_px = tile * tile_h
+    if (DEPTH_THREADS % tile or n_px % DEPTH_THREADS
+            or n_px // DEPTH_THREADS not in (4, 8, 16, 32, 64)):
+        raise ValueError(f"{kernel}: a {tile}x{tile_h} tile is not a kernel shape "
+                         f"(the width must divide {DEPTH_THREADS} and each thread "
+                         "takes 4..64 pixels)")
+    if len(atlas_bounds) > MAX_ATLAS_RECTS:
+        raise ValueError(f"{kernel}: at most {MAX_ATLAS_RECTS} atlas rects")
+    rects = torch.tensor([list(map(float, b)) for b in atlas_bounds] or [[0.0] * 4],
+                         dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return cuda_build.load("depth_raster"), rects, len(atlas_bounds), stream
+
+
+def _smem_bytes(kernel: str, slots: int) -> int:
+    smem = slots * EDGE_WIDTH * 4
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{kernel}: {slots} list slots need {smem} bytes of "
+                         "shared memory")
+    return smem
+
+
+def depth_super_cuda(records: Tensor, sup_tris: Tensor, sup_counts: Tensor,
+                     sup_grid: tuple, width: int, height: int, tile: int,
+                     tile_h: int, atlas_bounds: tuple = ()) -> Tensor:
+    """Launch the depth_super kernel (csrc/depth_raster.cu); same inputs and
+    output as `depth_super_plain`."""
+    lib, rects, n_rects, stream = _depth_kernel_setup(
+        "depth_super", records, tile, tile_h, atlas_bounds)
+    sup_x, sup_y, sups_x = sup_grid
+    tiles_x, tiles_y, n_tiles = _grid(width, height, tile, tile_h)
+    n_sup, cap = sup_tris.shape
+    dev = records.device
+    if cap % TRI_BLOCK or n_sup != sups_x * -(-tiles_y // sup_y):
+        raise ValueError("depth_super: sup_tris must be (n_sup, 16k)")
+    _check("sup_tris", sup_tris, torch.int32, (n_sup, cap), dev, "depth_super")
+    _check("sup_counts", sup_counts, torch.int32, (n_sup,), dev, "depth_super")
+    depth = torch.empty((tiles_y * tile_h, tiles_x * tile), device=dev)
+    _call(lib.depth_super_launch, [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p], "depth_super",
+          _ptr(records), _ptr(sup_tris), _ptr(sup_counts), cap,
+          records.shape[0] - 1, n_tiles, tiles_x, tile, tile_h, sup_x, sup_y,
+          sups_x, _ptr(rects), n_rects, _ptr(depth),
+          _smem_bytes("depth_super", cap), ctypes.c_void_p(stream))
+    depth_super.launches += 1
+    return depth
+
+
+def depth_grid_cuda(depth: Tensor, records: Tensor, act_ids: Tensor,
+                    act_cnt: Tensor, tile_tris: Tensor, bound: Tensor,
+                    width: int, height: int, tile: int, tile_h: int,
+                    atlas_bounds: tuple = ()) -> Tensor:
+    """Launch the depth_grid kernel (csrc/depth_raster.cu), which updates
+    `depth` in place; same inputs and result as `depth_grid_plain`."""
+    lib, rects, n_rects, stream = _depth_kernel_setup(
+        "depth_grid", records, tile, tile_h, atlas_bounds)
+    tiles_x, tiles_y, _ = _grid(width, height, tile, tile_h)
+    rows, cap = tile_tris.shape
+    dev = records.device
+    if cap % TRI_BLOCK:
+        raise ValueError("depth_grid: tile_tris must have 16k columns")
+    _check("depth", depth, torch.float32, (tiles_y * tile_h, tiles_x * tile), dev,
+           "depth_grid")
+    _check("act_ids", act_ids, torch.int32, (rows,), dev, "depth_grid")
+    _check("act_cnt", act_cnt, torch.int32, (rows,), dev, "depth_grid")
+    _check("tile_tris", tile_tris, torch.int32, (rows, cap), dev, "depth_grid")
+    _check("bound", bound, torch.float32, (rows, cap // TRI_BLOCK + 1), dev,
+           "depth_grid")
+    _call(lib.depth_grid_launch, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p], "depth_grid",
+          _ptr(records), _ptr(act_ids), _ptr(act_cnt), _ptr(tile_tris), _ptr(bound),
+          cap, records.shape[0] - 1, rows, tiles_x, tile, tile_h,
+          _ptr(rects), n_rects, _ptr(depth), _smem_bytes("depth_grid", cap),
+          ctypes.c_void_p(stream))
+    depth_grid.launches += 1
+    return depth
+
+
+def depth_dense_cuda(records: Tensor, tile_tris: Tensor, counts: Tensor,
+                     big_list: Tensor, bound: Tensor, width: int, height: int,
+                     tile: int, tile_h: int, atlas_bounds: tuple = ()) -> Tensor:
+    """Launch the depth_dense kernel (csrc/depth_raster.cu); same inputs and
+    output as `depth_dense_plain`."""
+    lib, rects, n_rects, stream = _depth_kernel_setup(
+        "depth_dense", records, tile, tile_h, atlas_bounds)
+    tiles_x, tiles_y, n_tiles = _grid(width, height, tile, tile_h)
+    cap = tile_tris.shape[1]
+    n_big = big_list.shape[0]
+    dev = records.device
+    if cap % TRI_BLOCK or n_big % TRI_BLOCK:
+        raise ValueError("depth_dense: lists must have 16k slots")
+    _check("tile_tris", tile_tris, torch.int32, (n_tiles, cap), dev, "depth_dense")
+    _check("counts", counts, torch.int32, (n_tiles,), dev, "depth_dense")
+    _check("big_list", big_list, torch.int32, (n_big,), dev, "depth_dense")
+    _check("bound", bound, torch.float32, (n_tiles, cap // TRI_BLOCK + 1), dev,
+           "depth_dense")
+    depth = torch.empty((tiles_y * tile_h, tiles_x * tile), device=dev)
+    _call(lib.depth_dense_launch, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p], "depth_dense",
+          _ptr(records), _ptr(tile_tris), _ptr(counts), _ptr(big_list), _ptr(bound),
+          cap, n_big, records.shape[0] - 1, n_tiles, tiles_x, tile, tile_h,
+          _ptr(rects), n_rects, _ptr(depth), _smem_bytes("depth_dense", n_big + cap),
+          ctypes.c_void_p(stream))
+    depth_dense.launches += 1
+    return depth
+
+
+def _on_device(name: str, x: Tensor, cuda_fn, plain_fn):
+    if x.device.type == "cuda":
+        return cuda_fn
+    if x.device.type == "cpu":
+        return plain_fn
+    raise ValueError(f"{name}: no path for device {x.device}")
+
+
+def depth_super(records: Tensor, *args) -> Tensor:
+    """Split pass 1 (`depth_super_plain`): the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors; `launches` counts kernel launches."""
+    return _on_device("depth_super", records, depth_super_cuda,
+                      depth_super_plain)(records, *args)
+
+
+def depth_grid(depth: Tensor, *args) -> Tensor:
+    """Split pass 2 (`depth_grid_plain`), in place on `depth`: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    return _on_device("depth_grid", depth, depth_grid_cuda,
+                      depth_grid_plain)(depth, *args)
+
+
+def depth_dense(records: Tensor, *args) -> Tensor:
+    """The one-pass depth raster (`depth_dense_plain`): the CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors."""
+    return _on_device("depth_dense", records, depth_dense_cuda,
+                      depth_dense_plain)(records, *args)
+
+
+depth_super.launches = 0
+depth_grid.launches = 0
+depth_dense.launches = 0
+
+
+def depth_args(setup: Dict[str, Tensor], tile_tris: Tensor, counts: Tensor,
+               big_list: Tensor, width: int, height: int, tile: int,
+               atlas_bounds: tuple = (), tri_atlas: Tensor = None,
+               tile_h: int = None, sup_bins: tuple = None,
+               max_active: int = None, act_ids: Tensor = None) -> Dict[str, tuple]:
+    """The kernel arguments of `rasterize_depth`: {"dense": the arguments of
+    depth_dense} without sup_bins; otherwise {"super": the arguments of
+    depth_super, "grid": those of depth_grid after its depth image}."""
+    th = tile_h or tile
+    _, _, n_tiles = _grid(width, height, tile, th)
+    geo = (width, height, tile, th, tuple(tuple(b) for b in atlas_bounds))
+    records = _pack_edge_records(setup, tri_atlas)
+    tile_tris = _pad_slots(tile_tris)
+    if sup_bins is None:
+        return {"dense": (records, tile_tris, counts.int().contiguous(),
+                          _pad_slots(big_list[None, :])[0],
+                          _bound_table(records, tile_tris)) + geo}
+    sup_tris, sup_counts, sup_grid = sup_bins
+    if act_ids is None:
+        # the most populated tiles, ties to the lower index (lax.top_k)
+        a = min(max_active or max(n_tiles // 4, 1), n_tiles)
+        act_ids = torch.sort(counts, descending=True, stable=True).indices[:a]
+        counts = counts[act_ids]
+        tile_tris = tile_tris[act_ids].contiguous()
+    return {"super": (records, _pad_slots(sup_tris), sup_counts.int().contiguous(),
+                      tuple(sup_grid)) + geo,
+            "grid": (records, act_ids.int().contiguous(), counts.int().contiguous(),
+                     tile_tris, _bound_table(records, tile_tris)) + geo}
+
+
+def rasterize_depth(setup: Dict[str, Tensor], tile_tris: Tensor, counts: Tensor,
+                    big_list: Tensor, width: int, height: int, tile: int,
+                    atlas_bounds: tuple = (), tri_atlas: Tensor = None,
+                    tile_h: int = None, sup_bins: tuple = None,
+                    max_active: int = None, act_ids: Tensor = None) -> Tensor:
+    """Depth-only raster (H, W) of reverse-Z depth, 0 where empty.
+
+    Dense path: every tile draws the shared big list, then its own list.
+    With `sup_bins` (bin_big_supertiles), the split path: pass 1 draws each
+    tile's super-tile big list, pass 2 merges the lists of the active
+    tiles (`act_ids` from the binning's max_active form, or the
+    `max_active` most populated) onto it; other tiles lose their list.
+    `atlas_bounds` + `tri_atlas` clip each caster to its cascade's rect."""
+    a = depth_args(setup, tile_tris, counts, big_list, width, height, tile,
+                   atlas_bounds, tri_atlas, tile_h, sup_bins, max_active, act_ids)
+    if "dense" in a:
+        depth = depth_dense(*a["dense"])
+    else:
+        depth = depth_grid(depth_super(*a["super"]), *a["grid"])
+    return depth[:height, :width]

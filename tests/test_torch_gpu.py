@@ -8,6 +8,9 @@ The raster_shade kernel must agree with its plain PyTorch version run on
 the card: tri_id, depth and barycentrics exactly (the kernel is built with
 -fmad=false and evaluates the same ops in the same order), the G-buffer
 planes to 2e-5 (the kernel's rsqrtf may differ from torch.rsqrt by an ulp).
+The depth kernels (depth_super, depth_grid, depth_dense) must equal their
+plain versions exactly, and the split pair the dense one. Small combined
+steps on the card match the CPU within the image bar.
 """
 
 import numpy as np
@@ -110,6 +113,104 @@ def test_small_combined_step_matches_cpu(cuda):
     for dev in ("cpu", cuda):
         step, state = build(32, 256, 128, grid_dim=8,
                             cfg_overrides=SLICE_OVERRIDES, device=dev)
+        nxt, img = step(state)
+        out[str(dev)] = (img.cpu(), nxt["physics"]["bodies"]["pos"].cpu())
+    d = (out["cpu"][0].int() - out["cuda"][0].int()).abs().amax(-1)
+    assert (d <= 2).float().mean().item() >= 0.995
+    assert (out["cpu"][1] - out["cuda"][1]).abs().max().item() <= 1e-4
+
+
+def _atlas_setup(seed, w, h, n_small=300, n_big=8):
+    """Setup of front-facing right triangles in atlas pixels: small casters
+    and big ones spanning several super-tiles, some invalid."""
+    rng = np.random.default_rng(seed)
+    px = np.concatenate([rng.uniform(0, w - 12, n_small), rng.uniform(0, w * 0.6, n_big)])
+    py = np.concatenate([rng.uniform(0, h - 6, n_small), rng.uniform(0, h * 0.6, n_big)])
+    ps = np.concatenate([rng.uniform(3, 30, n_small), rng.uniform(100, 400, n_big)])
+    t = n_small + n_big
+    z = rng.uniform(0.1, 0.9, t)
+    sx = np.stack([px, px, px + ps], 0)
+    sy = np.stack([py, py + ps, py], 0)
+    valid = np.ones((t,), bool)
+    valid[::17] = False
+    host = {"sx": sx, "sy": sy, "z": np.stack([z, z * 0.9, z * 1.05], 0),
+            "inv_area": 1.0 / (ps * ps), "xmin": sx.min(0), "xmax": sx.max(0),
+            "ymin": sy.min(0), "ymax": sy.max(0)}
+    setup = {k: torch.tensor(v, dtype=torch.float32) for k, v in host.items()}
+    setup["valid"] = torch.from_numpy(valid)
+    return setup, (np.arange(t) % 2).astype(np.int32)
+
+
+@pytest.mark.parametrize("tile_h", [16, 32, 128])
+def test_depth_kernels_match_plain_on_card(cuda, tile_h):
+    """depth_super, depth_grid (in place on depth_super's output) and
+    depth_dense against their plain versions on the card, bit for bit, with
+    atlas-rect clipping; the split result equals the dense one."""
+    w, h = 512, 256
+    setup, atl = _atlas_setup(7, w, h)
+    setup = {k: v.to(cuda) for k, v in setup.items()}
+    atl = torch.from_numpy(atl).to(cuda)
+    bounds = ((0, 256, 0, 256), (256, 512, 0, 256))
+    dense_b = raster.bin_triangles_corner(setup, w, h, 128, 64, max_big=64,
+                                          tile_h=tile_h)
+    a = raster.depth_args(setup, *dense_b, w, h, 128, bounds, atl, tile_h)["dense"]
+    kd, pd = raster.depth_dense_cuda(*a), raster.depth_dense_plain(*a)
+    tiles, counts, big, act = raster.bin_triangles_corner(
+        setup, w, h, 128, 64, max_big=64, tile_h=tile_h, max_active=10 ** 6)
+    sup = raster.bin_big_supertiles(setup, big, w, h, 128, tile_h, 4,
+                                    max(128 // tile_h, 1), 64)
+    s = raster.depth_args(setup, tiles, counts, big, w, h, 128, bounds, atl,
+                          tile_h, sup, act_ids=act)
+    ks, ps = raster.depth_super_cuda(*s["super"]), raster.depth_super_plain(*s["super"])
+    torch.cuda.synchronize()
+    assert torch.equal(ks, ps)
+    kg = raster.depth_grid_cuda(ks.clone(), *s["grid"])
+    pg = raster.depth_grid_plain(ps.clone(), *s["grid"])
+    torch.cuda.synchronize()
+    assert torch.equal(kd, pd) and torch.equal(kg, pg)
+    assert torch.equal(kg, kd)
+    assert (kd > 0).float().mean().item() > 0.1
+
+
+def test_depth_wrapper_launches_and_counts(cuda):
+    w, h = 512, 256
+    setup, atl = _atlas_setup(9, w, h)
+    bins = raster.bin_triangles_corner(setup, w, h, 128, 64, tile_h=16)
+    cpu = raster.rasterize_depth(setup, *bins, w, h, 128, tile_h=16)
+    before = (raster.depth_dense.launches, raster.depth_super.launches,
+              raster.depth_grid.launches)
+    gpu = raster.rasterize_depth({k: v.to(cuda) for k, v in setup.items()},
+                                 *[b.to(cuda) for b in bins], w, h, 128, tile_h=16)
+    assert raster.depth_dense.launches == before[0] + 1
+    assert torch.equal(gpu.cpu(), cpu)
+    sup = raster.bin_big_supertiles(setup, bins[2], w, h, 128, 16, 4, 8, 64)
+    gs = {k: v.to(cuda) for k, v in setup.items()}
+    raster.rasterize_depth(gs, *[b.to(cuda) for b in bins], w, h, 128, tile_h=16,
+                           sup_bins=(sup[0].to(cuda), sup[1].to(cuda), sup[2]),
+                           max_active=12)
+    assert raster.depth_super.launches == before[1] + 1
+    assert raster.depth_grid.launches == before[2] + 1
+    a = raster.depth_args(gs, *[b.to(cuda) for b in bins], w, h, 128, tile_h=16)
+    bad = list(a["dense"])
+    bad[1] = bad[1].long()                          # lists must be int32
+    with pytest.raises(ValueError):
+        raster.depth_dense_cuda(*bad)
+    bad = list(a["dense"])
+    bad[7] = 100                                    # not a kernel tile shape
+    with pytest.raises(ValueError):
+        raster.depth_dense_cuda(*bad)
+
+
+@pytest.mark.parametrize("shadow", ["split", "dense"])
+def test_small_flagship_step_matches_cpu(cuda, shadow):
+    from garden_tpu_torch.core.config import ShadowConfig
+    kw = (dict(resolve_step=2, cascade_sizes=(256, 128, 128), atlas_tile_h=16,
+               atlas_foot_y=2, max_active_tiles=24) if shadow == "split"
+          else dict(cascade_sizes=(256, 128, 128)))
+    out = {}
+    for dev in ("cpu", cuda):
+        step, state = build(32, 256, 128, grid_dim=8,
+                            cfg_overrides={"shadow": ShadowConfig(**kw)}, device=dev)
         nxt, img = step(state)
         out[str(dev)] = (img.cpu(), nxt["physics"]["bodies"]["pos"].cpu())
     d = (out["cpu"][0].int() - out["cuda"][0].int()).abs().amax(-1)

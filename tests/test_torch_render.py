@@ -213,8 +213,11 @@ def test_tonemap_matches(dtype):
 
 
 @pytest.mark.parametrize("flag", [f for f, _ in tdef._UNPORTED_FLAGS]
-                         + ["render_scale", "translucent"])
+                         + ["render_scale", "translucent", "smaa", "slot_binning"])
 def test_unported_pass_raises(flag):
+    """The flagship passes build; each pass or option that is not ported
+    raises, naming its ROADMAP item."""
+    from garden_tpu_torch.core.config import ShadowConfig
     cfg = dict(width=W, height=H, max_triangles=2000, max_vertices=2000,
                max_instances=16)
     cfg.update({f: False for f, _ in tdef._UNPORTED_FLAGS})
@@ -225,6 +228,10 @@ def test_unported_pass_raises(flag):
     elif flag == "translucent":
         scene.add_instance(tmesh.cube(0.3), material=scene.add_material(
             tmesh.Material(alpha=0.5)))
+    elif flag == "smaa":
+        cfg["aa_mode"] = "smaa"
+    elif flag == "slot_binning":
+        cfg["shadow"] = ShadowConfig(atlas_tile_h=32, atlas_foot_y=4)
     else:
         cfg[flag] = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port's combined step on one CUDA card.
 
-    python3 tools/profile_torch_step.py [--steps 3] [--trace trace.json]
+    python3 tools/profile_torch_step.py [--steps 3] [--slice] [--trace trace.json]
 
-Builds the full-size combined step (10,240 bodies, 1920x1080, the port's
-pass set) and warms it up. First, without the profiler, it prints the
-median wall time (host clock, synchronized) of the physics step, the
-render and the whole step over 10 runs each. Then it profiles `--steps`
-steps with torch.profiler and prints the wall time per step, the device's
-busy time (kernel and copy time, and its share of the wall time), the host
-and device time of each stage (physics, instance matrices, render) and the
+Builds the full-size combined step (10,240 bodies, 1920x1080) with the
+flagship's passes (`--slice`: the first slice's pass set, SLICE_OVERRIDES)
+and warms it up. First, without the profiler, it prints the median wall
+time (host clock, synchronized) of the physics step, the render and the
+whole step over 10 runs each. Then it profiles `--steps` steps with
+torch.profiler and prints the wall time per step, the device's busy time
+(kernel and copy time, and its share of the wall time), the host and
+device time of each stage (physics, instance matrices, and the render's
+main raster, csm_render, csm_resolve, hbao, sky_lighting and post) and the
 operators with the most device time; the profiler adds host overhead to
 every launch. `--trace` also writes a Chrome trace.
 """
@@ -30,6 +32,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--slice", action="store_true",
+                    help="profile the first slice's pass set (SLICE_OVERRIDES)")
     ap.add_argument("--trace", help="write a Chrome trace to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -42,7 +46,9 @@ def main() -> int:
 
     from garden_tpu_torch.entry import SLICE_OVERRIDES, build
     step, state = build(n_bodies=10240, width=1920, height=1080, grid_dim=64,
-                        cfg_overrides=SLICE_OVERRIDES, device="cuda")
+                        cfg_overrides=SLICE_OVERRIDES if args.slice else None,
+                        device="cuda")
+    print("pass set:", "SLICE_OVERRIDES" if args.slice else "flagship")
     for _ in range(3):
         state, _ = step(state)
     torch.cuda.synchronize()
@@ -80,13 +86,20 @@ def main() -> int:
     events = prof.events()
     busy_ms = 0.0
     lines = []
-    for name in ("physics", "instances", "render"):
+    # the render's own ranges (deferred.DeferredRenderer.render) nest in it
+    for name in ("physics", "instances", "render", "raster", "csm_render",
+                 "csm_resolve", "hbao", "sky_lighting", "post"):
         ranges = [e for e in events if e.name == name
                   and e.device_type == torch.autograd.DeviceType.CPU]
+        if not ranges:
+            continue
         ms = sum(r.device_time_total for r in ranges) / 1e3 / args.steps
         host = sum(r.time_range.elapsed_us() for r in ranges) / 1e3 / args.steps
-        busy_ms += ms
-        lines.append(f"stage {name}: host {host:.3f} ms, device {ms:.3f} ms per step")
+        if name in ("physics", "instances", "render"):
+            busy_ms += ms
+        indent = "  " if name not in ("physics", "instances", "render") else ""
+        lines.append(f"{indent}stage {name}: host {host:.3f} ms, device {ms:.3f} ms "
+                     "per step")
     print(f"profiled: wall per step {prof_ms:.3f} ms; device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / prof_ms:.1f}% of wall, idle the rest)")
     print("\n".join(lines))
