@@ -14,7 +14,8 @@ toolkit, and it imports nothing of JAX. Phases, each of which must pass:
    the inputs of one real combined step;
 5. run 5 such steps (K1 once per step, a real frame, finite bodies); 5b:
    one small step on the card against the same step on the CPU;
-6. time K1, its plain version, physics, render and the step;
+6. time K1 (the card's time in it, and one call from an idle card), its
+   plain version, physics, render and the step;
 then the flagship, every pass on:
 a. build the flagship step at full size with no overrides;
 b. on one real flagship atlas: depth_super (K2) and depth_grid (K3, on
@@ -27,11 +28,31 @@ d. render one frame with the reference-parity shadows (ShadowConfig()):
    K4 launches once and equals its plain version;
 e. a small flagship step on the card against the same step on the CPU;
 f. time K2, K3, K4 against their plain versions and the flagship's stages,
-   render and step.
+   render and step;
+then the glass step (`box_materials=GLASS_BOXES`, `GLASS_OVERRIDES`): the
+flagship frame with OIT, refractive and sorted boxes, trans-depth and the
+translucent shadow map, at full size:
+g. build the glass step;
+h. on one real glass frame's inputs, each exactly against its plain
+   version: the visibility kernel (K5), the sorted_blend kernel (K6) on
+   the sorted pass and on the translucent atlas tint, the OIT kernel (K7),
+   and depth_dense (K4) on the translucent casters' atlas and at
+   trans-depth's screen tiles;
+i. run 5 glass steps: K1, K2, K3, K5 and K7 launch once per step, K4 and
+   K6 twice; a real frame whose OIT, refraction, trans-depth and
+   translucent shadow map each drew something; finite bodies;
+j. a small glass step on the card against the same step on the CPU;
+k. time K4, K5, K6 and K7 at the glass step's shapes against their plain
+   versions, the non-opaque stages, the glass render and the glass step.
 
-The line before the last is a JSON object describing each kernel; the last
-line is `{"ok": true, "device": {...}}`. Any failure exits non-zero before
-those lines are printed.
+The line before the last is a JSON object describing each kernel (its
+launches on its main path, max |d| against its plain version, its device
+time, one call of the plain version, and the bound: the least time the card could take
+for the same work, from the work these inputs need: the (slot, pixel)
+pairs that hold a triangle, after early exits, and the record rows the
+lists name, each once); the last line is
+`{"ok": true, "device": {...}}`. Any failure exits non-zero before those
+lines are printed.
 """
 
 import json
@@ -49,11 +70,36 @@ KERNELS = {   # name -> (route, source, the TPU kernel it replaces)
                    "garden_tpu/render/raster.py:1380"),
     "depth_dense": ("cuda", "garden_tpu_torch/csrc/depth_raster.cu",
                     "garden_tpu/render/raster.py:1268"),
+    "visibility": ("cuda", "garden_tpu_torch/csrc/raster_shade.cu",
+                   "garden_tpu/render/raster.py:609"),
+    "sorted_blend": ("cuda", "garden_tpu_torch/csrc/blend_raster.cu",
+                     "garden_tpu/render/raster.py:1076"),
+    "oit": ("cuda", "garden_tpu_torch/csrc/blend_raster.cu",
+            "garden_tpu/render/oit.py:31"),
 }
+SOURCES = ["raster_shade", "depth_raster", "blend_raster"]
 TOL_TRI_AGREE = 0.999      # fraction of pixels whose tri_id must agree
 TOL_VIS = 1e-5             # depth, b0, b1 where the ids agree
 TOL_GBUF = 2e-5            # G-buffer planes (rsqrt may differ by an ulp)
 N_BODIES, WIDTH, HEIGHT = 10240, 1920, 1080
+
+# The bound of a kernel: the larger of its float32 operations over the
+# card's float32 rate outside the tensor cores, and the bytes it must move
+# (each input tensor read once, each output written once) over the memory
+# rate (NVIDIA H100 SXM data sheet, at the full 700 W).
+FP32_RATE = 67e12
+HBM_RATE = 3.35e12
+# float32 operations per (slot, pixel) pair a kernel tests, counted from
+# its inner loop (multiplies, adds, compares and selects):
+# edge form (K1, K2-K4, K5): e0, e1 4 each, e2 2, the two barycentric
+# weights 2, z 4, five coverage compares and the nearer-than compare or
+# max 6 = 22; the atlas rect guard adds 4 compares. Vertex form: the
+# three edges 7 each, b0 and b1 2, z 7, five compares (+4 with rects),
+# then the blend (K6) 1 + 3 x 3 = 10 -> 45, or the OIT weight 6, its
+# select 1, four accumulations 7 and the reveal 2 (K7) -> 50. K1 also
+# finishes the G-buffer, ~60 operations a pixel.
+OPS_EDGE, OPS_RECT, OPS_BLEND, OPS_OIT, OPS_SHADE = 22, 4, 45, 50, 60
+SPIN_CYCLES = 4_000_000    # ~2 ms of the card's clock, ahead of a timed kernel
 
 
 def card_line() -> str:
@@ -81,6 +127,85 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+def kernel_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median milliseconds the card spends in one call of fn(), a kernel
+    wrapper that issues its work without waiting on the card: each call is
+    timed between CUDA events queued behind a ~2 ms spin on the card, so
+    the host has issued the call before the start event runs, and the
+    events time the card's work alone. (Events around a call on an idle
+    card also time the host issuing it: the wrapper's checks and the
+    ctypes call, a large share of a kernel that runs ~0.1 ms.)"""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def nbytes(*xs) -> int:
+    """Bytes of the tensors among xs (other arguments count nothing)."""
+    import torch
+    return sum(x.numel() * x.element_size() for x in xs if isinstance(x, torch.Tensor))
+
+
+def used_slots(tile_tris, counts):
+    """Mask of each tile's list slots [0, counts) that name a triangle."""
+    import torch
+    slot = torch.arange(tile_tris.shape[1], device=tile_tris.device)
+    return (slot[None, :] < counts[:, None].long()) & (tile_tris >= 0)
+
+
+def raster_work(tile_tris, counts, big_list, width: int, height: int, tile: int,
+                tile_h: int):
+    """(pairs, ids) of a raster without early exit: the (slot, pixel) pairs
+    it must test, that is each tile's used list slots and the big list's
+    triangles (None: no big list) times the tile's pixels inside the
+    frame, and the triangle ids those slots name."""
+    import torch
+    own = used_slots(tile_tris, counts)
+    big = tile_tris[:0, 0] if big_list is None else big_list[big_list >= 0]
+    tiles_x = -(-width // tile)
+    t = torch.arange(tile_tris.shape[0], device=tile_tris.device)
+    px = ((width - t % tiles_x * tile).clamp(max=tile)
+          * (height - t // tiles_x * tile_h).clamp(max=tile_h))
+    return int(((own.sum(1) + big.numel()) * px).sum()), torch.cat([tile_tris[own], big])
+
+
+def input_bytes(records, ids, *others) -> int:
+    """Bytes a raster must read: each record row that `ids` names, once,
+    and the tensors among `others` whole."""
+    import torch
+    rows = torch.unique(ids[ids >= 0]).numel()
+    return rows * records.shape[1] * records.element_size() + nbytes(*others)
+
+
+def atlas_inputs(step, mats):
+    """The frame's opaque and translucent caster inputs
+    (DeferredRenderer.cascade_inputs), built as the frame builds them."""
+    from garden_tpu_torch.render import mesh
+    planes, _ = mesh.transform_triangle_planes(step.scene, mats)
+    light, _ = step.renderer.shadow_light(step.constants)
+    return step.renderer.cascade_inputs(step.scene, planes, light)
+
+
+def bound(ops: float, moved: int) -> dict:
+    """bound_ms and bound_by of a kernel doing `ops` float32 operations and
+    moving `moved` bytes."""
+    t_ops, t_bytes = ops / FP32_RATE * 1e3, moved / HBM_RATE * 1e3
+    if t_ops >= t_bytes:
+        return {"bound_ms": t_ops, "bound_by": "operations"}
+    return {"bound_ms": t_bytes, "bound_by": "bytes"}
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -90,14 +215,14 @@ def max_diff(a, b) -> float:
     return (a - b).abs().max().item()
 
 
-def small_step_vs_cpu(build, overrides, phase: str) -> None:
+def small_step_vs_cpu(build, overrides, phase: str, box_materials=None) -> None:
     """One 32-body 256x128 step on the card and on the CPU: tri_id on >=
     99.9% of pixels, the image within 2 levels on >= 99.5%, bodies within
     1e-4."""
     small = {}
     for dev in ("cuda", "cpu"):
         s_step, s_state = build(32, 256, 128, grid_dim=8, cfg_overrides=overrides,
-                                device=dev)
+                                device=dev, box_materials=box_materials)
         s_next, s_img = s_step(s_state)
         s_out = s_step.render(s_step.instance_matrices(s_next["physics"]),
                               s_state["frame"])
@@ -124,15 +249,15 @@ def main() -> int:
 
     from garden_tpu_torch import cuda_build
     from garden_tpu_torch.core.config import ShadowConfig
-    from garden_tpu_torch.entry import (DENSE_SHADOW_OVERRIDES, SLICE_OVERRIDES,
-                                        build)
-    from garden_tpu_torch.render import raster
+    from garden_tpu_torch.entry import (DENSE_SHADOW_OVERRIDES, GLASS_BOXES,
+                                        GLASS_OVERRIDES, SLICE_OVERRIDES, build)
+    from garden_tpu_torch.render import csm, oit, raster
 
     # phase 2: build the kernels, every source at once
     t0 = time.perf_counter()
-    cuda_build.build_all(["raster_shade", "depth_raster"], verbose=True)
-    cuda_build.load("raster_shade")
-    cuda_build.load("depth_raster")
+    cuda_build.build_all(SOURCES, verbose=True)
+    for name in SOURCES:
+        cuda_build.load(name)
     print(f"phase 2: kernels built in {time.perf_counter() - t0:.1f} s")
 
     # phase 3: the combined step at full size, first slice's pass set
@@ -186,21 +311,28 @@ def main() -> int:
     print(f"phase 5: bodies finite; mean drop over 5 steps {fell:.5f} m")
     small_step_vs_cpu(build, SLICE_OVERRIDES, "5b")
 
-    # phase 6: timings of the slice (CUDA events; medians)
+    # phase 6: timings of the slice (medians; K1 also by its device time)
     k_ms = cuda_ms(lambda: raster.raster_shade_cuda(*args), reps=20, warmup=3)
+    k_dev = kernel_ms(lambda: raster.raster_shade_cuda(*args))
     p_ms = cuda_ms(lambda: raster.raster_shade_plain(*args), reps=3)
     phys_ms = cuda_ms(lambda: step.physics(st["physics"]), reps=10)
     mats = step.instance_matrices(st["physics"])
     render_ms = cuda_ms(lambda: step.render(mats, st["frame"]), reps=10)
     step_ms = cuda_ms(lambda: step(st), reps=10)
-    for name, ms in (("raster_shade kernel", k_ms), ("raster_shade plain", p_ms),
+    for name, ms in (("raster_shade kernel, device", k_dev),
+                     ("raster_shade kernel, one call", k_ms), ("raster_shade plain", p_ms),
                      ("physics step", phys_ms), ("slice render", render_ms),
                      ("slice combined step", step_ms)):
         print(f"phase 6: {name} median {ms:.4f} ms  [{card}]")
+    pairs1, ids1 = raster_work(*args[2:9])
+    k1_bound = bound(pairs1 * OPS_EDGE + WIDTH * HEIGHT * OPS_SHADE,
+                     input_bytes(args[0], ids1, *args[2:5])
+                     + input_bytes(args[1], vis_k["tri_id"])
+                     + nbytes(*vis_k.values(), gp_k))
     del step, state, st, out, args, kin, vis_k, gp_k, vis_p, gp_p
     results = {"raster_shade": dict(launches=launches,
                                     max_abs_err=max(err_vis, err_gbuf),
-                                    ms=k_ms, plain_ms=p_ms)}
+                                    ms=k_dev, plain_ms=p_ms, **k1_bound)}
 
     # phase a: the flagship step, no overrides
     t0 = time.perf_counter()
@@ -215,12 +347,13 @@ def main() -> int:
     # phase b: the kernels of the split atlas raster on one real atlas
     fphys = fstep.physics(fstate["physics"])
     fmats = fstep.instance_matrices(fphys)
-    din = rend.cascade_inputs(fstep.scene, fmats, fstep.constants)
+    din, _ = atlas_inputs(fstep, fmats)
     split = raster.depth_args(**din)
+    work2, work3 = [0], [0]
     k2 = raster.depth_super_cuda(*split["super"])
-    p2 = raster.depth_super_plain(*split["super"])
+    p2 = raster.depth_super_plain(*split["super"], work=work2)
     k3 = raster.depth_grid_cuda(k2.clone(), *split["grid"])
-    p3 = raster.depth_grid_plain(k2.clone(), *split["grid"])
+    p3 = raster.depth_grid_plain(k2.clone(), *split["grid"], work=work3)
     torch.cuda.synchronize()
     err2, err3 = max_diff(k2, p2), max_diff(k3, p3)
     atlas_h, atlas_w = k3.shape
@@ -289,8 +422,7 @@ def main() -> int:
     dout = dstep.render(dmats, dstate["frame"])
     torch.cuda.synchronize()
     k4_launches = raster.depth_dense.launches
-    dargs = raster.depth_args(**dstep.renderer.cascade_inputs(
-        dstep.scene, dmats, dstep.constants))["dense"]
+    dargs = raster.depth_args(**atlas_inputs(dstep, dmats)[0])["dense"]
     k4 = raster.depth_dense_cuda(*dargs)
     p4 = raster.depth_dense_plain(*dargs)
     torch.cuda.synchronize()
@@ -306,30 +438,36 @@ def main() -> int:
         resolve_step=2, cascade_sizes=(256, 128, 128), atlas_tile_h=16,
         atlas_foot_y=2, max_active_tiles=24)}, "e")
 
-    # phase f: timings of the kernels and the flagship (CUDA events; medians)
+    # phase f: timings of the kernels and the flagship (medians; kernels also by
+    # their device time)
     prior = k2.clone()
     buf = torch.empty_like(prior)
     copy_ms = cuda_ms(lambda: buf.copy_(prior), reps=20, warmup=3)
     t = {
-        "depth_super kernel": cuda_ms(lambda: raster.depth_super_cuda(*split["super"]),
-                                      reps=20, warmup=3),
+        "depth_super kernel, device": kernel_ms(
+            lambda: raster.depth_super_cuda(*split["super"])),
+        "depth_grid kernel, device": kernel_ms(lambda: raster.depth_grid_cuda(
+            buf.copy_(prior), *split["grid"])) - kernel_ms(lambda: buf.copy_(prior)),
+        "depth_dense kernel, device": kernel_ms(lambda: raster.depth_dense_cuda(*dargs)),
+        "depth_super kernel, one call": cuda_ms(
+            lambda: raster.depth_super_cuda(*split["super"]), reps=20, warmup=3),
         "depth_super plain": cuda_ms(lambda: raster.depth_super_plain(*split["super"]),
                                      reps=3),
-        "depth_grid kernel": cuda_ms(lambda: raster.depth_grid_cuda(
+        "depth_grid kernel, one call": cuda_ms(lambda: raster.depth_grid_cuda(
             buf.copy_(prior), *split["grid"]), reps=20, warmup=3) - copy_ms,
         "depth_grid plain": cuda_ms(lambda: raster.depth_grid_plain(
             buf.copy_(prior), *split["grid"]), reps=3) - copy_ms,
-        "depth_dense kernel": cuda_ms(lambda: raster.depth_dense_cuda(*dargs),
-                                      reps=20, warmup=3),
+        "depth_dense kernel, one call": cuda_ms(lambda: raster.depth_dense_cuda(*dargs),
+                                                reps=20, warmup=3),
         "depth_dense plain": cuda_ms(lambda: raster.depth_dense_plain(*dargs),
                                      reps=3),
-        "depth_dense kernel, flagship atlas": cuda_ms(
-            lambda: raster.depth_dense_cuda(*dense), reps=20, warmup=3),
+        "depth_dense kernel, device, flagship atlas": kernel_ms(
+            lambda: raster.depth_dense_cuda(*dense)),
     }
     fmats = fstep.instance_matrices(fst["physics"])
-    planes, fvis, g = rend.gbuffer_pass(fstep.scene, fmats, fstep.constants)
+    fgeo, fvis, g = rend.gbuffer_pass(fstep.scene, fmats, fstep.constants)
     light, splits = rend.shadow_light(fstep.constants)
-    atlas = rend.shadow_atlas(fstep.scene, planes[0], light)
+    atlas, _ = rend.shadow_atlas(fstep.scene, fgeo["planes"], light)
     shadow = rend.shadow_factor(g, fstep.constants, atlas, light, splits)
     ao = rend.ambient_occlusion(g, fstep.constants)
     hdr = rend.shade(g, fstep.constants, shadow, ao)
@@ -337,7 +475,7 @@ def main() -> int:
         "flagship raster + G-buffer": cuda_ms(lambda: rend.gbuffer_pass(
             fstep.scene, fmats, fstep.constants), reps=10),
         "flagship render_cascades": cuda_ms(lambda: rend.shadow_atlas(
-            fstep.scene, planes[0], light), reps=10),
+            fstep.scene, fgeo["planes"], light), reps=10),
         "flagship resolve_shadow": cuda_ms(lambda: rend.shadow_factor(
             g, fstep.constants, atlas, light, splits), reps=10),
         "flagship HBAO": cuda_ms(lambda: rend.ambient_occlusion(g, fstep.constants),
@@ -352,21 +490,199 @@ def main() -> int:
     })
     for name, ms in t.items():
         print(f"phase f: {name} median {ms:.4f} ms  [{card}]")
-    results["depth_super"] = dict(launches=counts["depth_super"], max_abs_err=err2,
-                                  ms=t["depth_super kernel"],
-                                  plain_ms=t["depth_super plain"])
-    results["depth_grid"] = dict(launches=counts["depth_grid"], max_abs_err=err3,
-                                 ms=t["depth_grid kernel"],
-                                 plain_ms=t["depth_grid plain"])
-    results["depth_dense"] = dict(launches=k4_launches,
-                                  max_abs_err=max(err4, split_vs_dense),
-                                  ms=t["depth_dense kernel"],
-                                  plain_ms=t["depth_dense plain"])
+    sup, grid = split["super"], split["grid"]
+    act_px = grid[1].numel() * grid[7] * grid[8]
+    results["depth_super"] = dict(
+        launches=counts["depth_super"], max_abs_err=err2,
+        ms=t["depth_super kernel, device"],
+        plain_ms=t["depth_super plain"],
+        **bound(work2[0] * (OPS_EDGE + OPS_RECT),
+                input_bytes(sup[0], sup[1][used_slots(*sup[1:3])], *sup[1:3])
+                + nbytes(k2)))
+    results["depth_grid"] = dict(
+        launches=counts["depth_grid"], max_abs_err=err3, ms=t["depth_grid kernel, device"],
+        plain_ms=t["depth_grid plain"],
+        **bound(work3[0] * (OPS_EDGE + OPS_RECT),
+                input_bytes(grid[0], grid[3][used_slots(grid[3], grid[2])], *grid[1:5])
+                + 8 * act_px))
+    err4_all = max(err4, split_vs_dense)
+    del fstep, fstate, fst, fout, dstep, dstate, dout, k2, p2, k3, p3, k4, p4, dense
+    del fgeo, fvis, g, atlas, shadow, ao, hdr
+
+    # phase g: the glass step at full size
+    t0 = time.perf_counter()
+    gstep, gstate = build(n_bodies=N_BODIES, width=WIDTH, height=HEIGHT, grid_dim=64,
+                          box_materials=GLASS_BOXES, cfg_overrides=GLASS_OVERRIDES,
+                          device="cuda")
+    torch.cuda.synchronize()
+    grend, gscene, gconst = gstep.renderer, gstep.scene, gstep.constants
+    modes = {k: int(gscene[k].sum()) for k in ("tri_translucent", "tri_sorted",
+                                               "tri_refract")}
+    print(f"phase g: built the glass step in {time.perf_counter() - t0:.1f} s; "
+          f"non-opaque triangles {modes} of {gscene['tri_valid'].numel()}")
+
+    # phase h: K5, K6, K7 and K4 against their plain versions on one real
+    # glass frame's inputs
+    gmats = gstep.instance_matrices(gstep.physics(gstate["physics"]))
+    geo, gvis, gg = grend.gbuffer_pass(gscene, gmats, gconst)
+    light, splits = grend.shadow_light(gconst)
+    gatlas, gtrans = grend.shadow_atlas(gscene, geo["planes"], light)
+    gshadow = grend.shadow_factor(gg, gconst, gatlas, light, splits, gtrans)
+    gao = grend.ambient_occlusion(gg, gconst)
+    ghdr = grend.shade(gg, gconst, gshadow, gao)
+    vargs = raster.visibility_args(**grend.refraction_inputs(gscene, geo, gconst))
+    sargs = raster.blend_args(**grend.sorted_inputs(gscene, geo, gconst, gvis["depth"],
+                                                    ghdr))
+    _, tkw = grend.cascade_inputs(gscene, geo["planes"], light)
+    aargs = raster.blend_args(**csm.translucent_tint_inputs(
+        tkw, grend.caster_tint(gscene), gatlas))
+    oargs = oit.oit_args(**grend.oit_inputs(gscene, geo, gconst, gvis["depth"]))
+    d4 = {"atlas": raster.depth_args(**tkw)["dense"],
+          "trans_depth": raster.depth_args(**grend.trans_depth_inputs(
+              gscene, geo, gconst))["dense"]}
+    kv, pv = raster.visibility_cuda(*vargs), raster.visibility_plain(*vargs)
+    ks, ps = raster.blend_cuda(*sargs), raster.blend_plain(*sargs)
+    ka, pa = raster.blend_cuda(*aargs), raster.blend_plain(*aargs)
+    ko, po = oit.oit_cuda(*oargs), oit.oit_plain(*oargs)
+    work4 = {k: [0] for k in d4}
+    k4g = {k: raster.depth_dense_cuda(*a) for k, a in d4.items()}
+    p4g = {k: raster.depth_dense_plain(*a, work=work4[k]) for k, a in d4.items()}
+    torch.cuda.synchronize()
+    same5 = torch.equal(kv["tri_id"], pv["tri_id"])
+    err5 = max(max_diff(kv[k], pv[k]) for k in ("depth", "b0", "b1"))
+    err6 = {"sorted": max_diff(ks, ps), "atlas": max_diff(ka, pa)}
+    err7 = max(max_diff(ko[0], po[0]), max_diff(ko[1], po[1]))
+    err4g = {k: max_diff(k4g[k], p4g[k]) for k in d4}
+    print(f"phase h: visibility (K5) vs plain at 1920x1080: tri_id equal {same5}, "
+          f"max|d| depth/b0/b1 {err5}; refraction covers "
+          f"{(kv['tri_id'] >= 0).float().mean():.4f}")
+    print(f"phase h: sorted_blend (K6) vs plain: sorted pass max|d| {err6['sorted']}, "
+          f"atlas tint max|d| {err6['atlas']}; oit (K7) vs plain max|d| {err7}; "
+          f"depth_dense (K4) vs plain: translucent atlas {err4g['atlas']}, "
+          f"trans-depth {err4g['trans_depth']}")
+    check(same5 and err5 == 0.0, "visibility disagrees with its plain version")
+    check(max(err6.values()) == 0.0, "sorted_blend disagrees with its plain version")
+    check(err7 == 0.0, "oit disagrees with its plain version")
+    check(max(err4g.values()) == 0.0, "depth_dense disagrees at the glass shapes")
+
+    # phase i: 5 glass steps, counting every kernel's launches
+    wrappers = {"raster_shade": raster.rasterize_visibility_shaded,
+                "depth_super": raster.depth_super, "depth_grid": raster.depth_grid,
+                "depth_dense": raster.depth_dense,
+                "visibility": raster.rasterize_visibility,
+                "sorted_blend": raster.rasterize_sorted_blend, "oit": oit.rasterize_oit}
+    per_step = {"raster_shade": 1, "depth_super": 1, "depth_grid": 1, "depth_dense": 2,
+                "visibility": 1, "sorted_blend": 2, "oit": 1}
+    for fn in wrappers.values():
+        fn.launches = 0
+    gst = gstate
+    for _ in range(5):
+        gst, gimage = gstep(gst)
+    torch.cuda.synchronize()
+    glaunch = {k: fn.launches for k, fn in wrappers.items()}
+    print(f"phase i: 5 glass steps, launches {glaunch}")
+    check(glaunch == {k: 5 * n for k, n in per_step.items()},
+          f"the glass step's launches per step are not {per_step}")
+    check(tuple(gimage.shape) == (HEIGHT, WIDTH, 3) and gimage.dtype == torch.uint8,
+          f"glass image is {tuple(gimage.shape)} {gimage.dtype}")
+    gout = gstep.render(gstep.instance_matrices(gst["physics"]), gst["frame"])
+    tr_out = gout["translucent"]
+    chain = {"OIT reveal < 1": (tr_out["reveal"] < 1).float().mean().item(),
+             "refraction coverage": (tr_out["refract_tri_id"] >= 0).float().mean().item(),
+             "trans-depth coverage": (gout["trans_depth"] > 0).float().mean().item(),
+             "atlas tint < 1": (tr_out["trans_atlas"][..., :3] < 1).any(-1)
+             .float().mean().item()}
+    gpos = gst["physics"]["bodies"]["pos"]
+    print("phase i: share of pixels or texels: " + ", ".join(
+        f"{k} {v:.5f}" for k, v in chain.items()) + f"; shadow {tuple(gout['shadow'].shape)}")
+    check(all(v > 0 for v in chain.values()), "a non-opaque pass drew nothing")
+    check(bool(torch.isfinite(gpos).all()), "glass body positions not finite")
+
+    # phase j: a small glass step on the card against the CPU
+    small_step_vs_cpu(build, dict(GLASS_OVERRIDES, shadow=ShadowConfig(
+        resolve_step=2, cascade_sizes=(256, 128, 128), atlas_tile_h=16,
+        atlas_foot_y=2, max_active_tiles=24)), "j", box_materials=GLASS_BOXES)
+
+    # phase k: timings at the glass step's shapes (medians; kernels also by
+    # their device time)
+    gt = {}
+    for name, fn, plain in (
+            ("visibility", lambda: raster.visibility_cuda(*vargs),
+             lambda: raster.visibility_plain(*vargs)),
+            ("sorted_blend, sorted pass", lambda: raster.blend_cuda(*sargs),
+             lambda: raster.blend_plain(*sargs)),
+            ("sorted_blend, atlas tint", lambda: raster.blend_cuda(*aargs),
+             lambda: raster.blend_plain(*aargs)),
+            ("oit", lambda: oit.oit_cuda(*oargs), lambda: oit.oit_plain(*oargs)),
+            ("depth_dense, atlas", lambda: raster.depth_dense_cuda(*d4["atlas"]),
+             lambda: raster.depth_dense_plain(*d4["atlas"])),
+            ("depth_dense, trans_depth",
+             lambda: raster.depth_dense_cuda(*d4["trans_depth"]),
+             lambda: raster.depth_dense_plain(*d4["trans_depth"]))):
+        gt[f"{name}: kernel, device"] = kernel_ms(fn)
+        gt[f"{name}: kernel, one call"] = cuda_ms(fn, 20, 3)
+        gt[f"{name}: plain"] = cuda_ms(plain, 3)
+    gmats = gstep.instance_matrices(gst["physics"])
+    geo, gvis, gg = grend.gbuffer_pass(gscene, gmats, gconst)
+    opaque = gvis["depth"]
+    gt.update({
+        "glass render_cascades (with the translucent map)": cuda_ms(
+            lambda: grend.shadow_atlas(gscene, geo["planes"], light), 10),
+        "glass OIT pass": cuda_ms(lambda: grend.oit_pass(gscene, geo, gconst, opaque,
+                                                         ghdr), 10),
+        "glass refraction pass": cuda_ms(lambda: grend.refraction_pass(
+            gscene, geo, gconst, ghdr), 10),
+        "glass sorted pass": cuda_ms(lambda: grend.sorted_pass(gscene, geo, gconst,
+                                                               opaque, ghdr), 10),
+        "glass trans-depth pass": cuda_ms(lambda: grend.trans_depth_pass(
+            gscene, geo, gconst), 10),
+        "glass render": cuda_ms(lambda: gstep.render(gmats, gst["frame"]), 10),
+        "glass combined step": cuda_ms(lambda: gstep(gst), 10),
+    })
+    for name, ms in gt.items():
+        print(f"phase k: {name} median {ms:.4f} ms  [{card}]")
+
+    pairs5, ids5 = raster_work(*vargs[1:8])
+    results["visibility"] = dict(
+        launches=glaunch["visibility"], max_abs_err=err5,
+        ms=gt["visibility: kernel, device"], plain_ms=gt["visibility: plain"],
+        **bound(pairs5 * OPS_EDGE,
+                input_bytes(vargs[0], ids5, *vargs[1:4]) + nbytes(*kv.values())))
+    b6 = []
+    for a, k in ((sargs, ks), (aargs, ka)):
+        pairs6, ids6 = raster_work(*a[1:4], *a[6:10])
+        b6.append(bound(pairs6 * (OPS_BLEND + (OPS_RECT if a[10] else 0)),
+                        input_bytes(a[0], ids6, *a[1:6]) + nbytes(k)))
+    results["sorted_blend"] = dict(
+        launches=glaunch["sorted_blend"], max_abs_err=max(err6.values()),
+        ms=(gt["sorted_blend, sorted pass: kernel, device"]
+            + gt["sorted_blend, atlas tint: kernel, device"]),
+        plain_ms=gt["sorted_blend, sorted pass: plain"] + gt["sorted_blend, atlas tint: plain"],
+        bound_ms=b6[0]["bound_ms"] + b6[1]["bound_ms"],
+        bound_by=max(b6, key=lambda b: b["bound_ms"])["bound_by"])
+    # the merged list's holes (sentinel slots) add exactly zero: no work
+    pairs7, ids7 = raster_work(oargs[1], oargs[2], None, *oargs[4:7], oargs[6])
+    results["oit"] = dict(
+        launches=glaunch["oit"], max_abs_err=err7, ms=gt["oit: kernel, device"],
+        plain_ms=gt["oit: plain"],
+        **bound(pairs7 * OPS_OIT, input_bytes(oargs[0], ids7, *oargs[1:4]) + nbytes(*ko)))
+    b4 = [bound(work4[k][0] * (OPS_EDGE + (OPS_RECT if a[9] else 0)),
+                input_bytes(a[0], torch.cat([a[1][used_slots(a[1], a[2])], a[3]]),
+                            *a[1:5]) + nbytes(k4g[k])) for k, a in d4.items()]
+    results["depth_dense"] = dict(
+        launches=glaunch["depth_dense"], max_abs_err=max(err4_all, *err4g.values()),
+        ms=(gt["depth_dense, atlas: kernel, device"]
+            + gt["depth_dense, trans_depth: kernel, device"]),
+        plain_ms=gt["depth_dense, atlas: plain"] + gt["depth_dense, trans_depth: plain"],
+        bound_ms=b4[0]["bound_ms"] + b4[1]["bound_ms"],
+        bound_by=max(b4, key=lambda b: b["bound_ms"])["bound_by"])
+    print(f"phase k: bounds per shape: sorted_blend sorted pass {b6[0]}, atlas tint "
+          f"{b6[1]}; depth_dense translucent atlas {b4[0]}, trans-depth {b4[1]}")
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         kernels.append({"name": name, "route": route, "source": source,
-                        "replaces": replaces, **results[name]})
+                        "replaces": replaces, "library_ms": None, **results[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -160,9 +160,12 @@ def orthographic(left, right, bottom, top, near, far, reverse_z: bool = True,
                  device=None) -> Tensor:
     """Orthographic projection. With reverse_z, depth is 1 at near, 0 at far.
     The bounds may be float32 scalar tensors (their device is used) or
-    numbers (then `device` names it)."""
+    numbers (then `device` must name it)."""
     b = [x for x in (left, right, bottom, top, near, far) if isinstance(x, Tensor)]
     dev = b[0].device if b else device
+    if dev is None:
+        raise ValueError("orthographic: no bound is a tensor, so `device` "
+                         "must name the device")
     left, right, bottom, top, near, far = (
         torch.as_tensor(x, dtype=torch.float32, device=dev)
         for x in (left, right, bottom, top, near, far))

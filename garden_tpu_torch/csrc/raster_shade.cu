@@ -1,10 +1,16 @@
-// Fused visibility raster + G-buffer finish for Hopper (sm_90a).
+// Fused visibility raster + G-buffer finish for Hopper (sm_90a), and the
+// same visibility raster without the finish.
 //
-// Replaces the TPU Pallas kernel `_raster_shade_kernel` with gbuf=True
-// (garden_tpu/render/raster.py, called from rasterize_visibility_shaded).
-// The plain PyTorch version of the same computation is
-// garden_tpu_torch/render/raster.py:raster_shade_plain; both must agree
-// bit for bit on depth, tri_id and barycentrics.
+// raster_shade_launch replaces the TPU Pallas kernel `_raster_shade_kernel`
+// with gbuf=True (garden_tpu/render/raster.py, called from
+// rasterize_visibility_shaded); its plain PyTorch version is
+// garden_tpu_torch/render/raster.py:raster_shade_plain. visibility_launch
+// replaces `_raster_kernel` (rasterize_visibility, the refraction pass's
+// raster): the same kernel instantiated without its shading phase, with
+// the big list and the tile list each padded to 16-slot blocks, so the
+// blocks fall where the TPU kernel's separate big and grid loops put them;
+// its plain version is raster.py:visibility_plain. Each must agree with
+// its plain version bit for bit on depth, tri_id and barycentrics.
 //
 // What it computes. The frame is cut into tiles of tile_w x tile_h pixels.
 // Every tile scans a list of triangles: the shared big list (n_big slots),
@@ -24,7 +30,7 @@
 // operations and no memory traffic, so the kernel is bound by that ALU work
 // (tiles x slots x pixels), plus the bytes of each tile's list: up to
 // 128 slots x (64 B edge + 144 B shading) read once per tile. Outputs are
-// 22 floats per pixel written once.
+// 22 floats per pixel written once (4 without the shading phase).
 //
 // What the design does about it. One thread block per tile, 256 threads,
 // each thread owning tile_w*tile_h/256 pixels in registers (16 for the
@@ -47,7 +53,7 @@ constexpr int kRec = 36;
 constexpr int kPlanes = 18;
 constexpr int kBlock = 16;
 
-template <int P>
+template <int P, bool kShade>
 __global__ void __launch_bounds__(kThreads)
 raster_shade_kernel(const float* __restrict__ edge,
                     const float* __restrict__ shade,
@@ -64,7 +70,7 @@ raster_shade_kernel(const float* __restrict__ edge,
   const int n_slots = (n_big + cap + kBlock - 1) / kBlock * kBlock;
   float* s_edge = smem;                                  // [n_slots][16]
   float* s_rec = smem + n_slots * kEdge;                 // [n_slots][36]
-  int* s_tri = reinterpret_cast<int*>(s_rec + n_slots * kRec);  // [n_slots]
+  int* s_tri = reinterpret_cast<int*>(s_rec + (kShade ? n_slots * kRec : 0));
 
   const int tile = blockIdx.x;
   const int tx = tile % tiles_x;
@@ -89,10 +95,12 @@ raster_shade_kernel(const float* __restrict__ edge,
     const int row = t >= 0 ? t : t_count;
     s_edge[i] = edge[(size_t)row * kEdge + i % kEdge];
   }
-  for (int i = threadIdx.x; i < n_scan * kRec; i += kThreads) {
-    const int t = s_tri[i / kRec];
-    const int row = t >= 0 ? t : t_count;
-    s_rec[i] = shade[(size_t)row * rec_width + i % kRec];
+  if (kShade) {
+    for (int i = threadIdx.x; i < n_scan * kRec; i += kThreads) {
+      const int t = s_tri[i / kRec];
+      const int row = t >= 0 ? t : t_count;
+      s_rec[i] = shade[(size_t)row * rec_width + i % kRec];
+    }
   }
   __syncthreads();
 
@@ -149,6 +157,10 @@ raster_shade_kernel(const float* __restrict__ edge,
     depth[o] = best_z[i];
     b0_out[o] = best_b0[i];
     b1_out[o] = best_b1[i];
+    if (!kShade) {
+      tri_id[o] = s < 0 ? -1 : s_tri[s];
+      continue;
+    }
     if (s < 0) {
       tri_id[o] = -1;
 #pragma unroll
@@ -183,7 +195,7 @@ raster_shade_kernel(const float* __restrict__ edge,
   }
 }
 
-template <int P>
+template <int P, bool kShade>
 cudaError_t launch(dim3 grid, int smem, cudaStream_t stream,
                    const float* edge, const float* shade, const int* tile_tris,
                    const int* counts, const int* big_list, int n_big, int cap,
@@ -192,11 +204,11 @@ cudaError_t launch(dim3 grid, int smem, cudaStream_t stream,
                    int* tri_id, float* b0, float* b1, float* planes) {
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        raster_shade_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        raster_shade_kernel<P, kShade>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  raster_shade_kernel<P><<<grid, kThreads, smem, stream>>>(
+  raster_shade_kernel<P, kShade><<<grid, kThreads, smem, stream>>>(
       edge, shade, tile_tris, counts, big_list, n_big, cap, t_count,
       rec_width, tiles_x, tile_w, tile_h, width, height, depth, tri_id, b0,
       b1, planes);
@@ -218,10 +230,40 @@ extern "C" int raster_shade_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define GTT_LAUNCH(P)                                                        \
   case P:                                                                    \
-    return (int)launch<P>(grid, smem, s, edge, shade, tile_tris, counts,     \
-                          big_list, n_big, cap, t_count, rec_width, tiles_x, \
-                          tile_w, tile_h, width, height, depth, tri_id, b0,  \
-                          b1, planes);
+    return (int)launch<P, true>(grid, smem, s, edge, shade, tile_tris,       \
+                                counts, big_list, n_big, cap, t_count,       \
+                                rec_width, tiles_x, tile_w, tile_h, width,   \
+                                height, depth, tri_id, b0, b1, planes);
+  switch (n_px / kThreads) {
+    GTT_LAUNCH(4)
+    GTT_LAUNCH(8)
+    GTT_LAUNCH(16)
+    GTT_LAUNCH(32)
+    GTT_LAUNCH(64)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef GTT_LAUNCH
+}
+
+// C entry point of the visibility raster without shading (the refraction
+// pass). n_big and cap must be multiples of 16. Returns a cudaError_t code.
+extern "C" int visibility_launch(
+    const float* edge, const int* tile_tris, const int* counts,
+    const int* big_list, int n_big, int cap, int t_count, int n_tiles,
+    int tiles_x, int tile_w, int tile_h, int width, int height, int smem,
+    float* depth, int* tri_id, float* b0, float* b1, void* stream) {
+  const int n_px = tile_w * tile_h;
+  if (n_px % kThreads != 0 || n_big % kBlock != 0 || cap % kBlock != 0)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(n_tiles);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define GTT_LAUNCH(P)                                                        \
+  case P:                                                                    \
+    return (int)launch<P, false>(grid, smem, s, edge, nullptr, tile_tris,    \
+                                 counts, big_list, n_big, cap, t_count, 0,   \
+                                 tiles_x, tile_w, tile_h, width, height,     \
+                                 depth, tri_id, b0, b1, nullptr);
   switch (n_px / kThreads) {
     GTT_LAUNCH(4)
     GTT_LAUNCH(8)

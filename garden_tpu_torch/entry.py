@@ -11,6 +11,12 @@ FXAA. `cfg_overrides=DENSE_SHADOW_OVERRIDES` gives the reference-parity
 shadows (`ShadowConfig()` defaults: three 2048 cascades drawn by the dense
 depth raster); `cfg_overrides=SLICE_OVERRIDES` turns shadows, HBAO, bloom,
 the atmosphere and FXAA off.
+
+`box_materials=GLASS_BOXES` with `cfg_overrides=GLASS_OVERRIDES` is the
+glass step: the flagship frame whose boxes take, in rotation, opaque,
+weighted-blended OIT, sorted (back-to-front) and refractive materials, with
+the trans-depth pass on, so one frame runs every non-opaque pass and the
+translucent shadow map.
 """
 
 from __future__ import annotations
@@ -27,11 +33,24 @@ from garden_tpu_torch.render import mesh as rmesh
 from garden_tpu_torch.render.deferred import DeferredRenderer
 from garden_tpu_torch.systems.camera import common_constants
 
-__all__ = ["CombinedStep", "DENSE_SHADOW_OVERRIDES", "SLICE_OVERRIDES", "build"]
+__all__ = ["CombinedStep", "DENSE_SHADOW_OVERRIDES", "GLASS_BOXES",
+           "GLASS_OVERRIDES", "SLICE_OVERRIDES", "build"]
 
 # the reference-parity shadow preset: the dense depth raster over a
 # 6144x2048 atlas of 128x128 tiles
 DENSE_SHADOW_OVERRIDES = dict(shadow=ShadowConfig())
+
+BOX_MATERIAL = rmesh.Material(base_color=(0.8, 0.3, 0.2))     # the flagship's
+_OIT = rmesh.Material(base_color=(0.6, 0.8, 1.0), roughness=0.1, alpha=0.35,
+                      blend_mode="oit")
+_SORTED = rmesh.Material(base_color=(0.2, 0.9, 0.3), alpha=0.5, blend_mode="sorted")
+_REFRACT = rmesh.Material(base_color=(0.9, 1.0, 0.9), roughness=0.1,
+                          blend_mode="refract")
+# dynamic box k takes GLASS_BOXES[k % 8]: an eighth of the boxes each OIT,
+# sorted and refractive, the rest opaque
+GLASS_BOXES = (BOX_MATERIAL, _OIT, BOX_MATERIAL, _SORTED, BOX_MATERIAL, _REFRACT,
+               BOX_MATERIAL, BOX_MATERIAL)
+GLASS_OVERRIDES = dict(use_trans_depth=True)
 
 
 class CombinedStep:
@@ -71,9 +90,12 @@ class CombinedStep:
 
 def build(n_bodies: int, width: int, height: int, grid_dim: int = 16,
           cell_size: float = 2.0, tile_size: int = 128,
-          cfg_overrides: Optional[dict] = None, *, device
+          cfg_overrides: Optional[dict] = None, *, device,
+          box_materials: Optional[Tuple[rmesh.Material, ...]] = None
           ) -> Tuple[CombinedStep, Dict[str, Any]]:
-    """The combined step and its initial state on `device`."""
+    """The combined step and its initial state on `device`. Dynamic box k
+    takes box_materials[k % len(box_materials)] (default: the flagship's
+    one material)."""
     pcfg = PhysicsConfig(max_bodies=n_bodies, grid_dim=grid_dim,
                          cell_size=cell_size, max_contacts_per_body=7,
                          solver_iterations=8, max_globals=1,
@@ -109,11 +131,15 @@ def build(n_bodies: int, width: int, height: int, grid_dim: int = 16,
     rcfg = RenderConfig(**rkwargs)
     scene = rmesh.SceneBuffers(rcfg.max_vertices, rcfg.max_triangles,
                                rcfg.max_instances)
-    mat = scene.add_material(rmesh.Material(base_color=(0.8, 0.3, 0.2)))
+    box_materials = box_materials or (BOX_MATERIAL,)
+    rows = {}                        # one material row per distinct material
+    for m in box_materials:
+        if m not in rows:
+            rows[m] = scene.add_material(m)
     gmat = scene.add_material(rmesh.Material(base_color=(0.5, 0.5, 0.5)))
     scene.add_instance(ground, material=gmat)
-    for _ in range(n_dyn):
-        scene.add_instance(cube_mesh, material=mat)
+    for k in range(n_dyn):
+        scene.add_instance(cube_mesh, material=rows[box_materials[k % len(box_materials)]])
     renderer = DeferredRenderer(rcfg, scene, device)
 
     vec = lambda *c: torch.tensor(c, dtype=torch.float32, device=device)

@@ -1,18 +1,72 @@
-"""2x decimation and upsampling of screen-space images.
+"""Blurs, 2x decimation and upsampling of screen-space images.
 
 Port of the parts of `garden_tpu.ops.blur` on the frame path: the 2x mean
 decimation behind every half-res pass, the tent upsample of the sky and
-specular ambient, and the depth-guided (joint bilateral) upsample of the
-shadow and AO factors.
+specular ambient, the depth-guided (joint bilateral) upsample of the
+shadow and AO factors, and the refraction pass's GGX blur chain (gaussian
+blur, mean-pool downsample) with the linear upsample it samples through.
 """
 
 from __future__ import annotations
 
+from typing import List, Optional
+
+import numpy as np
 import torch
 
 from garden_tpu_torch.ops.shifts import Shifter, edge_pad
 
 Tensor = torch.Tensor
+
+
+def gaussian_kernel(radius: int, sigma: Optional[float] = None) -> np.ndarray:
+    """Normalized float32 gaussian taps, 2 * radius + 1 of them."""
+    sigma = sigma or max(radius / 2.0, 1e-3)
+    xs = np.arange(-radius, radius + 1)
+    k = np.exp(-0.5 * (xs / sigma) ** 2)
+    return (k / k.sum()).astype(np.float32)
+
+
+def gaussian_blur(img: Tensor, radius: int = 2, sigma: Optional[float] = None) -> Tensor:
+    """Separable gaussian blur of (H, W[, C]) with edge clamping: a row pass,
+    then a column pass, each summing its taps in kernel order."""
+    k = gaussian_kernel(radius, sigma)
+    at = Shifter(img, 0, radius)
+    out = torch.zeros_like(img)
+    for i, wgt in enumerate(k):
+        out = out + at(0, radius - i) * float(wgt)
+    at = Shifter(out, radius, 0)
+    out = torch.zeros_like(img)
+    for i, wgt in enumerate(k):
+        out = out + at(radius - i, 0) * float(wgt)
+    return out
+
+
+def downsample2x(img: Tensor) -> Tensor:
+    """(H, W[, C]) -> (H//2, W//2[, C]) mean pool of each 2x2 block (an odd
+    last row or column is dropped)."""
+    h, w = img.shape[0] & ~1, img.shape[1] & ~1
+    x = img[:h, :w]
+    return x.reshape((h // 2, 2, w // 2, 2) + tuple(x.shape[2:])).mean(dim=(1, 3))
+
+
+def ggx_blur_chain(img: Tensor, levels: int = 4) -> List[Tensor]:
+    """Progressively blurred half-size chain [img, level 1, ...] for the
+    refraction pass's roughness-driven blur."""
+    chain = [img]
+    for _ in range(levels):
+        chain.append(downsample2x(gaussian_blur(chain[-1], radius=1)))
+    return chain
+
+
+def upsample_linear(img: Tensor, th: int, tw: int) -> Tensor:
+    """(h, w, C) -> (th, tw, C) bilinear, half-pixel centres, edge-clamped:
+    for upscales the samples of `jax.image.resize(img, (th, tw, C),
+    "linear")`, which sums kernel weights where this lerps."""
+    x = img.permute(2, 0, 1)[None]
+    up = torch.nn.functional.interpolate(x, size=(th, tw), mode="bilinear",
+                                         align_corners=False)
+    return up[0].permute(1, 2, 0)
 
 
 def decimate2x(img: Tensor) -> Tensor:

@@ -1,20 +1,23 @@
 """Cascaded shadow maps: cascade fit, the atlas depth raster and the resolve.
 
-Port of the opaque path of `garden_tpu.render.csm`. The cascades share one
-light view; each is an orthographic crop of it, and all of them raster side
-by side into one mixed-resolution atlas (`cascade_layout`). Casters are
-set up once for every cascade in atlas pixel coordinates, binned with
-corner binning (`raster.bin_triangles_corner`) and drawn by the depth
-raster: the split path of `raster.rasterize_depth` (kernels depth_super and
+Port of `garden_tpu.render.csm`. The cascades share one light view; each
+is an orthographic crop of it, and all of them raster side by side into
+one mixed-resolution atlas (`cascade_layout`). Opaque casters are set up
+once for every cascade in atlas pixel coordinates, binned with corner
+binning (`raster.bin_triangles_corner`) and drawn by the depth raster: the
+split path of `raster.rasterize_depth` (kernels depth_super and
 depth_grid) when `ShadowConfig.max_active_tiles` is set, its dense path
-(kernel depth_dense) otherwise. The resolve projects each pixel into its
-cascade, takes one lenient reverse-Z compare and smooths the binary factor
-with a screen-space PCF.
+(kernel depth_dense) otherwise. Translucent casters, when given, make a
+second map: slot-binned, their nearest depth drawn by depth_dense and
+their tint blended in bin order over white by the sorted_blend kernel.
+The resolve projects each pixel into its cascade, takes one lenient
+reverse-Z compare, smooths the binary factor with a screen-space PCF and
+multiplies in the tint of the translucent casters in front.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -152,12 +155,13 @@ def atlas_tiling(cfg: ShadowConfig, max_per_tile: int = 256) -> Tuple[int, int]:
 
 def cascade_raster_inputs(pos_planes: Tuple[Tensor, Tensor, Tensor],
                           tri_valid: Tensor, light: Dict[str, Tensor],
-                          cfg: ShadowConfig, max_per_tile: int = 256
-                          ) -> Dict[str, object]:
+                          cfg: ShadowConfig, max_per_tile: int = 256,
+                          binning: bool = True) -> Dict[str, object]:
     """Everything up to the atlas depth raster, as the keyword arguments of
     raster.rasterize_depth: the shared-view transform of the world corner
     planes (3, T) each, the cascade setup and the corner binning (with the
-    super-tile big lists on the split path)."""
+    super-tile big lists on the split path); without `binning`, all but the
+    lists."""
     sizes, offsets, atlas_w, atlas_h = cascade_layout(cfg)
     px, py, pz = pos_planes
     t = px.shape[1]
@@ -175,6 +179,8 @@ def cascade_raster_inputs(pos_planes: Tuple[Tensor, Tensor, Tensor],
     th, cap = atlas_tiling(cfg, max_per_tile)
     kw = dict(setup=setup, width=atlas_w, height=atlas_h, tile=128,
               atlas_bounds=bounds, tri_atlas=tri_atlas, tile_h=th)
+    if not binning:
+        return kw
     max_active = cfg.max_active_tiles
     if max_active:
         tiles, counts, big, act = raster.bin_triangles_corner(
@@ -191,14 +197,88 @@ def cascade_raster_inputs(pos_planes: Tuple[Tensor, Tensor, Tensor],
     return kw
 
 
+def translucent_raster_inputs(pos_planes: Tuple[Tensor, Tensor, Tensor],
+                              tri_valid: Tensor, light: Dict[str, Tensor],
+                              cfg: ShadowConfig, max_per_tile: int = 256
+                              ) -> Dict[str, object]:
+    """The translucent casters' atlas inputs, as the keyword arguments of
+    raster.rasterize_depth: the shared-view setup of the casters in
+    `tri_valid` and their slot binning (foot 2 x foot_y, half the opaque
+    list cap, the dense depth path)."""
+    kw = cascade_raster_inputs(pos_planes, tri_valid, light, cfg, max_per_tile,
+                               binning=False)
+    th, cap = atlas_tiling(cfg, max_per_tile)      # raises unless foot_y is 2
+    tiles, counts, big = raster.bin_triangles(
+        kw["setup"], kw["width"], kw["height"], 128, max(32, cap // 2), foot=2,
+        tile_h=th, foot_y=2)
+    kw.update(tile_tris=tiles, counts=counts, big_list=big)
+    return kw
+
+
+def caster_inputs(pos_planes: Tuple[Tensor, Tensor, Tensor], tri_valid: Tensor,
+                  light: Dict[str, Tensor], cfg: ShadowConfig,
+                  max_per_tile: int = 256, tri_translucent: Tensor = None
+                  ) -> Tuple[Dict[str, object], Optional[Dict[str, object]]]:
+    """(opaque, translucent): the keyword arguments of raster.rasterize_depth
+    for the opaque casters' atlas (cascade_raster_inputs) and, with
+    `tri_translucent` (T,), for the translucent casters' atlas
+    (translucent_raster_inputs), else None. The opaque casters exclude the
+    translucent ones."""
+    if tri_translucent is None:
+        return cascade_raster_inputs(pos_planes, tri_valid, light, cfg,
+                                     max_per_tile), None
+    return (cascade_raster_inputs(pos_planes, tri_valid & ~tri_translucent, light,
+                                  cfg, max_per_tile),
+            translucent_raster_inputs(pos_planes, tri_valid & tri_translucent, light,
+                                      cfg, max_per_tile))
+
+
+def draw_cascades(opaque_kw: Dict[str, object],
+                  translucent_kw: Optional[Dict[str, object]] = None,
+                  tri_tint: Tensor = None) -> Tuple[Tensor, Optional[Tensor]]:
+    """The atlases of `caster_inputs`' two input sets -> (depth_atlas,
+    trans_atlas): depth_atlas (H, W) is the opaque casters' reverse-Z
+    depth; with `translucent_kw` and `tri_tint` (T, 4) rgba, trans_atlas
+    (H, W, 4) is the transmitted tint rgb of the translucent casters
+    (blended in bin order over white, z-tested against the opaque depth)
+    and their nearest depth, else None."""
+    depth_atlas = raster.rasterize_depth(**opaque_kw)
+    if translucent_kw is None or tri_tint is None:
+        return depth_atlas, None
+    tdepth = raster.rasterize_depth(**translucent_kw)
+    tint = raster.rasterize_sorted_blend(**translucent_tint_inputs(
+        translucent_kw, tri_tint, depth_atlas))
+    return depth_atlas, torch.cat([tint, tdepth[..., None]], dim=-1)
+
+
 def render_cascades(pos_planes: Tuple[Tensor, Tensor, Tensor], tri_valid: Tensor,
                     light: Dict[str, Tensor], cfg: ShadowConfig,
-                    max_per_tile: int = 256) -> Tensor:
-    """Opaque shadow raster of all cascades -> the (H, W) reverse-Z depth
-    atlas in the layout of `cascade_layout`. (The translucent map of the
-    reference is not ported.)"""
-    return raster.rasterize_depth(**cascade_raster_inputs(
-        pos_planes, tri_valid, light, cfg, max_per_tile))
+                    max_per_tile: int = 256, tri_translucent: Tensor = None,
+                    tri_tint: Tensor = None) -> Tuple[Tensor, Optional[Tensor]]:
+    """Shadow raster of all cascades -> (depth_atlas, trans_atlas) in the
+    layout of `cascade_layout` (see draw_cascades); the translucent map is
+    drawn when both `tri_translucent` and `tri_tint` are given."""
+    with_trans = tri_translucent is not None and tri_tint is not None
+    return draw_cascades(*caster_inputs(pos_planes, tri_valid, light, cfg, max_per_tile,
+                                        tri_translucent if with_trans else None),
+                         tri_tint)
+
+
+def translucent_tint_inputs(kw: Dict[str, object], tri_tint: Tensor,
+                            depth_atlas: Tensor) -> Dict[str, object]:
+    """The keyword arguments of raster.rasterize_sorted_blend for the
+    translucent map's tint: the casters of `kw` (translucent_raster_inputs)
+    with their (T, 4) rgba, blended in bin order over an all-ones atlas and
+    z-tested against the opaque `depth_atlas`, clipped to their cascade."""
+    atlas_h, atlas_w = depth_atlas.shape
+    c_count = len(kw["atlas_bounds"])
+    return dict(setup=kw["setup"], tri_rgba=tri_tint.repeat(c_count, 1),
+                tile_tris=kw["tile_tris"], counts=kw["counts"], big_list=kw["big_list"],
+                opaque_depth=depth_atlas,
+                hdr=torch.ones((atlas_h, atlas_w, 3), device=depth_atlas.device),
+                width=atlas_w, height=atlas_h, tile=128,
+                atlas_bounds=kw["atlas_bounds"], tri_atlas=kw["tri_atlas"],
+                tile_h=kw["tile_h"])
 
 
 def _project_cascades(position: Tensor, view_depth: Tensor,
@@ -236,10 +316,15 @@ def _project_cascades(position: Tensor, view_depth: Tensor,
 
 def resolve_shadow(position: Tensor, normal: Tensor, view_depth: Tensor,
                    depth_atlas: Tensor, light: Dict[str, Tensor],
-                   cfg: ShadowConfig, splits: List[float]) -> Tensor:
-    """PCF shadow factor (H, W, 1), 1 = fully lit. With resolve_step > 1 the
-    compare runs on a decimated grid and the factor comes back to full size
-    through the depth-guided upsample."""
+                   cfg: ShadowConfig, splits: List[float],
+                   trans_atlas: Optional[Tensor] = None) -> Tensor:
+    """PCF shadow factor, 1 = fully lit: (H, W, 1), or with `trans_atlas`
+    (render_cascades) (H, W, 3), the factor times the tint of the
+    translucent casters between the surface and the light. With
+    resolve_step > 1 the compare runs on a decimated grid and the factor
+    comes back to full size through the depth-guided upsample; the tint
+    is looked up at quarter density (every 4th pixel each way, counting
+    the decimation) and repeated."""
     atlas_h, atlas_w = depth_atlas.shape
     step = max(int(cfg.resolve_step), 1)
     full_shape = position.shape[:2]
@@ -248,15 +333,37 @@ def resolve_shadow(position: Tensor, normal: Tensor, view_depth: Tensor,
         position = decimate2x(position)
         normal = decimate2x(normal)
         view_depth = decimate2x(view_depth)
+
     # normal-offset bias, then one tap of the atlas: the lenient reverse-Z
     # compare z + bias >= occluder keeps surfaces from shadowing themselves
-    u, v, z, ok = _project_cascades(position + normal * cfg.bias_normal,
-                                    view_depth, light, cfg, splits)
-    flat = (torch.clamp(v.int(), 0, atlas_h - 1) * atlas_w
-            + torch.clamp(u.int(), 0, atlas_w - 1))
-    occ = depth_atlas.reshape(-1)[flat.long()]
+    def tap(position, normal, view_depth):
+        u, v, z, ok = _project_cascades(position + normal * cfg.bias_normal,
+                                        view_depth, light, cfg, splits)
+        flat = (torch.clamp(v.int(), 0, atlas_h - 1) * atlas_w
+                + torch.clamp(u.int(), 0, atlas_w - 1))
+        return flat.long(), z, ok
+
+    flat, z, ok = tap(position, normal, view_depth)
+    occ = depth_atlas.reshape(-1)[flat]
     lit = torch.where(z >= occ, 1.0, 0.0)
     lit = torch.where(ok, lit, 1.0)
+    tint = None
+    if trans_atlas is not None:
+        tsub = max(4 // step, 1)
+        if tsub > 1:
+            pos_t, nrm_t, vd_t = position, normal, view_depth
+            for _ in range(int(np.log2(tsub))):
+                pos_t, nrm_t, vd_t = decimate2x(pos_t), decimate2x(nrm_t), decimate2x(vd_t)
+            flat_t, z_t, ok_t = tap(pos_t, nrm_t, vd_t)
+        else:
+            flat_t, z_t, ok_t = flat, z, ok
+        trow = trans_atlas.reshape(-1, 4)[flat_t]
+        # tinted where the surface lies beyond the nearest translucent caster
+        tint = torch.where(((z_t < trow[..., 3]) & ok_t)[..., None], trow[..., 0:3],
+                           1.0)
+        if tsub > 1:
+            tint = tint.repeat_interleave(tsub, dim=0).repeat_interleave(tsub, dim=1)
+            tint = tint[:lit.shape[0], :lit.shape[1]]
     r = cfg.pcf_radius
     if r > 0:
         lit_at = Shifter(lit, r, r)
@@ -265,8 +372,8 @@ def resolve_shadow(position: Tensor, normal: Tensor, view_depth: Tensor,
             for dx in range(-r, r + 1):
                 acc = acc + lit_at(dy, dx)
         lit = acc / (2 * r + 1) ** 2
-    # (h, w, 1): the reference's opaque-only factor broadcasts over rgb
-    lit = lit[..., None]
+    # (h, w, 1): the opaque-only factor broadcasts over rgb
+    lit = lit[..., None] if tint is None else lit[..., None] * tint
     if step > 1:
         lit = bilateral_upsample_to(lit, view_depth, view_depth_full,
                                     full_shape[0], full_shape[1])

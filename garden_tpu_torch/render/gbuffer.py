@@ -12,6 +12,8 @@ from typing import Dict, Optional
 
 import torch
 
+from garden_tpu_torch.core import math3d as m3
+
 Tensor = torch.Tensor
 
 # record layout: [n0 n1 n2 (9) | uv x3 (6) | material (9) | base-texture (1)
@@ -60,21 +62,20 @@ def reconstruct_position(depth: Tensor, constants: Dict[str, Tensor]) -> Tensor:
                        dim=-1)
 
 
-def shade_gbuffer(vis: Dict[str, Tensor], gplanes: Tensor,
-                  constants: Optional[Dict[str, Tensor]] = None
-                  ) -> Dict[str, Tensor]:
-    """G-buffer dict (H, W, C planes) from the raster's (18, H, W) finished
+def shade_gbuffer(vis: Dict[str, Tensor], gplanes: Optional[Tensor] = None,
+                  constants: Optional[Dict[str, Tensor]] = None,
+                  records: Optional[Tensor] = None) -> Dict[str, Tensor]:
+    """G-buffer dict (H, W, C planes), from the raster's (18, H, W) finished
     planes [normal3 | uv2 | base3 metallic roughness emissive3 reflectance |
-    texture | instance | velocity2]. Texture sampling and the velocity
-    plane belong to passes not ported yet."""
+    texture | instance | velocity2], or with `records` (T, 36) from one
+    per-pixel gather of the winning triangle's shading record (the
+    visibility raster's path). Texture sampling and the velocity plane
+    belong to passes not ported yet."""
+    if records is not None:
+        return _gbuffer_from_records(vis, records, constants)
     visible = vis["tri_id"] >= 0
     gp = lambda a, b: torch.movedim(gplanes[a:b], 0, -1)
-    if constants is not None:
-        position = reconstruct_position(vis["depth"], constants)
-        position = torch.where(visible[..., None], position,
-                               torch.zeros_like(position))
-    else:
-        position = torch.zeros(vis["depth"].shape + (3,), device=gplanes.device)
+    position = _position(vis, constants)
     g = {
         "visible": visible,
         "depth": vis["depth"],
@@ -89,3 +90,47 @@ def shade_gbuffer(vis: Dict[str, Tensor], gplanes: Tensor,
         "instance": torch.where(visible, gplanes[15].int(), -1),
     }
     return g
+
+
+def _position(vis: Dict[str, Tensor], constants) -> Tensor:
+    """World positions from depth where a triangle covers the pixel, zeros
+    elsewhere (and everywhere without constants)."""
+    depth = vis["depth"]
+    if constants is None:
+        return torch.zeros(depth.shape + (3,), device=depth.device)
+    position = reconstruct_position(depth, constants)
+    return torch.where((vis["tri_id"] >= 0)[..., None], position,
+                       torch.zeros_like(position))
+
+
+def _gbuffer_from_records(vis: Dict[str, Tensor], records: Tensor,
+                          constants) -> Dict[str, Tensor]:
+    """The G-buffer from the winning triangle's record: perspective-correct
+    barycentrics through the record's inv_w, then normal, uv, material and
+    instance; position from depth."""
+    if constants is None:
+        raise NotImplementedError(
+            "shade_gbuffer(records=...) without constants interpolates vertex "
+            "positions, which is not ported (ROADMAP Queue 1 item 13)")
+    visible = vis["tri_id"] >= 0
+    rec = records[torch.clamp(vis["tri_id"], min=0).long()]   # (H, W, 36)
+    ch = lambda a, b: rec[..., a:b]
+    b0, b1 = vis["b0"], vis["b1"]
+    pw = torch.stack([b0, b1, 1.0 - b0 - b1], dim=-1) * ch(32, 35)
+    pw = pw / torch.clamp(torch.sum(pw, dim=-1, keepdim=True), min=1e-12)
+    normal = m3.normalize(ch(0, 3) * pw[..., 0:1] + ch(3, 6) * pw[..., 1:2]
+                          + ch(6, 9) * pw[..., 2:3])
+    uv = ch(9, 11) * pw[..., 0:1] + ch(11, 13) * pw[..., 1:2] + ch(13, 15) * pw[..., 2:3]
+    return {
+        "visible": visible,
+        "depth": vis["depth"],
+        "position": _position(vis, constants),
+        "normal": normal,
+        "uv": uv,
+        "base_color": ch(15, 18),
+        "metallic": rec[..., 18],
+        "roughness": rec[..., 19],
+        "emissive": ch(20, 23),
+        "reflectance": rec[..., 23],
+        "instance": torch.where(visible, rec[..., 25].int(), -1),
+    }

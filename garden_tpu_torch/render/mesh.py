@@ -183,6 +183,9 @@ class SceneBuffers:
         t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
         return {
             "tri_valid": t(self.tri_valid),
+            "tri_translucent": t(self.tri_translucent_mask()),
+            "tri_sorted": t(self.tri_sorted_mask()),
+            "tri_refract": t(self.tri_refract_mask()),
             "tri_instance": t(self.tri_instance),
             "inst_material": t(self.inst_material),
             "inst_aabb_min": t(self.inst_aabb_min),

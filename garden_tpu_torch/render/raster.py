@@ -8,15 +8,21 @@ Port of `garden_tpu.render.raster`'s main-view and cascade paths:
 2. `bin_triangles`: each small triangle emits (tile, triangle) pairs for
    its tile footprint; one sort by (tile, depth bucket, triangle) gives
    every tile a contiguous run. Triangles with a larger footprint go to a
-   short "big" list that every tile draws first. `bin_triangles_corner`
-   (one sorted entry per caster, lists assembled from four neighbour runs)
-   and `bin_big_supertiles` bin the cascade atlas.
+   short "big" list that every tile draws first; with `priority`, lists
+   come out in exact back-to-front order. `bin_triangles_corner` (one
+   sorted entry per caster, lists assembled from four neighbour runs) and
+   `bin_big_supertiles` bin the cascade atlas.
 3. `rasterize_visibility_shaded`: per tile, scan the big list and then the
    tile's own list, keep the nearest hit per pixel, and finish the
    G-buffer planes from the winner's shading record. On a CUDA tensor this
    launches the hand-written kernel `csrc/raster_shade.cu`; on a CPU tensor
    it runs `raster_shade_plain`, the same computation in PyTorch.
-4. `rasterize_depth`: the max-reduce depth raster, dense (kernel
+   `rasterize_visibility` is the same scan without the shading (kernel
+   visibility, same source; `visibility_plain`).
+4. `rasterize_sorted_blend`: source-over blend of one rgba per triangle in
+   bin order (kernel sorted_blend in `csrc/blend_raster.cu`;
+   `blend_plain`).
+5. `rasterize_depth`: the max-reduce depth raster, dense (kernel
    depth_dense) or split (depth_super, then depth_grid), from
    `csrc/depth_raster.cu`, each with its plain version.
 
@@ -26,6 +32,7 @@ Depth is reverse-Z: larger is nearer, 0 is empty.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import numpy as np
@@ -80,7 +87,7 @@ def _grid(width: int, height: int, tile: int, tile_h: int):
 
 
 def bin_triangles(setup: Dict[str, Tensor], width: int, height: int, tile: int,
-                  max_per_tile: int, max_big: int = 64,
+                  max_per_tile: int, max_big: int = 64, priority: Tensor = None,
                   bucket_priority: Tensor = None, foot: int = 4,
                   tile_h: int = None, foot_y: int = None
                   ) -> Tuple[Tensor, Tensor, Tensor]:
@@ -89,9 +96,13 @@ def bin_triangles(setup: Dict[str, Tensor], width: int, height: int, tile: int,
     tiles are row-major over (tiles_y, tiles_x) tiles of tile x tile_h.
 
     Triangles spanning more than foot x foot_y tiles go to the big list.
-    bucket_priority: optional int[T] in [0, 16); tile entries come out
-    ordered by (bucket, triangle id), so overflow drops the last buckets.
-    The big list is ordered the same way."""
+    priority: optional permutation of [0, T); tile entries and the big
+    list come out in ascending priority (the sorted pass's back-to-front
+    order). bucket_priority: optional int[T] in [0, 16); tile entries
+    come out ordered by (bucket, triangle id), so overflow drops the last
+    buckets, and the big list likewise. The two are exclusive."""
+    if priority is not None and bucket_priority is not None:
+        raise ValueError("priority and bucket_priority are exclusive")
     th = tile_h or tile
     foot_y = foot_y or foot
     tiles_x, tiles_y, n_tiles = _grid(width, height, tile, th)
@@ -111,7 +122,9 @@ def bin_triangles(setup: Dict[str, Tensor], width: int, height: int, tile: int,
     key = torch.where(pair_ok, (ty0[None, :] + ky) * tiles_x + tx0[None, :] + kx,
                       torch.where(big[None, :], n_tiles, n_tiles + 1))
     key = key.reshape(-1)
-    payload = torch.arange(t, device=dev).expand(foot * foot_y, t).reshape(-1)
+    # the payload is the triangle id, or its priority (mapped back below)
+    pay = torch.arange(t, device=dev) if priority is None else priority.long()
+    payload = pay.expand(foot * foot_y, t).reshape(-1)
     bkt_bits = 0
     if bucket_priority is not None:
         bkt_bits = 4
@@ -133,17 +146,34 @@ def bin_triangles(setup: Dict[str, Tensor], width: int, height: int, tile: int,
     gather = start[:, None] + torch.arange(max_per_tile, device=dev)[None, :]
     ok = gather < end[:, None]
     tile_pay = pay_sorted[torch.clamp(gather, 0, last)]
-    tile_tris = torch.where(ok, tile_pay, -1).int()
-    counts = torch.clamp(end - start, max=max_per_tile).int()
-
     # big triangles: stride through their run, one entry per triangle
     max_big = min(max_big, t)
     kk = foot * foot_y
     big_cnt = torch.div(edges[n_tiles + 1] - edges[n_tiles], kk, rounding_mode="floor")
     slots = torch.arange(max_big, device=dev)
     big_pay = pay_sorted[torch.clamp(edges[n_tiles] + slots * kk, 0, last)]
+    if priority is not None:
+        # priorities back to triangle ids through the inverse permutation
+        inv = torch.zeros(t, dtype=torch.long, device=dev)
+        inv[priority.long()] = torch.arange(t, device=dev)
+        tile_pay = inv[torch.clamp(tile_pay, 0, t - 1)]
+        big_pay = inv[torch.clamp(big_pay, 0, t - 1)]
+    tile_tris = torch.where(ok, tile_pay, -1).int()
+    counts = torch.clamp(end - start, max=max_per_tile).int()
     big_list = torch.where(slots < big_cnt, big_pay, -1).int()
     return tile_tris, counts, big_list
+
+
+def merge_big_list(tile_tris: Tensor, counts: Tensor, big_list: Tensor
+                   ) -> Tuple[Tensor, Tensor]:
+    """Prepend the shared big list to every tile's row, for consumers that
+    walk one flat list per tile (OIT) -> (tile_tris (tiles, B + C), counts).
+    A tile with entries counts all B big slots, holes included; a tile
+    without counts only the big list's used slots."""
+    n_tiles, b = tile_tris.shape[0], big_list.shape[0]
+    merged = torch.cat([big_list[None, :].expand(n_tiles, b), tile_tris], dim=1)
+    big_n = (big_list >= 0).sum()
+    return merged.int(), torch.where(counts > 0, b + counts, big_n).int()
 
 
 def _tile_spans(setup: Dict[str, Tensor], tile: int, th: int, tiles_x: int,
@@ -372,19 +402,19 @@ def _tile_coords(tiles: Tensor, tiles_x: int, tile: int, th: int):
     return px, py
 
 
-def raster_shade_plain(edge: Tensor, shade: Tensor, tile_tris: Tensor,
-                       counts: Tensor, big_list: Tensor, width: int,
-                       height: int, tile: int, tile_h: int,
-                       max_elems: int = 1 << 23
-                       ) -> Tuple[Dict[str, Tensor], Tensor]:
-    """The plain PyTorch version of the raster_shade kernel (same inputs,
-    same tie rule). Tiles are processed in chunks so the (tiles, slots,
-    pixels) temporaries stay under `max_elems` elements each."""
+def _scan_visibility(edge: Tensor, tile_tris: Tensor, big_list: Tensor,
+                     width: int, height: int, tile: int, tile_h: int,
+                     max_elems: int):
+    """The visibility scan of the raster kernels' plain versions: every
+    tile takes the shared big list, then its own list, in 16-slot blocks
+    with the BITREV16 tie order. Tiles run in chunks whose (tiles, slots,
+    pixels) temporaries stay under `max_elems` elements; yields per chunk
+    (tiles, px, py, vis) with vis the (chunk, pixels) depth, tri_id, b0,
+    b1 and the winning record row `row` (the sentinel where empty)."""
     dev = edge.device
-    th = tile_h
-    tiles_x, tiles_y, n_tiles = _grid(width, height, tile, th)
+    tiles_x, _, n_tiles = _grid(width, height, tile, tile_h)
     t_count = edge.shape[0] - 1
-    n_px = th * tile
+    n_px = tile_h * tile
     lists = torch.cat([big_list[None, :].expand(n_tiles, -1), tile_tris], dim=1)
     pad = (-lists.shape[1]) % TRI_BLOCK
     lists = torch.nn.functional.pad(lists, (0, pad), value=-1)
@@ -396,16 +426,10 @@ def raster_shade_plain(edge: Tensor, shade: Tensor, tile_tris: Tensor,
     rank = slot - slot % TRI_BLOCK + bitrev[slot % TRI_BLOCK]
     slot_of_rank = torch.empty_like(rank)
     slot_of_rank[rank] = slot
-
-    depth = torch.zeros((n_tiles, n_px), device=dev)
-    tri_id = torch.full((n_tiles, n_px), -1, dtype=torch.int32, device=dev)
-    b0_out = torch.zeros((n_tiles, n_px), device=dev)
-    b1_out = torch.zeros((n_tiles, n_px), device=dev)
-    planes = torch.zeros((GBUF_PLANES, n_tiles, n_px), device=dev)
     step = max(1, max_elems // (n_slots * n_px))
     for t0 in range(0, n_tiles, step):
         tiles = torch.arange(t0, min(t0 + step, n_tiles), device=dev)
-        px, py = _tile_coords(tiles, tiles_x, tile, th)
+        px, py = _tile_coords(tiles, tiles_x, tile, tile_h)
         sid = safe[tiles]                               # (nt, S)
         d = edge[sid][..., None]                        # (nt, S, 16, 1)
         pxs, pys = px[:, None, :], py[:, None, :]
@@ -425,20 +449,57 @@ def raster_shade_plain(edge: Tensor, shade: Tensor, tile_tris: Tensor,
         win = slot_of_rank[torch.clamp(first, max=n_slots - 1)]  # (nt, n_px)
         pick = lambda x: torch.gather(x, 1, win[:, None, :])[:, 0]
         zero = torch.zeros_like(best)
-        b0w = torch.where(hit, pick(w0), zero)
-        b1w = torch.where(hit, pick(w1), zero)
-        depth[tiles] = torch.where(hit, best, zero)
-        tri_id[tiles] = torch.where(hit, torch.gather(sid, 1, win).int(), -1)
-        b0_out[tiles] = b0w
-        b1_out[tiles] = b1w
-        rec = shade[torch.gather(sid, 1, win)]          # (nt, n_px, REC)
-        rec = torch.where(hit[..., None], rec, torch.zeros_like(rec))
-        planes[:, tiles] = _finish_gbuffer(lambda i: rec[..., i], b0w, b1w,
-                                           px, py, hit)
-    img = lambda x: _tiles_to_image(x, tiles_y, tiles_x, th, tile, height, width)
-    vis = {"depth": img(depth), "tri_id": img(tri_id), "b0": img(b0_out),
-           "b1": img(b1_out)}
-    return vis, img(planes)
+        row = torch.where(hit, torch.gather(sid, 1, win), t_count)
+        yield tiles, px, py, {
+            "depth": torch.where(hit, best, zero),
+            "tri_id": torch.where(hit, row, -1).int(),
+            "b0": torch.where(hit, pick(w0), zero),
+            "b1": torch.where(hit, pick(w1), zero), "row": row}
+
+
+def raster_shade_plain(edge: Tensor, shade: Tensor, tile_tris: Tensor,
+                       counts: Tensor, big_list: Tensor, width: int,
+                       height: int, tile: int, tile_h: int,
+                       max_elems: int = 1 << 23
+                       ) -> Tuple[Dict[str, Tensor], Tensor]:
+    """The plain PyTorch version of the raster_shade kernel (same inputs,
+    same tie rule); `shade` has a zero sentinel row."""
+    tiles_x, tiles_y, n_tiles = _grid(width, height, tile, tile_h)
+    n_px = tile_h * tile
+    out = _empty_vis(n_tiles, n_px, edge.device)
+    planes = torch.zeros((GBUF_PLANES, n_tiles, n_px), device=edge.device)
+    for tiles, px, py, vis in _scan_visibility(edge, tile_tris, big_list, width,
+                                               height, tile, tile_h, max_elems):
+        for k in out:
+            out[k][tiles] = vis[k]
+        rec = shade[vis["row"]]                         # (nt, n_px, REC)
+        planes[:, tiles] = _finish_gbuffer(lambda i: rec[..., i], vis["b0"],
+                                           vis["b1"], px, py, vis["tri_id"] >= 0)
+    img = lambda x: _tiles_to_image(x, tiles_y, tiles_x, tile_h, tile, height, width)
+    return {k: img(v) for k, v in out.items()}, img(planes)
+
+
+def _empty_vis(n_tiles: int, n_px: int, dev) -> Dict[str, Tensor]:
+    return {"depth": torch.zeros((n_tiles, n_px), device=dev),
+            "tri_id": torch.full((n_tiles, n_px), -1, dtype=torch.int32, device=dev),
+            "b0": torch.zeros((n_tiles, n_px), device=dev),
+            "b1": torch.zeros((n_tiles, n_px), device=dev)}
+
+
+def visibility_plain(edge: Tensor, tile_tris: Tensor, counts: Tensor,
+                     big_list: Tensor, width: int, height: int, tile: int,
+                     tile_h: int, max_elems: int = 1 << 23) -> Dict[str, Tensor]:
+    """The plain PyTorch version of the visibility kernel: raster_shade's
+    scan without the shading; the big list and the tile lists come padded
+    to 16-slot blocks (`visibility_args`)."""
+    tiles_x, tiles_y, n_tiles = _grid(width, height, tile, tile_h)
+    out = _empty_vis(n_tiles, tile_h * tile, edge.device)
+    for tiles, _, _, vis in _scan_visibility(edge, tile_tris, big_list, width,
+                                             height, tile, tile_h, max_elems):
+        for k in out:
+            out[k][tiles] = vis[k]
+    return {k: _tiles_to_image(v, tiles_y, tiles_x, tile_h, tile, height, width)
+            for k, v in out.items()}
 
 
 def _check(name: str, x: Tensor, dtype: torch.dtype, shape: tuple, device,
@@ -478,47 +539,59 @@ def raster_shade_cuda(edge: Tensor, shade: Tensor, tile_tris: Tensor,
     inputs and outputs as `raster_shade_plain`."""
     from garden_tpu_torch import cuda_build
 
-    dev = edge.device
-    if dev.type != "cuda":
-        raise ValueError(f"raster_shade_cuda needs CUDA tensors, got {dev}")
-    th = tile_h
-    tiles_x, tiles_y, n_tiles = _grid(width, height, tile, th)
-    t1 = edge.shape[0]
-    cap = tile_tris.shape[1]
-    n_big = big_list.shape[0]
-    _check("edge", edge, torch.float32, (t1, EDGE_WIDTH), dev)
-    _check("shade", shade, torch.float32, (t1, shade.shape[1]), dev)
+    dev, tiles_x, n_tiles, smem = _raster_checks(
+        "raster_shade", edge, tile_tris, counts, big_list, width, height, tile,
+        tile_h, 36)
+    _check("shade", shade, torch.float32, (edge.shape[0], shade.shape[1]), dev)
     if shade.shape[1] < 36:
         raise ValueError("raster_shade: shading records need >= 36 channels")
-    _check("tile_tris", tile_tris, torch.int32, (n_tiles, cap), dev)
-    _check("counts", counts, torch.int32, (n_tiles,), dev)
-    _check("big_list", big_list, torch.int32, (n_big,), dev)
-    n_px = tile * th
-    if n_px % _THREADS or (n_px // _THREADS) not in (4, 8, 16, 32, 64):
-        raise ValueError(f"raster_shade: a {tile}x{th} tile is not a kernel "
-                         f"shape (pixels per thread must be 4..64)")
-    n_slots = -(-(n_big + cap) // TRI_BLOCK) * TRI_BLOCK
-    smem = n_slots * (EDGE_WIDTH + 36 + 1) * 4
-    if smem > _MAX_SMEM:
-        raise ValueError(f"raster_shade: {n_slots} list slots need {smem} bytes "
-                         "of shared memory")
-
-    depth = torch.empty((height, width), device=dev)
-    tri_id = torch.empty((height, width), dtype=torch.int32, device=dev)
-    b0 = torch.empty((height, width), device=dev)
-    b1 = torch.empty((height, width), device=dev)
+    vis = _vis_outputs(height, width, dev)
     planes = torch.empty((GBUF_PLANES, height, width), device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _call(cuda_build.load("raster_shade").raster_shade_launch,
           [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 6,
           "raster_shade",
           _ptr(edge), _ptr(shade), _ptr(tile_tris), _ptr(counts), _ptr(big_list),
-          n_big, cap, t1 - 1, shade.shape[1], n_tiles, tiles_x, tile, th,
-          width, height, smem,
-          _ptr(depth), _ptr(tri_id), _ptr(b0), _ptr(b1), _ptr(planes),
+          big_list.shape[0], tile_tris.shape[1], edge.shape[0] - 1, shade.shape[1],
+          n_tiles, tiles_x, tile, tile_h, width, height, smem,
+          *[_ptr(vis[k]) for k in ("depth", "tri_id", "b0", "b1")], _ptr(planes),
           ctypes.c_void_p(stream))
     rasterize_visibility_shaded.launches += 1
-    return {"depth": depth, "tri_id": tri_id, "b0": b0, "b1": b1}, planes
+    return vis, planes
+
+
+def _raster_checks(kernel: str, edge: Tensor, tile_tris: Tensor, counts: Tensor,
+                   big_list: Tensor, width: int, height: int, tile: int,
+                   tile_h: int, rec_floats: int):
+    """Checks shared by the raster_shade and visibility wrappers; -> (device,
+    tiles_x, n_tiles, shared-memory bytes for the tile's list with
+    `rec_floats` shading floats a slot)."""
+    dev = edge.device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel}_cuda needs CUDA tensors, got {dev}")
+    tiles_x, _, n_tiles = _grid(width, height, tile, tile_h)
+    cap, n_big = tile_tris.shape[1], big_list.shape[0]
+    _check("edge", edge, torch.float32, (edge.shape[0], EDGE_WIDTH), dev, kernel)
+    _check("tile_tris", tile_tris, torch.int32, (n_tiles, cap), dev, kernel)
+    _check("counts", counts, torch.int32, (n_tiles,), dev, kernel)
+    _check("big_list", big_list, torch.int32, (n_big,), dev, kernel)
+    n_px = tile * tile_h
+    if n_px % _THREADS or (n_px // _THREADS) not in (4, 8, 16, 32, 64):
+        raise ValueError(f"{kernel}: a {tile}x{tile_h} tile is not a kernel "
+                         f"shape (pixels per thread must be 4..64)")
+    n_slots = -(-(n_big + cap) // TRI_BLOCK) * TRI_BLOCK
+    smem = n_slots * (EDGE_WIDTH + rec_floats + 1) * 4
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{kernel}: {n_slots} list slots need {smem} bytes "
+                         "of shared memory")
+    return dev, tiles_x, n_tiles, smem
+
+
+def _vis_outputs(height: int, width: int, dev) -> Dict[str, Tensor]:
+    return {"depth": torch.empty((height, width), device=dev),
+            "tri_id": torch.empty((height, width), dtype=torch.int32, device=dev),
+            "b0": torch.empty((height, width), device=dev),
+            "b1": torch.empty((height, width), device=dev)}
 
 
 def kernel_args(setup: Dict[str, Tensor], shade_records: Tensor,
@@ -560,6 +633,247 @@ def rasterize_visibility_shaded(setup: Dict[str, Tensor], shade_records: Tensor,
 
 
 rasterize_visibility_shaded.launches = 0
+
+
+# -- visibility raster without shading (the refraction pass) -------------------
+
+def visibility_cuda(edge: Tensor, tile_tris: Tensor, counts: Tensor,
+                    big_list: Tensor, width: int, height: int, tile: int,
+                    tile_h: int) -> Dict[str, Tensor]:
+    """Launch the visibility kernel (csrc/raster_shade.cu, raster_shade's
+    scan without its shading phase); same inputs and outputs as
+    `visibility_plain`."""
+    from garden_tpu_torch import cuda_build
+
+    dev, tiles_x, n_tiles, smem = _raster_checks(
+        "visibility", edge, tile_tris, counts, big_list, width, height, tile,
+        tile_h, 0)
+    if big_list.shape[0] % TRI_BLOCK or tile_tris.shape[1] % TRI_BLOCK:
+        raise ValueError("visibility: lists must have 16k slots")
+    vis = _vis_outputs(height, width, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _call(cuda_build.load("raster_shade").visibility_launch,
+          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 5,
+          "visibility",
+          _ptr(edge), _ptr(tile_tris), _ptr(counts), _ptr(big_list),
+          big_list.shape[0], tile_tris.shape[1], edge.shape[0] - 1, n_tiles,
+          tiles_x, tile, tile_h, width, height, smem,
+          *[_ptr(vis[k]) for k in ("depth", "tri_id", "b0", "b1")],
+          ctypes.c_void_p(stream))
+    rasterize_visibility.launches += 1
+    return vis
+
+
+def visibility_args(setup: Dict[str, Tensor], tile_tris: Tensor, counts: Tensor,
+                    big_list: Tensor, width: int, height: int, tile: int,
+                    tile_h: int = None) -> tuple:
+    """The positional arguments of visibility_cuda / visibility_plain: edge
+    records, the tile lists and the big list each padded to 16-slot blocks
+    (the TPU kernel's big block and tile block), the frame and tile sizes."""
+    return (_pack_edge_records(setup), _pad_slots(tile_tris),
+            counts.int().contiguous(), _pad_slots(big_list[None, :])[0],
+            width, height, tile, tile_h or tile)
+
+
+def rasterize_visibility(setup: Dict[str, Tensor], tile_tris: Tensor,
+                         counts: Tensor, big_list: Tensor, width: int,
+                         height: int, tile: int, tile_h: int = None
+                         ) -> Dict[str, Tensor]:
+    """Visibility buffer: depth (H, W) reverse-Z, tri_id (H, W) int32 (-1
+    where empty) and screen barycentrics b0, b1. Each tile scans the shared
+    big list, then its own list, with the tie order of BITREV16. CUDA
+    tensors launch the visibility kernel, CPU tensors take
+    `visibility_plain`; `launches` counts kernel launches."""
+    args = visibility_args(setup, tile_tris, counts, big_list, width, height,
+                           tile, tile_h)
+    return _on_device("rasterize_visibility", args[0], visibility_cuda,
+                      visibility_plain)(*args)
+
+
+rasterize_visibility.launches = 0
+
+
+# -- ordered alpha blend (the sorted pass and the translucent shadow tint) -----
+
+def pack_blend_records(setup: Dict[str, Tensor], tri_rgba: Tensor,
+                       tri_atlas: Tensor = None) -> Tensor:
+    """(T + 1, 16) records in vertex form: [x0 y0 x1 y1 x2 y2 | z0 z1 z2 |
+    inv_area | id | r g b a | atlas]; row T is a sentinel (id -1, alpha 0)."""
+    sx, sy, z = setup["sx"], setup["sy"], setup["z"]
+    t = sx.shape[1]
+    dev = sx.device
+    atlas = (tri_atlas.float() if tri_atlas is not None
+             else torch.zeros(t, device=dev))
+    rec = torch.cat([torch.stack([sx[0], sy[0], sx[1], sy[1], sx[2], sy[2],
+                                  z[0], z[1], z[2], setup["inv_area"],
+                                  torch.arange(t, dtype=torch.float32, device=dev)],
+                                 dim=-1),
+                     tri_rgba.float(), atlas[:, None]], dim=-1)
+    sentinel = torch.zeros((1, EDGE_WIDTH), device=dev)
+    sentinel[0, 10] = -1.0
+    return torch.cat([rec, sentinel], dim=0)
+
+
+def _pad_image(img: Tensor, h_pad: int, w_pad: int, value: float) -> Tensor:
+    """(H, W[, C]) -> (h_pad, w_pad[, C]), the new pixels set to `value`."""
+    out = torch.full((h_pad, w_pad) + tuple(img.shape[2:]), value,
+                     dtype=img.dtype, device=img.device)
+    out[:img.shape[0], :img.shape[1]] = img
+    return out
+
+
+def _edges_vertex(d: Tensor, px: Tensor, py: Tensor):
+    """The three edge functions of vertex-form records d (rows, 16) at
+    pixel centres (rows, n_px), as the TPU blend and OIT kernels write
+    them: e0 = (px - x1)(y2 - y1) - (py - y1)(x2 - x1) and rotations."""
+    x0, y0, x1, y1, x2, y2 = (d[:, i:i + 1] for i in range(6))
+    e0 = (px - x1) * (y2 - y1) - (py - y1) * (x2 - x1)
+    e1 = (px - x2) * (y0 - y2) - (py - y2) * (x0 - x2)
+    e2 = (px - x0) * (y1 - y0) - (py - y0) * (x1 - x0)
+    return e0, e1, e2
+
+
+def blend_plain(records: Tensor, tile_tris: Tensor, counts: Tensor,
+                big_list: Tensor, opaque_depth: Tensor, hdr: Tensor, width: int,
+                height: int, tile: int, tile_h: int, atlas_bounds: tuple = ()
+                ) -> Tensor:
+    """Plain version of the sorted_blend kernel: every tile blends the
+    shared big list's used blocks, then its own list's blocks, one
+    triangle at a time in list order, source-over onto `hdr` (H, W, 3)
+    where z >= opaque_depth (reverse-Z), z <= 1 and, with atlas rects,
+    inside the record's rect. Empty slots blend nothing. -> (H, W, 3)."""
+    dev = records.device
+    tiles_x, tiles_y, n_tiles = _grid(width, height, tile, tile_h)
+    h_pad, w_pad = tiles_y * tile_h, tiles_x * tile
+    t_count = records.shape[0] - 1
+    n_big = big_list.shape[0]
+    img = lambda x: _image_tiles(x, tiles_x, tile, tile_h)
+    opaque = img(_pad_image(opaque_depth, h_pad, w_pad, 0.0))
+    dst = _pad_image(hdr, h_pad, w_pad, 0.0)
+    out = [img(dst[..., c].contiguous()) for c in range(3)]
+    px, py = _tile_coords(torch.arange(n_tiles, device=dev), tiles_x, tile, tile_h)
+    lists = torch.cat([big_list[None, :].expand(n_tiles, -1), tile_tris], dim=1)
+    # the scanned slots: the big list's used blocks, then the tile's blocks
+    big_end = _blocks_of((big_list >= 0).sum()) * TRI_BLOCK
+    grid_end = n_big + _blocks_of(counts) * TRI_BLOCK
+    n_scan = n_big + (int(_blocks_of(counts).max()) * TRI_BLOCK if n_tiles else 0)
+    for j in range(n_scan):
+        ids = lists[:, j]
+        scanned = (j < big_end) if j < n_big else (j < grid_end)
+        act = (scanned & (ids >= 0))[:, None]
+        d = records[torch.where(ids >= 0, ids, t_count).long()]
+        e0, e1, e2 = _edges_vertex(d, px, py)
+        b0 = e0 * d[:, 9:10]
+        b1 = e1 * d[:, 9:10]
+        z = b0 * d[:, 6:7] + b1 * d[:, 7:8] + (1.0 - b0 - b1) * d[:, 8:9]
+        hit = ((e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (z >= opaque) & (z <= 1.0)
+               & (d[:, 10:11] >= 0.0))
+        if atlas_bounds:
+            hit = hit & _atlas_guard(d[:, 15:16], px, py, atlas_bounds)
+        a = torch.where(hit, d[:, 14:15], 0.0)
+        for c in range(3):
+            out[c] = torch.where(act, out[c] * (1.0 - a) + d[:, 11 + c:12 + c] * a,
+                                 out[c])
+    return torch.stack([_tiles_to_image(o, tiles_y, tiles_x, tile_h, tile, height,
+                                        width) for o in out], dim=-1)
+
+
+def _blend_pixels(kernel: str, tile: int, tile_h: int, allowed: tuple) -> int:
+    """Pixels a thread owns in a tile of the blend or OIT kernel, one of
+    `allowed`: the tile's width must divide the block's 256 threads."""
+    n_px = tile * tile_h
+    p = n_px // _THREADS
+    if _THREADS % tile or n_px % _THREADS or p not in allowed:
+        raise ValueError(f"{kernel}: a {tile}x{tile_h} tile is not a kernel "
+                         f"shape (the width must divide {_THREADS} and each "
+                         f"thread takes one of {allowed} pixels)")
+    return p
+
+
+@functools.lru_cache(maxsize=32)
+def _rects(atlas_bounds: tuple, dev) -> Tensor:
+    """The kernels' (n, 4) float32 rect table, x0 x1 y0 y1 a row (one zero
+    row when there is none). Kept per (bounds, device): building it copies
+    from the host, which would hold the host until the card has finished
+    its queue at every launch. The kernels only read it."""
+    if len(atlas_bounds) > MAX_ATLAS_RECTS:
+        raise ValueError(f"at most {MAX_ATLAS_RECTS} atlas rects")
+    return torch.tensor([list(map(float, b)) for b in atlas_bounds] or [[0.0] * 4],
+                        dtype=torch.float32, device=dev)
+
+
+def blend_cuda(records: Tensor, tile_tris: Tensor, counts: Tensor,
+               big_list: Tensor, opaque_depth: Tensor, hdr: Tensor, width: int,
+               height: int, tile: int, tile_h: int, atlas_bounds: tuple = ()
+               ) -> Tensor:
+    """Launch the sorted_blend kernel (csrc/blend_raster.cu); same inputs and
+    output as `blend_plain`."""
+    from garden_tpu_torch import cuda_build
+
+    dev = records.device
+    if dev.type != "cuda":
+        raise ValueError(f"sorted_blend_cuda needs CUDA tensors, got {dev}")
+    tiles_x, _, n_tiles = _grid(width, height, tile, tile_h)
+    cap, n_big = tile_tris.shape[1], big_list.shape[0]
+    if cap % TRI_BLOCK or n_big % TRI_BLOCK:
+        raise ValueError("sorted_blend: lists must have 16k slots")
+    _check("records", records, torch.float32, (records.shape[0], EDGE_WIDTH), dev,
+           "sorted_blend")
+    _check("tile_tris", tile_tris, torch.int32, (n_tiles, cap), dev, "sorted_blend")
+    _check("counts", counts, torch.int32, (n_tiles,), dev, "sorted_blend")
+    _check("big_list", big_list, torch.int32, (n_big,), dev, "sorted_blend")
+    _check("opaque_depth", opaque_depth, torch.float32, (height, width), dev,
+           "sorted_blend")
+    _check("hdr", hdr, torch.float32, (height, width, 3), dev, "sorted_blend")
+    if n_big + cap > 1024:
+        raise ValueError(f"sorted_blend: {n_big + cap} list slots, at most 1024")
+    p = _blend_pixels("sorted_blend", tile, tile_h, (8, 16))
+    rects = _rects(atlas_bounds, dev)
+    out = torch.empty_like(hdr)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _call(cuda_build.load("blend_raster").sorted_blend_launch,
+          [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p],
+          "sorted_blend",
+          _ptr(records), _ptr(tile_tris), _ptr(counts), _ptr(big_list),
+          _ptr(opaque_depth), _ptr(hdr), cap, n_big, records.shape[0] - 1,
+          n_tiles, tiles_x, tile, tile_h, width, height, p,
+          _ptr(rects), len(atlas_bounds), _ptr(out),
+          _smem_bytes("sorted_blend", n_big + cap), ctypes.c_void_p(stream))
+    rasterize_sorted_blend.launches += 1
+    return out
+
+
+def blend_args(setup: Dict[str, Tensor], tri_rgba: Tensor, tile_tris: Tensor,
+               counts: Tensor, big_list: Tensor, opaque_depth: Tensor, hdr: Tensor,
+               width: int, height: int, tile: int, atlas_bounds: tuple = (),
+               tri_atlas: Tensor = None, tile_h: int = None) -> tuple:
+    """The positional arguments of blend_cuda / blend_plain."""
+    return (pack_blend_records(setup, tri_rgba, tri_atlas), _pad_slots(tile_tris),
+            counts.int().contiguous(), _pad_slots(big_list[None, :])[0],
+            opaque_depth.float().contiguous(), hdr.float().contiguous(), width,
+            height, tile, tile_h or tile, tuple(tuple(b) for b in atlas_bounds))
+
+
+def rasterize_sorted_blend(setup: Dict[str, Tensor], tri_rgba: Tensor,
+                           tile_tris: Tensor, counts: Tensor, big_list: Tensor,
+                           opaque_depth: Tensor, hdr: Tensor, width: int,
+                           height: int, tile: int, atlas_bounds: tuple = (),
+                           tri_atlas: Tensor = None, tile_h: int = None) -> Tensor:
+    """Alpha-blend binned triangles (T, 4) rgba over the HDR (H, W, 3) in bin
+    order: the big list first, then each tile's list (back-to-front when
+    binned with a depth priority), z-tested against the opaque reverse-Z
+    depth. `atlas_bounds` + `tri_atlas` clip each triangle to its
+    cascade's rect. CUDA tensors launch the sorted_blend kernel, CPU
+    tensors take `blend_plain`; `launches` counts kernel launches."""
+    args = blend_args(setup, tri_rgba, tile_tris, counts, big_list, opaque_depth,
+                      hdr, width, height, tile, atlas_bounds, tri_atlas, tile_h)
+    return _on_device("rasterize_sorted_blend", args[0], blend_cuda,
+                      blend_plain)(*args)
+
+
+rasterize_sorted_blend.launches = 0
 
 
 # -- depth-only raster (the shadow cascades) ----------------------------------
@@ -642,10 +956,14 @@ def _depth_candidates(d: Tensor, px: Tensor, py: Tensor, atlas_bounds: tuple
 
 def _depth_blocks(records: Tensor, lists: Tensor, n_blocks: Tensor,
                   depth: Tensor, px: Tensor, py: Tensor, atlas_bounds: tuple,
-                  bound: Tensor = None) -> Tensor:
+                  bound: Tensor = None, work: list = None) -> Tensor:
     """Max-merge the 16-slot blocks 0 .. n_blocks - 1 of each row's list
     into depth (rows, n_px). With `bound`, a row stops after block cb once
-    its smallest depth is >= bound[:, cb + 1] (the kernels' early exit)."""
+    its smallest depth is >= bound[:, cb + 1] (the kernels' early exit).
+    With `work` (a one-element list), adds to work[0] the (slot, pixel)
+    pairs of the non-empty slots the kernels test: a measurement for the
+    kernels' bound in chip_smoke.py, which syncs with the host once a
+    block; the renderer never passes it."""
     t_count = records.shape[0] - 1
     n_blocks = torch.clamp(n_blocks.long(), max=lists.shape[1] // TRI_BLOCK)
     done = torch.zeros(lists.shape[0], dtype=torch.bool, device=lists.device)
@@ -655,6 +973,8 @@ def _depth_blocks(records: Tensor, lists: Tensor, n_blocks: Tensor,
         d = records[torch.where(ids >= 0, ids, t_count).long()][..., None]
         zs = torch.amax(_depth_candidates(d, px, py, atlas_bounds), dim=1)
         act = (cb < n_blocks) & ~done
+        if work is not None:
+            work[0] += int(((ids >= 0) & act[:, None]).sum()) * px.shape[-1]
         depth = torch.where(act[:, None], torch.maximum(depth, zs), depth)
         if bound is not None:
             done = done | (act & (torch.amin(depth, dim=1) >= bound[:, cb + 1]))
@@ -668,11 +988,12 @@ def _blocks_of(counts: Tensor) -> Tensor:
 def depth_super_plain(records: Tensor, sup_tris: Tensor, sup_counts: Tensor,
                       sup_grid: tuple, width: int, height: int, tile: int,
                       tile_h: int, atlas_bounds: tuple = (),
-                      max_elems: int = 1 << 23) -> Tensor:
+                      max_elems: int = 1 << 23, work: list = None) -> Tensor:
     """Split pass 1, plain version of the depth_super kernel: every tile
     max-reduces its super-tile's big list. -> the padded depth image
     (tiles_y * tile_h, tiles_x * tile). Tiles run in chunks whose
-    (tiles, 16, pixels) temporaries stay under `max_elems` elements."""
+    (tiles, 16, pixels) temporaries stay under `max_elems` elements;
+    `work` counts as in `_depth_blocks`."""
     sup_x, sup_y, sups_x = sup_grid
     tiles_x, tiles_y, n_tiles = _grid(width, height, tile, tile_h)
     n_px = tile * tile_h
@@ -685,7 +1006,7 @@ def depth_super_plain(records: Tensor, sup_tris: Tensor, sup_counts: Tensor,
                + torch.div(tiles % tiles_x, sup_x, rounding_mode="floor"))
         px, py = _tile_coords(tiles, tiles_x, tile, tile_h)
         out[tiles] = _depth_blocks(records, sup_tris[sup], _blocks_of(sup_counts[sup]),
-                                   out[tiles], px, py, atlas_bounds)
+                                   out[tiles], px, py, atlas_bounds, work=work)
     return _tiles_to_image(out, tiles_y, tiles_x, tile_h, tile, tiles_y * tile_h,
                            tiles_x * tile)
 
@@ -693,11 +1014,13 @@ def depth_super_plain(records: Tensor, sup_tris: Tensor, sup_counts: Tensor,
 def depth_grid_plain(depth: Tensor, records: Tensor, act_ids: Tensor,
                      act_cnt: Tensor, tile_tris: Tensor, bound: Tensor,
                      width: int, height: int, tile: int, tile_h: int,
-                     atlas_bounds: tuple = (), max_elems: int = 1 << 23) -> Tensor:
+                     atlas_bounds: tuple = (), max_elems: int = 1 << 23,
+                     work: list = None) -> Tensor:
     """Split pass 2, plain version of the depth_grid kernel: row i of the
     compacted lists belongs to tile act_ids[i], whose pixels of the padded
     `depth` image it max-merges its list onto, with the early exit. Updates
-    `depth` in place and returns it; other tiles keep their values."""
+    `depth` in place and returns it; other tiles keep their values. `work`
+    counts as in `_depth_blocks`."""
     tiles_x, _, _ = _grid(width, height, tile, tile_h)
     n_px = tile * tile_h
     img = _image_tiles(depth, tiles_x, tile, tile_h).clone()
@@ -708,7 +1031,7 @@ def depth_grid_plain(depth: Tensor, records: Tensor, act_ids: Tensor,
         tiles = act_ids[r].long()
         px, py = _tile_coords(tiles, tiles_x, tile, tile_h)
         img[tiles] = _depth_blocks(records, tile_tris[r], _blocks_of(act_cnt[r]),
-                                   img[tiles], px, py, atlas_bounds, bound[r])
+                                   img[tiles], px, py, atlas_bounds, bound[r], work)
     depth.copy_(_tiles_to_image(img, depth.shape[0] // tile_h, tiles_x, tile_h,
                                 tile, depth.shape[0], depth.shape[1]))
     return depth
@@ -717,10 +1040,10 @@ def depth_grid_plain(depth: Tensor, records: Tensor, act_ids: Tensor,
 def depth_dense_plain(records: Tensor, tile_tris: Tensor, counts: Tensor,
                       big_list: Tensor, bound: Tensor, width: int, height: int,
                       tile: int, tile_h: int, atlas_bounds: tuple = (),
-                      max_elems: int = 1 << 23) -> Tensor:
+                      max_elems: int = 1 << 23, work: list = None) -> Tensor:
     """Plain version of the depth_dense kernel: every tile max-reduces the
     shared big list, then its own list with the early exit. -> the padded
-    depth image."""
+    depth image; `work` counts as in `_depth_blocks`."""
     tiles_x, tiles_y, n_tiles = _grid(width, height, tile, tile_h)
     n_px = tile * tile_h
     dev = records.device
@@ -732,9 +1055,9 @@ def depth_dense_plain(records: Tensor, tile_tris: Tensor, counts: Tensor,
         px, py = _tile_coords(tiles, tiles_x, tile, tile_h)
         d = _depth_blocks(records, big_list[None, :].expand(len(tiles), -1),
                           big_blocks.expand(len(tiles)), out[tiles], px, py,
-                          atlas_bounds)
+                          atlas_bounds, work=work)
         out[tiles] = _depth_blocks(records, tile_tris[tiles], _blocks_of(counts[tiles]),
-                                   d, px, py, atlas_bounds, bound[tiles])
+                                   d, px, py, atlas_bounds, bound[tiles], work)
     return _tiles_to_image(out, tiles_y, tiles_x, tile_h, tile, tiles_y * tile_h,
                            tiles_x * tile)
 
@@ -756,12 +1079,9 @@ def _depth_kernel_setup(kernel: str, records: Tensor, tile: int, tile_h: int,
         raise ValueError(f"{kernel}: a {tile}x{tile_h} tile is not a kernel shape "
                          f"(the width must divide {DEPTH_THREADS} and each thread "
                          "takes 4..64 pixels)")
-    if len(atlas_bounds) > MAX_ATLAS_RECTS:
-        raise ValueError(f"{kernel}: at most {MAX_ATLAS_RECTS} atlas rects")
-    rects = torch.tensor([list(map(float, b)) for b in atlas_bounds] or [[0.0] * 4],
-                         dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    return cuda_build.load("depth_raster"), rects, len(atlas_bounds), stream
+    return (cuda_build.load("depth_raster"), _rects(atlas_bounds, dev),
+            len(atlas_bounds), stream)
 
 
 def _smem_bytes(kernel: str, slots: int) -> int:

@@ -268,8 +268,9 @@ def cascades():
     valid = np.ones(t, bool)
     jatlas, _ = jcsm.render_cascades(None, None, jnp.asarray(valid), jl, jcfg,
                                      pos_planes=tuple(jnp.asarray(p) for p in planes))
-    tatlas = tcsm.render_cascades(tuple(torch.from_numpy(p) for p in planes),
-                                  torch.from_numpy(valid), tl, tcfg)
+    tatlas, ttrans = tcsm.render_cascades(tuple(torch.from_numpy(p) for p in planes),
+                                          torch.from_numpy(valid), tl, tcfg)
+    assert ttrans is None                      # no translucent casters given
     return c, jcfg, tcfg, splits, jl, tl, planes, jatlas, tatlas
 
 

@@ -9,16 +9,20 @@ the card: tri_id, depth and barycentrics exactly (the kernel is built with
 -fmad=false and evaluates the same ops in the same order), the G-buffer
 planes to 2e-5 (the kernel's rsqrtf may differ from torch.rsqrt by an ulp).
 The depth kernels (depth_super, depth_grid, depth_dense) must equal their
-plain versions exactly, and the split pair the dense one. Small combined
-steps on the card match the CPU within the image bar.
+plain versions exactly, and the split pair the dense one. So must the
+visibility kernel (K5), the ordered blend (K6, with and without atlas
+rects) and the OIT accumulation (K7, whose 128x128 tiles run as four row
+bands). Small combined steps on the card, the glass step's among them,
+match the CPU within the image bar.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from garden_tpu_torch.entry import SLICE_OVERRIDES, build
-from garden_tpu_torch.render import raster
+from garden_tpu_torch.entry import (GLASS_BOXES, GLASS_OVERRIDES, SLICE_OVERRIDES,
+                                    build)
+from garden_tpu_torch.render import oit, raster
 
 pytestmark = pytest.mark.gpu
 
@@ -211,6 +215,121 @@ def test_small_flagship_step_matches_cpu(cuda, shadow):
     for dev in ("cpu", cuda):
         step, state = build(32, 256, 128, grid_dim=8,
                             cfg_overrides={"shadow": ShadowConfig(**kw)}, device=dev)
+        nxt, img = step(state)
+        out[str(dev)] = (img.cpu(), nxt["physics"]["bodies"]["pos"].cpu())
+    d = (out["cpu"][0].int() - out["cuda"][0].int()).abs().amax(-1)
+    assert (d <= 2).float().mean().item() >= 0.995
+    assert (out["cpu"][1] - out["cuda"][1]).abs().max().item() <= 1e-4
+
+
+def _to(x, dev):
+    if isinstance(x, dict):
+        return {k: v.to(dev) for k, v in x.items()}
+    return x.to(dev) if isinstance(x, torch.Tensor) else x
+
+
+@pytest.mark.parametrize("tile,tile_h", [(128, 32), (128, 16), (64, 64)])
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+def test_visibility_kernel_matches_plain_on_card(cuda, tile, tile_h, ties):
+    w, h = 320, 200
+    setup, _ = _scene(12, 60, w, h, ties)
+    bins = raster.bin_triangles(setup, w, h, tile, 64, max_big=64, tile_h=tile_h,
+                                foot=2, foot_y=2)
+    args = [_to(a, cuda) for a in raster.visibility_args(setup, *bins, w, h, tile,
+                                                         tile_h)]
+    kv, pv = raster.visibility_cuda(*args), raster.visibility_plain(*args)
+    torch.cuda.synchronize()
+    for k in ("tri_id", "depth", "b0", "b1"):
+        assert torch.equal(kv[k], pv[k]), k
+    assert (kv["tri_id"] >= 0).float().mean().item() > 0.2
+
+
+def _blend_scene(seed, w, h):
+    setup, _ = _scene(seed, 80, w, h, False)
+    t = setup["valid"].shape[0]
+    rng = np.random.default_rng(seed)
+    rgba = torch.tensor(rng.uniform(0.1, 0.9, (t, 4)), dtype=torch.float32)
+    hdr = torch.tensor(rng.uniform(0, 2, (h, w, 3)), dtype=torch.float32)
+    opaque = torch.where(torch.arange(w)[None, :] < w // 2, 0.45, 0.0).expand(h, w)
+    return setup, rgba, hdr, opaque.contiguous()
+
+
+@pytest.mark.parametrize("tile_h", [32, 16])
+@pytest.mark.parametrize("atlas", [False, True], ids=["screen", "atlas_rects"])
+def test_blend_kernel_matches_plain_on_card(cuda, tile_h, atlas):
+    """Back-to-front bins (the sorted pass's priority), bit for bit."""
+    w, h = 320, 200
+    setup, rgba, hdr, opaque = _blend_scene(13, w, h)
+    zkey = torch.where(setup["valid"], setup["z"].mean(dim=0), 2.0)
+    order = torch.argsort(zkey, stable=True)
+    prio = torch.empty_like(order)
+    prio[order] = torch.arange(order.shape[0])
+    bins = raster.bin_triangles(setup, w, h, 128, 64, priority=prio, tile_h=tile_h,
+                                foot=2, foot_y=2)
+    t = rgba.shape[0]
+    bounds = ((0, 160, 0, 200), (160, 320, 0, 128)) if atlas else ()
+    atl = torch.arange(t, dtype=torch.int32) % 3 if atlas else None
+    args = [_to(a, cuda) for a in raster.blend_args(
+        setup, rgba, *bins, opaque, hdr, w, h, 128, bounds, atl, tile_h)]
+    kb, pb = raster.blend_cuda(*args), raster.blend_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(kb, pb)
+    assert (kb.cpu() != hdr).any(-1).float().mean().item() > 0.2
+
+
+@pytest.mark.parametrize("tile", [128, 64])
+def test_oit_kernel_matches_plain_on_card(cuda, tile):
+    """Merged lists (overflowing the 32-slot cap), bit for bit; 128x128
+    tiles run as four 128x32 bands reading one list."""
+    w, h = 320, 200
+    setup, rgba, _, opaque = _blend_scene(14, w, h)
+    merged = raster.merge_big_list(*raster.bin_triangles(setup, w, h, tile, 32,
+                                                         max_big=64))
+    args = [_to(a, cuda) for a in oit.oit_args(setup, rgba, *merged, opaque, w, h,
+                                               tile)]
+    (ka, kr), (pa, pr) = oit.oit_cuda(*args), oit.oit_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(ka, pa) and torch.equal(kr, pr)
+    assert (kr < 1).float().mean().item() > 0.2
+
+
+def test_nonopaque_wrappers_launch_and_count(cuda):
+    w, h = 256, 128
+    setup, rgba, hdr, opaque = _blend_scene(15, w, h)
+    bins = raster.bin_triangles(setup, w, h, 128, 64, tile_h=32, foot=2, foot_y=2)
+    merged = raster.merge_big_list(*raster.bin_triangles(setup, w, h, 128, 64))
+    gs, gb, gm = _to(setup, cuda), [_to(b, cuda) for b in bins], \
+        [_to(m, cuda) for m in merged]
+    fns = (raster.rasterize_visibility, raster.rasterize_sorted_blend,
+           oit.rasterize_oit)
+    before = [f.launches for f in fns]
+    v = raster.rasterize_visibility(gs, *gb, w, h, 128, tile_h=32)
+    b = raster.rasterize_sorted_blend(gs, rgba.to(cuda), *gb, opaque.to(cuda),
+                                      hdr.to(cuda), w, h, 128, tile_h=32)
+    a, r = oit.rasterize_oit(gs, rgba.to(cuda), *gm, opaque.to(cuda), w, h, 128)
+    assert [f.launches for f in fns] == [n + 1 for n in before]
+    assert torch.equal(v["tri_id"].cpu(),
+                       raster.rasterize_visibility(setup, *bins, w, h, 128,
+                                                   tile_h=32)["tri_id"])
+    assert torch.equal(b.cpu(), raster.rasterize_sorted_blend(
+        setup, rgba, *bins, opaque, hdr, w, h, 128, tile_h=32))
+    assert torch.equal(r.cpu(), oit.rasterize_oit(setup, rgba, *merged, opaque, w, h,
+                                                  128)[1])
+    bad = list(oit.oit_args(gs, rgba.to(cuda), *gm, opaque.to(cuda), w, h, 128))
+    bad[1] = bad[1].long()                          # lists must be int32
+    with pytest.raises(ValueError):
+        oit.oit_cuda(*bad)
+
+
+def test_small_glass_step_matches_cpu(cuda):
+    from garden_tpu_torch.core.config import ShadowConfig
+    shadow = ShadowConfig(resolve_step=2, cascade_sizes=(256, 128, 128),
+                          atlas_tile_h=16, atlas_foot_y=2, max_active_tiles=24)
+    out = {}
+    for dev in ("cpu", cuda):
+        step, state = build(32, 256, 128, grid_dim=8, box_materials=GLASS_BOXES,
+                            cfg_overrides=dict(GLASS_OVERRIDES, shadow=shadow),
+                            device=dev)
         nxt, img = step(state)
         out[str(dev)] = (img.cpu(), nxt["physics"]["bodies"]["pos"].cpu())
     d = (out["cpu"][0].int() - out["cuda"][0].int()).abs().amax(-1)

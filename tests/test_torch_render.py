@@ -213,7 +213,7 @@ def test_tonemap_matches(dtype):
 
 
 @pytest.mark.parametrize("flag", [f for f, _ in tdef._UNPORTED_FLAGS]
-                         + ["render_scale", "translucent", "smaa", "slot_binning"])
+                         + ["render_scale", "smaa", "slot_binning"])
 def test_unported_pass_raises(flag):
     """The flagship passes build; each pass or option that is not ported
     raises, naming its ROADMAP item."""
@@ -225,9 +225,6 @@ def test_unported_pass_raises(flag):
     tdef.DeferredRenderer(RenderConfig(**cfg), scene, "cpu")      # ported set
     if flag == "render_scale":
         cfg["render_scale"] = 0.5
-    elif flag == "translucent":
-        scene.add_instance(tmesh.cube(0.3), material=scene.add_material(
-            tmesh.Material(alpha=0.5)))
     elif flag == "smaa":
         cfg["aa_mode"] = "smaa"
     elif flag == "slot_binning":

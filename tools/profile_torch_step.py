@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port's combined step on one CUDA card.
 
-    python3 tools/profile_torch_step.py [--steps 3] [--slice] [--trace trace.json]
+    python3 tools/profile_torch_step.py [--steps 3] [--slice | --glass]
+                                        [--trace trace.json]
 
 Builds the full-size combined step (10,240 bodies, 1920x1080) with the
-flagship's passes (`--slice`: the first slice's pass set, SLICE_OVERRIDES)
-and warms it up. First, without the profiler, it prints the median wall
+flagship's passes (`--slice`: the first slice's pass set, SLICE_OVERRIDES;
+`--glass`: the glass step, box_materials=GLASS_BOXES with GLASS_OVERRIDES,
+whose frame adds the OIT, refraction, sorted and trans-depth passes and
+the translucent shadow map) and warms it up. First, without the profiler, it prints the median wall
 time (host clock, synchronized) of the physics step, the render and the
 whole step over 10 runs each. Then it profiles `--steps` steps with
 torch.profiler and prints the wall time per step, the device's busy time
 (kernel and copy time, and its share of the wall time), the host and
 device time of each stage (physics, instance matrices, and the render's
-main raster, csm_render, csm_resolve, hbao, sky_lighting and post) and the
+main raster, csm_render, csm_resolve, hbao, sky_lighting, oit, refraction,
+sorted, trans_depth and post) and the
 operators with the most device time; the profiler adds host overhead to
 every launch. `--trace` also writes a Chrome trace.
 """
@@ -32,8 +36,11 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--slice", action="store_true",
-                    help="profile the first slice's pass set (SLICE_OVERRIDES)")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--slice", action="store_true",
+                       help="profile the first slice's pass set (SLICE_OVERRIDES)")
+    which.add_argument("--glass", action="store_true",
+                       help="profile the glass step (GLASS_BOXES, GLASS_OVERRIDES)")
     ap.add_argument("--trace", help="write a Chrome trace to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -44,11 +51,17 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {card.splitlines()[0]}")
 
-    from garden_tpu_torch.entry import SLICE_OVERRIDES, build
+    from garden_tpu_torch.entry import (GLASS_BOXES, GLASS_OVERRIDES,
+                                        SLICE_OVERRIDES, build)
+    if args.slice:
+        name, kw = "SLICE_OVERRIDES", dict(cfg_overrides=SLICE_OVERRIDES)
+    elif args.glass:
+        name, kw = "glass", dict(cfg_overrides=GLASS_OVERRIDES, box_materials=GLASS_BOXES)
+    else:
+        name, kw = "flagship", {}
     step, state = build(n_bodies=10240, width=1920, height=1080, grid_dim=64,
-                        cfg_overrides=SLICE_OVERRIDES if args.slice else None,
-                        device="cuda")
-    print("pass set:", "SLICE_OVERRIDES" if args.slice else "flagship")
+                        device="cuda", **kw)
+    print("pass set:", name)
     for _ in range(3):
         state, _ = step(state)
     torch.cuda.synchronize()
@@ -88,7 +101,8 @@ def main() -> int:
     lines = []
     # the render's own ranges (deferred.DeferredRenderer.render) nest in it
     for name in ("physics", "instances", "render", "raster", "csm_render",
-                 "csm_resolve", "hbao", "sky_lighting", "post"):
+                 "csm_resolve", "hbao", "sky_lighting", "oit", "refraction", "sorted",
+                 "trans_depth", "post"):
         ranges = [e for e in events if e.name == name
                   and e.device_type == torch.autograd.DeviceType.CPU]
         if not ranges:
