@@ -25,7 +25,8 @@ b. on one real flagship atlas: depth_super (K2) and depth_grid (K3, on
 c. run 5 flagship steps: K1, K2 and K3 launch once per step; a real frame
    with shadows and AO; finite bodies;
 d. render one frame with the reference-parity shadows (ShadowConfig()):
-   K4 launches once and equals its plain version;
+   K4 launches once and equals its plain version, which equals itself
+   masked by raster.tile_slot_keep; K4's bound at that shape;
 e. a small flagship step on the card against the same step on the CPU;
 f. time K2, K3, K4 against their plain versions and the flagship's stages,
    render and step;
@@ -37,7 +38,9 @@ h. on one real glass frame's inputs, each exactly against its plain
    version: the visibility kernel (K5), the sorted_blend kernel (K6) on
    the sorted pass and on the translucent atlas tint, the OIT kernel (K7),
    and depth_dense (K4) on the translucent casters' atlas and at
-   trans-depth's screen tiles;
+   trans-depth's screen tiles (K4 and K6 in every bit); the plain K4 and
+   K6 masked by raster.tile_slot_keep equal the unmasked ones bit for bit;
+   on the translucent atlas the cull keeps under 10% of the scanned slots;
 i. run 5 glass steps: K1, K2, K3, K5 and K7 launch once per step, K4 and
    K6 twice; a real frame whose OIT, refraction, trans-depth and
    translucent shadow map each drew something; finite bodies;
@@ -45,14 +48,23 @@ j. a small glass step on the card against the same step on the CPU;
 k. time K4, K5, K6 and K7 at the glass step's shapes against their plain
    versions, the non-opaque stages, the glass render and the glass step.
 
+Wherever K4 and K6 run in phases b, d and h, they also write their
+per-tile `kept` counts (the slots that pass their exact cull), which must
+equal the row sums of `raster.tile_slot_keep`, the cull's plain twin: a
+redesign that culled nothing would fail there.
+
 The line before the last is a JSON object describing each kernel (its
 launches on its main path, max |d| against its plain version, its device
 time, one call of the plain version, and the bound: the least time the card could take
 for the same work, from the work these inputs need: the (slot, pixel)
 pairs that hold a triangle, after early exits, and the record rows the
-lists name, each once); the last line is
-`{"ok": true, "device": {...}}`. Any failure exits non-zero before those
-lines are printed.
+lists name, each once; for K4 and K6 only the pairs that tile_slot_keep
+keeps, which alone can change a pixel, plus the cull's own operations,
+the lists' used slots and, for K6, the opaque depth of the tiles that
+keep a slot, with the count before the cull (every scanned pair)
+beside it as `bound_ms_full`);
+the last line is `{"ok": true, "device": {...}}`. Any failure exits
+non-zero before those lines are printed.
 """
 
 import json
@@ -99,6 +111,13 @@ HBM_RATE = 3.35e12
 # select 1, four accumulations 7 and the reveal 2 (K7) -> 50. K1 also
 # finishes the G-buffer, ~60 operations a pixel.
 OPS_EDGE, OPS_RECT, OPS_BLEND, OPS_OIT, OPS_SHADE = 22, 4, 45, 50, 60
+# The cull of K4 and K6 (csrc/cull.cuh), per scanned slot that names a
+# triangle: vertex form three edges of 12 (2 coefficient subtracts, 2 sign
+# tests, 2 corner selects, 2 subtracts, 2 multiplies, 1 subtract, the < 0
+# test) = 36; edge form four corner values of 8 and 5 more (two < 0 tests,
+# e2's 2 subtracts and its test) = 37; the rect lookup over three rects 15,
+# its miss and inside tests 9 -> +24.
+OPS_CULL_VERTEX, OPS_CULL_EDGE, OPS_CULL_RECT = 36, 37, 24
 SPIN_CYCLES = 4_000_000    # ~2 ms of the card's clock, ahead of a timed kernel
 
 
@@ -164,6 +183,15 @@ def used_slots(tile_tris, counts):
     return (slot[None, :] < counts[:, None].long()) & (tile_tris >= 0)
 
 
+def frame_pixels(n_tiles: int, width: int, height: int, tile: int, tile_h: int, dev):
+    """(tiles,) pixels of each tile that lie inside the frame."""
+    import torch
+    tiles_x = -(-width // tile)
+    t = torch.arange(n_tiles, device=dev)
+    return ((width - t % tiles_x * tile).clamp(max=tile)
+            * (height - t // tiles_x * tile_h).clamp(max=tile_h))
+
+
 def raster_work(tile_tris, counts, big_list, width: int, height: int, tile: int,
                 tile_h: int):
     """(pairs, ids) of a raster without early exit: the (slot, pixel) pairs
@@ -173,11 +201,51 @@ def raster_work(tile_tris, counts, big_list, width: int, height: int, tile: int,
     import torch
     own = used_slots(tile_tris, counts)
     big = tile_tris[:0, 0] if big_list is None else big_list[big_list >= 0]
-    tiles_x = -(-width // tile)
-    t = torch.arange(tile_tris.shape[0], device=tile_tris.device)
-    px = ((width - t % tiles_x * tile).clamp(max=tile)
-          * (height - t // tiles_x * tile_h).clamp(max=tile_h))
+    px = frame_pixels(tile_tris.shape[0], width, height, tile, tile_h, tile_tris.device)
     return int(((own.sum(1) + big.numel()) * px).sum()), torch.cat([tile_tris[own], big])
+
+
+def kept_pairs(keep, width: int, height: int, tile: int, tile_h: int) -> int:
+    """The (slot, pixel) pairs that can change a pixel: the slots of
+    `raster.tile_slot_keep`'s mask times the tile's pixels inside the
+    frame."""
+    px = frame_pixels(keep.shape[0], width, height, tile, tile_h, keep.device)
+    return int((keep.sum(1) * px).sum())
+
+
+def named_slots(tile_tris, counts, big_list) -> int:
+    """The (tile, slot) pairs that a culled kernel (K4, K6) tests: each
+    tile's used slots that name a triangle and the big list's triangles."""
+    return (int(used_slots(tile_tris, counts).sum())
+            + int((big_list >= 0).sum()) * tile_tris.shape[0])
+
+
+def keep_of(args, form: str):
+    """raster.tile_slot_keep's mask for the arguments of blend_cuda (form
+    "vertex") or depth_dense_cuda ("edge")."""
+    from garden_tpu_torch.render import raster
+    geo = args[6:11] if form == "vertex" else args[5:10]
+    return raster.tile_slot_keep(*args[:4], *geo, form)
+
+
+def run_kept(fn, args, form: str, name: str):
+    """fn(*args, kept=...) on the card; checks that the kernel's per-tile
+    kept counts equal tile_slot_keep's row sums exactly and prints the
+    share of the scanned slots kept; -> (output, keep mask, kept slots,
+    named slots)."""
+    import torch
+    kept = torch.full((args[1].shape[0],), -1, dtype=torch.int32, device=args[1].device)
+    out = fn(*args, kept=kept)
+    keep = keep_of(args, form)
+    same = torch.equal(kept, keep.sum(1).int())
+    n_kept, n_named = int(keep.sum()), named_slots(*args[1:4])
+    per_tile = keep.sum(1)
+    print(f"{name}: the cull keeps {n_kept} of {n_named} scanned slots "
+          f"({n_kept / max(n_named, 1):.4f}; at most {int(per_tile.max())} in a tile, "
+          f"none in {int((per_tile == 0).sum())} of {per_tile.numel()} tiles); "
+          f"kernel kept == tile_slot_keep: {same}")
+    check(same, f"{name}: the kernel's kept counts differ from tile_slot_keep")
+    return out, keep, n_kept, n_named
 
 
 def input_bytes(records, ids, *others) -> int:
@@ -186,6 +254,14 @@ def input_bytes(records, ids, *others) -> int:
     import torch
     rows = torch.unique(ids[ids >= 0]).numel()
     return rows * records.shape[1] * records.element_size() + nbytes(*others)
+
+
+def list_bytes(tile_tris, counts, big_list) -> int:
+    """Bytes of the lists a culled kernel (K4, K6) must read: each tile's
+    slots that name a triangle and its count, and the big list's
+    triangles."""
+    return 4 * (int(used_slots(tile_tris, counts).sum()) + counts.numel()
+                + int((big_list >= 0).sum()))
 
 
 def atlas_inputs(step, mats):
@@ -206,6 +282,25 @@ def bound(ops: float, moved: int) -> dict:
     return {"bound_ms": t_bytes, "bound_by": "bytes"}
 
 
+def dense_bounds(a, out, work_full: int, work_kept: int, n_named: int):
+    """(bound, bound_full) of depth_dense on the arguments `a` with output
+    `out`. bound: the operations of the (slot, pixel) pairs after early
+    exits that the plain version counted over the slots the cull keeps
+    (`work_kept`) plus the cull's own per scanned slot; the bytes of the
+    named records, the lists' used slots, the early-exit table and the
+    output. bound_full, the count before the cull: every scanned slot's
+    pairs (`work_full`) and the lists whole."""
+    import torch
+    ids = torch.cat([a[1][used_slots(a[1], a[2])], a[3]])
+    moved = input_bytes(a[0], ids, a[4]) + list_bytes(*a[1:4]) + nbytes(out)
+    moved_full = input_bytes(a[0], ids, *a[1:5]) + nbytes(out)
+    rect = bool(a[9])
+    per_pair = OPS_EDGE + (OPS_RECT if rect else 0)
+    cull = n_named * (OPS_CULL_EDGE + (OPS_CULL_RECT if rect else 0))
+    return (bound(work_kept * per_pair + cull, moved),
+            bound(work_full * per_pair, moved_full))
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -213,6 +308,18 @@ def check(cond: bool, what: str) -> None:
 
 def max_diff(a, b) -> float:
     return (a - b).abs().max().item()
+
+
+def same_bits(a, b) -> bool:
+    """a and b hold the same float32 bit patterns (+0.0 and -0.0 differ)."""
+    import torch
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def negative_zeros(x) -> int:
+    import torch
+    return int(((x == 0) & torch.signbit(x)).sum())
 
 
 def small_step_vs_cpu(build, overrides, phase: str, box_materials=None) -> None:
@@ -376,13 +483,15 @@ def main() -> int:
           f"{int(sup_counts.max())} of 64")
     dense = raster.depth_args(setup, d_tiles, d_counts, d_big, atlas_w, atlas_h, 128,
                               din["atlas_bounds"], din["tri_atlas"], th)["dense"]
-    k4_flag = raster.depth_dense_cuda(*dense)
+    k4_flag, _, _, _ = run_kept(raster.depth_dense_cuda, dense, "edge",
+                                "phase b: depth_dense (K4) on the flagship atlas")
     torch.cuda.synchronize()
     split_vs_dense = max_diff(k4_flag, k3)
+    bits_b = same_bits(k4_flag, k3)
     print(f"phase b: depth_dense on the dense corner binning vs split: "
-          f"max|d| {split_vs_dense}")
+          f"max|d| {split_vs_dense}, same bits {bits_b}")
     check(outside == 0, "occupied atlas tiles lost their lists")
-    check(split_vs_dense == 0.0, "the split atlas differs from the dense one")
+    check(bits_b, "the split atlas differs from the dense one")
 
     # phase c: 5 flagship steps; K1, K2 and K3 once per step
     for fn in (raster.rasterize_visibility_shaded, raster.depth_super,
@@ -423,15 +532,22 @@ def main() -> int:
     torch.cuda.synchronize()
     k4_launches = raster.depth_dense.launches
     dargs = raster.depth_args(**atlas_inputs(dstep, dmats)[0])["dense"]
-    k4 = raster.depth_dense_cuda(*dargs)
-    p4 = raster.depth_dense_plain(*dargs)
+    k4, keep_d, _, named_d = run_kept(raster.depth_dense_cuda, dargs, "edge",
+                                      "phase d: depth_dense (K4) on the dense-shadow atlas")
+    work_d, work_dk = [0], [0]
+    p4 = raster.depth_dense_plain(*dargs, work=work_d)
+    p4k = raster.depth_dense_plain(*dargs, work=work_dk, keep=keep_d)
     torch.cuda.synchronize()
     err4 = max_diff(k4, p4)
+    b4d, b4d_full = dense_bounds(dargs, k4, work_d[0], work_dk[0], named_d)
     print(f"phase d: dense-shadow frame: depth_dense launches {k4_launches}; atlas "
-          f"{k4.shape[1]}x{k4.shape[0]} vs plain max|d| {err4}; image "
-          f"{tuple(dout['image'].shape)}")
+          f"{k4.shape[1]}x{k4.shape[0]} vs plain max|d| {err4}, same bits "
+          f"{same_bits(k4, p4)}; image {tuple(dout['image'].shape)}; bound {b4d} "
+          f"(full {b4d_full})")
     check(k4_launches == 1, "the dense-shadow frame did not launch depth_dense once")
-    check(err4 == 0.0, "depth_dense disagrees with its plain version")
+    check(same_bits(k4, p4), "depth_dense disagrees with its plain version")
+    check(same_bits(p4k, p4),
+          "the plain depth_dense masked by tile_slot_keep differs from the unmasked one")
 
     # phase e: a small flagship step on the card against the CPU
     small_step_vs_cpu(build, {"shadow": ShadowConfig(
@@ -541,18 +657,42 @@ def main() -> int:
           "trans_depth": raster.depth_args(**grend.trans_depth_inputs(
               gscene, geo, gconst))["dense"]}
     kv, pv = raster.visibility_cuda(*vargs), raster.visibility_plain(*vargs)
-    ks, ps = raster.blend_cuda(*sargs), raster.blend_plain(*sargs)
-    ka, pa = raster.blend_cuda(*aargs), raster.blend_plain(*aargs)
+    ks, keep_s, _, _ = run_kept(raster.blend_cuda, sargs, "vertex",
+                                "phase h: sorted_blend (K6), sorted pass")
+    ka, keep_a, kept_a, named_a = run_kept(raster.blend_cuda, aargs, "vertex",
+                                           "phase h: sorted_blend (K6), atlas tint")
+    ps, pa = raster.blend_plain(*sargs), raster.blend_plain(*aargs)
     ko, po = oit.oit_cuda(*oargs), oit.oit_plain(*oargs)
-    work4 = {k: [0] for k in d4}
-    k4g = {k: raster.depth_dense_cuda(*a) for k, a in d4.items()}
+    # the plain K4 counts its (slot, pixel) pairs after early exits, over
+    # the scanned slots (work4) and over the slots the cull keeps (work4k)
+    run4 = {k: run_kept(raster.depth_dense_cuda, a, "edge",
+                        f"phase h: depth_dense (K4), {k}") for k, a in d4.items()}
+    k4g = {k: r[0] for k, r in run4.items()}
+    work4, work4k = {k: [0] for k in d4}, {k: [0] for k in d4}
     p4g = {k: raster.depth_dense_plain(*a, work=work4[k]) for k, a in d4.items()}
+    p4k = {k: raster.depth_dense_plain(*a, work=work4k[k], keep=run4[k][1])
+           for k, a in d4.items()}
+    ps_keep = raster.blend_plain(*sargs, keep=keep_s)
+    pa_keep = raster.blend_plain(*aargs, keep=keep_a)
     torch.cuda.synchronize()
+    check(same_bits(ps_keep, ps) and same_bits(pa_keep, pa)
+          and all(same_bits(p4k[k], p4g[k]) for k in d4),
+          "a plain version masked by tile_slot_keep differs from the unmasked one")
+    for name, (n_kept, n_named) in (("sorted_blend atlas tint", (kept_a, named_a)),
+                                    ("depth_dense translucent atlas", run4["atlas"][2:])):
+        check(n_kept < 0.1 * n_named,
+              f"{name}: the cull keeps {n_kept} of {n_named} slots, not under 10%")
     same5 = torch.equal(kv["tri_id"], pv["tri_id"])
     err5 = max(max_diff(kv[k], pv[k]) for k in ("depth", "b0", "b1"))
     err6 = {"sorted": max_diff(ks, ps), "atlas": max_diff(ka, pa)}
     err7 = max(max_diff(ko[0], po[0]), max_diff(ko[1], po[1]))
     err4g = {k: max_diff(k4g[k], p4g[k]) for k in d4}
+    # K4 and K6 must match their plain versions in every bit: a culled slot
+    # would turn a -0.0 destination into +0.0 in the plain version (the
+    # cull's precondition), which a comparison of values cannot see
+    bits = {"sorted_blend sorted pass": same_bits(ks, ps),
+            "sorted_blend atlas tint": same_bits(ka, pa),
+            **{f"depth_dense {k}": same_bits(k4g[k], p4g[k]) for k in d4}}
     print(f"phase h: visibility (K5) vs plain at 1920x1080: tri_id equal {same5}, "
           f"max|d| depth/b0/b1 {err5}; refraction covers "
           f"{(kv['tri_id'] >= 0).float().mean():.4f}")
@@ -560,10 +700,13 @@ def main() -> int:
           f"atlas tint max|d| {err6['atlas']}; oit (K7) vs plain max|d| {err7}; "
           f"depth_dense (K4) vs plain: translucent atlas {err4g['atlas']}, "
           f"trans-depth {err4g['trans_depth']}")
+    print(f"phase h: same bits as the plain version: {bits}; -0.0 in the "
+          f"destination: sorted pass {negative_zeros(sargs[5])}, atlas tint "
+          f"{negative_zeros(aargs[5])}")
     check(same5 and err5 == 0.0, "visibility disagrees with its plain version")
-    check(max(err6.values()) == 0.0, "sorted_blend disagrees with its plain version")
     check(err7 == 0.0, "oit disagrees with its plain version")
-    check(max(err4g.values()) == 0.0, "depth_dense disagrees at the glass shapes")
+    check(all(bits.values()), "sorted_blend or depth_dense differs from its plain "
+          f"version in some bit: {bits}")
 
     # phase i: 5 glass steps, counting every kernel's launches
     wrappers = {"raster_shade": raster.rasterize_visibility_shaded,
@@ -648,36 +791,52 @@ def main() -> int:
         ms=gt["visibility: kernel, device"], plain_ms=gt["visibility: plain"],
         **bound(pairs5 * OPS_EDGE,
                 input_bytes(vargs[0], ids5, *vargs[1:4]) + nbytes(*kv.values())))
-    b6 = []
-    for a, k in ((sargs, ks), (aargs, ka)):
+    # K4 and K6: the operations of the (slot, pixel) pairs that the cull
+    # keeps (a culled pair cannot change a pixel) plus the cull's own per
+    # scanned slot; K6's bytes: the named records, the lists' used slots,
+    # hdr, the output, and the opaque depth of the tiles that keep a slot
+    # (a tile that keeps none is a copy of hdr). bound_ms_full counts as
+    # before the cull: every scanned pair, the lists and the opaque depth whole
+    b6, b6_full = [], []
+    for a, k, keep in ((sargs, ks, keep_s), (aargs, ka, keep_a)):
         pairs6, ids6 = raster_work(*a[1:4], *a[6:10])
-        b6.append(bound(pairs6 * (OPS_BLEND + (OPS_RECT if a[10] else 0)),
-                        input_bytes(a[0], ids6, *a[1:6]) + nbytes(k)))
+        px = frame_pixels(keep.shape[0], *a[6:10], keep.device)
+        moved = (input_bytes(a[0], ids6, a[5]) + list_bytes(*a[1:4])
+                 + a[4].element_size() * int(px[keep.any(1)].sum()) + nbytes(k))
+        rect = bool(a[10])
+        per_pair = OPS_BLEND + (OPS_RECT if rect else 0)
+        b6_full.append(bound(pairs6 * per_pair, input_bytes(a[0], ids6, *a[1:6])
+                             + nbytes(k)))
+        b6.append(bound(kept_pairs(keep, *a[6:10]) * per_pair + named_slots(*a[1:4])
+                        * (OPS_CULL_VERTEX + (OPS_CULL_RECT if rect else 0)), moved))
     results["sorted_blend"] = dict(
         launches=glaunch["sorted_blend"], max_abs_err=max(err6.values()),
         ms=(gt["sorted_blend, sorted pass: kernel, device"]
             + gt["sorted_blend, atlas tint: kernel, device"]),
         plain_ms=gt["sorted_blend, sorted pass: plain"] + gt["sorted_blend, atlas tint: plain"],
         bound_ms=b6[0]["bound_ms"] + b6[1]["bound_ms"],
-        bound_by=max(b6, key=lambda b: b["bound_ms"])["bound_by"])
+        bound_by=max(b6, key=lambda b: b["bound_ms"])["bound_by"],
+        bound_ms_full=b6_full[0]["bound_ms"] + b6_full[1]["bound_ms"])
     # the merged list's holes (sentinel slots) add exactly zero: no work
     pairs7, ids7 = raster_work(oargs[1], oargs[2], None, *oargs[4:7], oargs[6])
     results["oit"] = dict(
         launches=glaunch["oit"], max_abs_err=err7, ms=gt["oit: kernel, device"],
         plain_ms=gt["oit: plain"],
         **bound(pairs7 * OPS_OIT, input_bytes(oargs[0], ids7, *oargs[1:4]) + nbytes(*ko)))
-    b4 = [bound(work4[k][0] * (OPS_EDGE + (OPS_RECT if a[9] else 0)),
-                input_bytes(a[0], torch.cat([a[1][used_slots(a[1], a[2])], a[3]]),
-                            *a[1:5]) + nbytes(k4g[k])) for k, a in d4.items()]
+    b4, b4_full = zip(*(dense_bounds(a, k4g[k], work4[k][0], work4k[k][0], run4[k][3])
+                        for k, a in d4.items()))
     results["depth_dense"] = dict(
         launches=glaunch["depth_dense"], max_abs_err=max(err4_all, *err4g.values()),
         ms=(gt["depth_dense, atlas: kernel, device"]
             + gt["depth_dense, trans_depth: kernel, device"]),
         plain_ms=gt["depth_dense, atlas: plain"] + gt["depth_dense, trans_depth: plain"],
         bound_ms=b4[0]["bound_ms"] + b4[1]["bound_ms"],
-        bound_by=max(b4, key=lambda b: b["bound_ms"])["bound_by"])
-    print(f"phase k: bounds per shape: sorted_blend sorted pass {b6[0]}, atlas tint "
-          f"{b6[1]}; depth_dense translucent atlas {b4[0]}, trans-depth {b4[1]}")
+        bound_by=max(b4, key=lambda b: b["bound_ms"])["bound_by"],
+        bound_ms_full=b4_full[0]["bound_ms"] + b4_full[1]["bound_ms"])
+    print(f"phase k: bounds per shape (full: every scanned pair): sorted_blend sorted "
+          f"pass {b6[0]} (full {b6_full[0]}), atlas tint {b6[1]} (full {b6_full[1]}); "
+          f"depth_dense translucent atlas {b4[0]} (full {b4_full[0]}), trans-depth "
+          f"{b4[1]} (full {b4_full[1]})")
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():

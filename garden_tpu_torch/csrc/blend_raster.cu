@@ -34,32 +34,70 @@
 //   reveal *= 1 - alpha.
 //
 // What bounds them on the H100. Per (slot, pixel) ~45 float operations
-// (blend) or ~50 (OIT) and no memory traffic; the list's records (64 B a
-// slot) are read once per thread block and the image planes once each way.
-// Both are bound by that ALU work at the lists' lengths.
+// (blend) or ~50 (OIT); with -fmad=false every counted operation is one
+// instruction, while the card's 67 TFLOP/s counts an FMA as two, so a
+// design that keeps the operation count reaches at most ~50% of an
+// operations bound. The OIT is bound by that ALU work. The blend is not,
+// once its cull skips the work that cannot change a pixel: on the
+// translucent shadow map (3072 tiles of 128x16, every tile scanning all 64
+// big casters) few (slot, tile) pairs can reach the tile, and what is left
+// is bytes: the RGB destination read once, the result written once, and
+// the opaque depth only of the tiles that keep a slot (~154 MB at
+// 3072x2048).
 //
-// What the design does about it. One thread block of 256 threads per tile
-// (the blend: 16 pixels a thread at 128x32, 8 at 128x16), or per row band
-// of 16 pixels a thread (the OIT: its 128x128 tiles split into four 128x32
-// bands that read the same list): each thread keeps its pixels' running colour (3 floats) or
-// accumulators (5 floats) in registers for the whole walk, so a pixel's
-// destination is read once and written once. Tile widths divide 256, so a
-// thread owns one pixel column: px is one register and py is recomputed
-// per pixel (exact: integers plus 0.5). The walk is sequential over
-// slots, as the blend order demands, and parallel over pixels only. The
-// tile's records are staged once into shared memory; every thread reads
-// the same record at the same time (a broadcast), and empty slots are
-// skipped by a block-uniform branch (the blend) or walked (the OIT, whose
-// all-zero sentinel adds exactly zero, as the reference's loop does).
+// What sorted_blend does about it. One block of 256 threads per row band
+// of 2048 pixels (a 128x16 atlas tile is one band, a 128x32 main-view tile
+// two): the longest lists decide the launch's end (on the glass frame's
+// sorted pass a dozen tiles keep 64-66 slots, 378 of 510 keep none), and
+// bands spread each of those tiles over two SMs.
+// 1. Warp 0 starts bulk copies (the Tensor Memory Accelerator's
+//    cp.async.bulk, completing on an mbarrier) of the band's in-frame hdr
+//    rows into shared memory. Frames whose rows are not 16-byte aligned
+//    take plain loads and stores instead, which on the glass frame's
+//    shapes ran 17% (sorted pass) and 25% (atlas tint) slower (PERF.md).
+// 2. Meanwhile the block culls the scanned slots (the big list's used
+//    16-slot blocks, then the tile's), one thread a slot, exactly
+//    (cull.cuh): a slot whose edges all stay < 0 over the tile, or whose
+//    cascade rect the tile misses, cannot change a pixel. Survivors are
+//    compacted into shared memory IN LIST ORDER (warp ballots and a block
+//    prefix sum), each with a flag for a tile that lies wholly inside its
+//    rect, which drops the per-pixel rect test. `kept` (optional)
+//    receives the survivor count.
+// 3. A band with no survivor is a straight copy of hdr: its opaque depth
+//    is never read (on the translucent shadow map 2,735 of 3,072 tiles
+//    keep no slot). Otherwise the band's opaque-depth rows are copied in
+//    the same way, on a second mbarrier, and each thread walks the
+//    survivors ONE TRIANGLE AT A TIME for its 8 pixels of one column,
+//    colours in registers; per slot, the column's share of each edge is
+//    computed once. Two blocks share an SM; more would slow the longest
+//    tiles.
+// 4. The band's rows go back to device memory as 16-byte stores.
+// Preconditions of the cull's exactness: finite colours and no -0.0 in
+// the destination (a culled slot would have added c * 0).
+//
+// What oit does. One block of 256 threads per row band of 16 pixels a
+// thread (its 128x128 tiles split into four 128x32 bands that read the
+// same list); accumulators (5 floats) in registers for the whole walk, so
+// a pixel's destination is written once. The tile's records are staged
+// once into shared memory; every thread reads the same record at the same
+// time (a broadcast); sentinel slots are walked (their all-zero record adds
+// exactly zero, as the reference's loop does).
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "cull.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kRec = 16;
 constexpr int kBlock = 16;
 constexpr int kMaxRects = 8;
+constexpr int kMaxSlots = 1024;          // sorted_blend: n_big + cap
+constexpr int kBlendPixels = 8;          // sorted_blend pixels a thread
 constexpr int kOitPixels = 16;           // OIT pixels a thread (5 accumulators each)
 
 // Stage slots [0, n) of `ids` (the sentinel row t_count where -1) into
@@ -73,69 +111,94 @@ __device__ void stage(const float* __restrict__ records, const int* ids, int n,
   }
 }
 
-template <int P>
-__global__ void __launch_bounds__(kThreads)
-sorted_blend_kernel(const float* __restrict__ records,
-                    const int* __restrict__ tile_tris,
-                    const int* __restrict__ counts,
-                    const int* __restrict__ big_list,
-                    const float* __restrict__ opaque_depth,
-                    const float* __restrict__ hdr, int cap, int n_big,
-                    int t_count, int tiles_x, int tile_w, int tile_h,
-                    int width, int height, const float* __restrict__ rects,
-                    int n_rects, float* __restrict__ out) {
-  extern __shared__ float smem[];          // [n_big + cap][16] records
-  __shared__ int s_ids[1024];
-  __shared__ int s_big_used;
-  __shared__ float s_rect[kMaxRects * 4];
+// -- copies of the band's image rows into shared memory: the Tensor Memory
+// Accelerator's bulk copy, completing on an mbarrier, where rows are
+// 16-byte aligned, else plain loads ------------------------------------------
 
-  const int tile = blockIdx.x;
-  const int tx = tile % tiles_x;
-  const int ty = tile / tiles_x;
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 
-  // the scanned slots: the big list's used blocks, then the tile's blocks
-  if (threadIdx.x == 0) s_big_used = 0;
-  if (threadIdx.x < n_rects * 4) s_rect[threadIdx.x] = rects[threadIdx.x];
-  __syncthreads();
-  int used = 0;
-  for (int s = threadIdx.x; s < n_big; s += kThreads) used += big_list[s] >= 0;
-  if (used) atomicAdd(&s_big_used, used);
-  __syncthreads();
-  const int big_end = min((s_big_used + kBlock - 1) / kBlock * kBlock, n_big);
-  const int grid_end = min((counts[tile] + kBlock - 1) / kBlock * kBlock, cap);
-  const int n_scan = big_end + grid_end;
-  for (int s = threadIdx.x; s < n_scan; s += kThreads)
-    s_ids[s] = s < big_end ? big_list[s] : tile_tris[(size_t)tile * cap + (s - big_end)];
-  __syncthreads();
-  stage(records, s_ids, n_scan, t_count, smem);
-  __syncthreads();
+__device__ __forceinline__ void bar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
 
-  // pixel i of this thread: column threadIdx.x % tile_w, tile row
-  // threadIdx.x / tile_w + i * (256 / tile_w)
-  const int col = threadIdx.x % tile_w;
-  const int row0 = threadIdx.x / tile_w;
-  const int row_step = kThreads / tile_w;
-  const float px = (float)(tx * tile_w) + 0.5f + (float)col;
-  const int x = tx * tile_w + col;
-  float opq[P], o_r[P], o_g[P], o_b[P];
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    const int y = ty * tile_h + row0 + i * row_step;
-    const bool in = x < width && y < height;
-    const size_t o = (size_t)y * width + x;
-    opq[i] = in ? opaque_depth[o] : 0.0f;
-    o_r[i] = in ? hdr[o * 3 + 0] : 0.0f;
-    o_g[i] = in ? hdr[o * 3 + 1] : 0.0f;
-    o_b[i] = in ? hdr[o * 3 + 2] : 0.0f;
+// Wait for phase `parity` of the barrier to complete. A copy that never
+// completes is a fault: after ~2^31 cycles the block traps (a launch error
+// on the host) instead of hanging the card.
+__device__ __forceinline__ void bar_wait(unsigned long long* bar, unsigned parity) {
+  const long long start = clock64();
+  unsigned done = 0;
+  while (true) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}" : "=r"(done) : "r"(smem_addr(bar)),
+        "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 31)) __trap();
   }
+}
 
-  for (int s = 0; s < n_scan; ++s) {
-    const float* d = smem + s * kRec;
-    if (d[10] < 0.0f) continue;                      // empty slot: block-uniform
-    const float x0 = d[0], y0 = d[1], x1 = d[2], y1 = d[3], x2 = d[4], y2 = d[5];
-    const float z0 = d[6], z1 = d[7], z2 = d[8], inv_area = d[9];
-    const float cr = d[11], cg = d[12], cb = d[13], ca = d[14];
-    float rx0 = 0.0f, rx1 = 0.0f, ry0 = 0.0f, ry1 = 0.0f;
+// Copy `rows` rows of `n` floats, global row r at src + r * src_stride to
+// shared row r at dst + r * dst_stride. bulk (rows and n * 4 a multiple of
+// 16 bytes): warp 0 starts one bulk copy a row, and bar_wait(bar) completes
+// them; else every thread loads and stores floats, complete at the next
+// __syncthreads.
+__device__ __forceinline__ void copy_rows(float* dst, int dst_stride,
+                                          const float* src, size_t src_stride,
+                                          int rows, int n, bool bulk,
+                                          unsigned long long* bar) {
+  if (!bulk) {
+    for (int k = threadIdx.x; k < rows * n; k += kThreads) {
+      const int r = k / n, v = k % n;
+      dst[r * dst_stride + v] = src[r * src_stride + v];
+    }
+    return;
+  }
+  if (threadIdx.x >= 32) return;
+  if (threadIdx.x == 0)            // arrive once, expecting the rows' bytes
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                     smem_addr(bar)), "r"(rows * n * 4) : "memory");
+  __syncwarp();                    // the expected bytes are set before any copy
+  for (int r = threadIdx.x; r < rows; r += 32)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst + r * dst_stride)),
+        "l"(src + r * src_stride), "r"(n * 4), "r"(smem_addr(bar)) : "memory");
+}
+
+// This thread's pixels of the tile: column `col`, rows row0 + i * (256 /
+// tile_w); smem offsets of pixel i step by 256 pixels (tile_w divides 256).
+struct Pix {
+  int col, row0, row_step;
+  float px;
+};
+
+// Blend staged record d over this thread's P pixels, colours in registers,
+// the opaque depth of pixel i at opq[i * 256]. kRect: the tile straddles
+// the record's rect, so every pixel tests it. The float operations and
+// their order are blend_plain's; the column's share of each edge,
+// fl(fl(px - xa) fl(yb - ya)), is the same for every pixel of the thread.
+template <int P, bool kRect>
+__device__ __forceinline__ void blend_record(const float* d, const Pix& pix,
+                                             float ty0, const float* opq,
+                                             const float* s_rect, int n_rects,
+                                             float (&o_r)[P], float (&o_g)[P],
+                                             float (&o_b)[P]) {
+  const float x0 = d[0], y0 = d[1], x1 = d[2], y1 = d[3], x2 = d[4], y2 = d[5];
+  const float z0 = d[6], z1 = d[7], z2 = d[8], inv_area = d[9];
+  const float cr = d[11], cg = d[12], cb = d[13], ca = d[14];
+  const float u0 = (pix.px - x1) * (y2 - y1);
+  const float u1 = (pix.px - x2) * (y0 - y2);
+  const float u2 = (pix.px - x0) * (y1 - y0);
+  const float w0 = x2 - x1, w1 = x0 - x2, w2 = x1 - x0;
+  bool in_cols = true;
+  float ry0 = 0.0f, ry1 = 0.0f;
+  if (kRect) {
+    float rx0 = 0.0f, rx1 = 0.0f;
     for (int r = 0; r < n_rects; ++r) {
       if (d[15] == (float)r) {
         rx0 = s_rect[r * 4 + 0];
@@ -144,34 +207,176 @@ sorted_blend_kernel(const float* __restrict__ records,
         ry1 = s_rect[r * 4 + 3];
       }
     }
-    const bool in_cols = n_rects == 0 || (px >= rx0 && px < rx1);
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-      const float py = (float)(ty * tile_h) + 0.5f + (float)(row0 + i * row_step);
-      const float e0 = (px - x1) * (y2 - y1) - (py - y1) * (x2 - x1);
-      const float e1 = (px - x2) * (y0 - y2) - (py - y2) * (x0 - x2);
-      const float e2 = (px - x0) * (y1 - y0) - (py - y0) * (x1 - x0);
-      const float b0 = e0 * inv_area;
-      const float b1 = e1 * inv_area;
-      const float z = b0 * z0 + b1 * z1 + (1.0f - b0 - b1) * z2;
-      bool hit = e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && z >= opq[i] && z <= 1.0f;
-      if (n_rects > 0) hit = hit && in_cols && py >= ry0 && py < ry1;
-      const float a = hit ? ca : 0.0f;
-      const float keep = 1.0f - a;
-      o_r[i] = o_r[i] * keep + cr * a;
-      o_g[i] = o_g[i] * keep + cg * a;
-      o_b[i] = o_b[i] * keep + cb * a;
-    }
+    in_cols = pix.px >= rx0 && pix.px < rx1;
   }
-
 #pragma unroll
   for (int i = 0; i < P; ++i) {
-    const int y = ty * tile_h + row0 + i * row_step;
-    if (x >= width || y >= height) continue;
-    const size_t o = (size_t)y * width + x;
-    out[o * 3 + 0] = o_r[i];
-    out[o * 3 + 1] = o_g[i];
-    out[o * 3 + 2] = o_b[i];
+    const float py = ty0 + 0.5f + (float)(pix.row0 + i * pix.row_step);
+    const float e0 = u0 - (py - y1) * w0;
+    const float e1 = u1 - (py - y2) * w1;
+    const float e2 = u2 - (py - y0) * w2;
+    const float b0 = e0 * inv_area;
+    const float b1 = e1 * inv_area;
+    const float z = b0 * z0 + b1 * z1 + (1.0f - b0 - b1) * z2;
+    bool hit = e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && z >= opq[i * kThreads] &&
+               z <= 1.0f;
+    if (kRect) hit = hit && in_cols && py >= ry0 && py < ry1;
+    const float a = hit ? ca : 0.0f;
+    const float keep = 1.0f - a;
+    o_r[i] = o_r[i] * keep + cr * a;
+    o_g[i] = o_g[i] * keep + cg * a;
+    o_b[i] = o_b[i] * keep + cb * a;
+  }
+}
+
+// One block per row band of 2048 pixels (8 a thread): a 128x16 atlas tile
+// is one band, a 128x32 main-view tile two, so the few tiles with the
+// longest lists spread over two SMs. Two blocks resident per SM (at most
+// 128 registers): more would share each SM among more blocks and slow the
+// longest tiles, which end the launch.
+__global__ void __launch_bounds__(kThreads, 2)
+sorted_blend_kernel(const float* __restrict__ records,
+                    const int* __restrict__ tile_tris,
+                    const int* __restrict__ counts,
+                    const int* __restrict__ big_list,
+                    const float* __restrict__ opaque_depth,
+                    const float* __restrict__ hdr, int cap, int n_big,
+                    int tiles_x, int tile_w, int tile_h, int bands, int width,
+                    int height,
+                    const float* __restrict__ rects, int n_rects, int bulk,
+                    float* __restrict__ out, int* __restrict__ kept) {
+  // block: one of `bands` row bands of band_h rows of a tile; dynamic smem:
+  // the band's hdr rows [band_h][tile_w * 3], its opaque depth
+  // [band_h][tile_w], then the surviving records [<= n_big + cap][16]
+  extern __shared__ __align__(128) float smem[];
+  __shared__ int s_warp[kWarps];
+  __shared__ int s_big_used;
+  __shared__ float s_rect[kMaxRects * 4];
+  __shared__ unsigned long long s_bar[2];      // hdr, opaque depth
+  const int band_h = tile_h / bands;
+  float* s_hdr = smem;
+  float* s_opq = smem + tile_w * band_h * 3;
+  float* s_rec = s_opq + tile_w * band_h;
+
+  const int tile = blockIdx.x / bands;
+  const int band = blockIdx.x % bands;
+  const int tx = tile % tiles_x;
+  const int ty = tile / tiles_x;
+  const int x0 = tx * tile_w, y0 = ty * tile_h + band * band_h;
+  const int n_in = min(tile_w, width - x0);     // columns inside the frame
+  const int rows_in = max(0, min(band_h, height - y0));
+
+  if (threadIdx.x == 0) {
+    s_big_used = 0;
+    bar_init(&s_bar[0], 1);
+    bar_init(&s_bar[1], 1);
+  }
+  if (threadIdx.x < n_rects * 4) s_rect[threadIdx.x] = rects[threadIdx.x];
+  __syncthreads();
+
+  // 1. start loading the band's hdr rows inside the frame into shared
+  // memory; bulk copies land while the slots are culled (the pixels past
+  // the frame are blended from whatever smem holds and never stored)
+  const size_t g0 = (size_t)y0 * width + x0;
+  copy_rows(s_hdr, tile_w * 3, hdr + g0 * 3, (size_t)width * 3, rows_in, n_in * 3,
+            bulk, &s_bar[0]);
+
+  // 2. the scanned slots: the big list's used blocks, then the tile's blocks
+  int used = 0;
+  for (int s = threadIdx.x; s < n_big; s += kThreads) used += big_list[s] >= 0;
+  if (used) atomicAdd(&s_big_used, used);
+  __syncthreads();
+  const int big_end = min((s_big_used + kBlock - 1) / kBlock * kBlock, n_big);
+  const int grid_end = min((counts[tile] + kBlock - 1) / kBlock * kBlock, cap);
+  const int n_scan = big_end + grid_end;
+
+  // 3. the cull over the whole tile (every band keeps the same slots), one
+  // thread a slot, and the survivors compacted in list order into s_rec;
+  // lane 10 (the id) then holds 1 when the tile lies wholly inside the
+  // record's rect, else 0
+  const cull::Corners corners = cull::tile_corners(tx, ty, tile_w, tile_h);
+  int n_keep = 0;
+  for (int s0 = 0; s0 < n_scan; s0 += kThreads) {
+    const int s = s0 + threadIdx.x;
+    const int id = s >= n_scan  ? -1
+                   : s < big_end ? big_list[s]
+                                 : tile_tris[(size_t)tile * cap + (s - big_end)];
+    float d[16];
+    int flags = 0;
+    if (id >= 0) {
+      cull::load_record(records, id, d);
+      flags = cull::vertex_flags(d, corners, s_rect, n_rects);
+    }
+    int total;
+    const int pos = n_keep + cull::block_prefix<kWarps>(flags != 0, s_warp, &total);
+    if (flags) {
+      d[10] = (flags & cull::kInside) ? 1.0f : 0.0f;
+#pragma unroll
+      for (int k = 0; k < kRec; ++k) s_rec[pos * kRec + k] = d[k];
+    }
+    n_keep += total;
+  }
+  if (kept != nullptr && band == 0 && threadIdx.x == 0) kept[tile] = n_keep;
+  // the opaque depth only where a slot survives: a band with none copies hdr
+  if (n_keep > 0)
+    copy_rows(s_opq, tile_w, opaque_depth + g0, (size_t)width, rows_in, n_in, bulk,
+              &s_bar[1]);
+  if (bulk) {
+    bar_wait(&s_bar[0], 0);
+    if (n_keep > 0) bar_wait(&s_bar[1], 0);
+  }
+  __syncthreads();
+
+  // 4. blend the survivors in order over this thread's pixels, then put
+  // the result back into s_hdr
+  if (n_keep > 0) {
+    Pix pix;
+    pix.col = threadIdx.x % tile_w;
+    pix.row0 = threadIdx.x / tile_w;
+    pix.row_step = kThreads / tile_w;
+    pix.px = (float)x0 + 0.5f + (float)pix.col;
+    const float ty0 = (float)y0;
+    const int p0 = pix.row0 * tile_w + pix.col;      // pixel 0's smem index
+    const float* opq = s_opq + p0;
+    constexpr int P = kBlendPixels;
+    float o_r[P], o_g[P], o_b[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      o_r[i] = s_hdr[(p0 + i * kThreads) * 3 + 0];
+      o_g[i] = s_hdr[(p0 + i * kThreads) * 3 + 1];
+      o_b[i] = s_hdr[(p0 + i * kThreads) * 3 + 2];
+    }
+    for (int s = 0; s < n_keep; ++s) {
+      const float* d = s_rec + s * kRec;
+      if (d[10] == 0.0f)                       // block-uniform
+        blend_record<P, true>(d, pix, ty0, opq, s_rect, n_rects, o_r, o_g, o_b);
+      else
+        blend_record<P, false>(d, pix, ty0, opq, s_rect, n_rects, o_r, o_g, o_b);
+    }
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      s_hdr[(p0 + i * kThreads) * 3 + 0] = o_r[i];
+      s_hdr[(p0 + i * kThreads) * 3 + 1] = o_g[i];
+      s_hdr[(p0 + i * kThreads) * 3 + 2] = o_b[i];
+    }
+    __syncthreads();
+  }
+
+  // 5. write the band's rows inside the frame, a warp's consecutive threads
+  // on consecutive addresses: 16-byte stores where rows are aligned
+  if (bulk) {
+    const int per_row = n_in * 3 / 4;
+    for (int k = threadIdx.x; k < rows_in * per_row; k += kThreads) {
+      const int r = k / per_row, v = k % per_row;
+      const float4 val = reinterpret_cast<const float4*>(s_hdr + r * tile_w * 3)[v];
+      reinterpret_cast<float4*>(out + (g0 + (size_t)r * width) * 3)[v] = val;
+    }
+  } else {
+    const int per_row = n_in * 3;
+    for (int k = threadIdx.x; k < rows_in * per_row; k += kThreads) {
+      const int r = k / per_row, v = k % per_row;
+      out[(g0 + (size_t)r * width) * 3 + v] = s_hdr[r * tile_w * 3 + v];
+    }
   }
 }
 
@@ -259,37 +464,39 @@ cudaError_t prepare(K kernel, int smem) {
 }  // namespace
 
 // C entry points (loaded with ctypes). Each returns a cudaError_t code;
-// 0 = OK. Lists have 16k slots (cap, n_big). sorted_blend: `p` is the
-// number of pixels a thread owns, 8 or 16 (tile_w * tile_h == 256 * p).
+// 0 = OK. Lists have 16k slots (cap, n_big). sorted_blend: each tile runs
+// as `bands` row bands of 2048 pixels, one block each, 8 pixels a thread
+// (tile_w * tile_h == 2048 * bands); `smem` is at least
+// tile_w * tile_h / bands * 16 + (n_big + cap) * 64 bytes; `kept` (one int
+// a tile, or null) receives each tile's surviving slots.
 // oit: `n_sub` is the row bands a tile splits into, one thread block each
 // (tile * tile == 256 * 16 * n_sub). tile_w divides 256.
 extern "C" int sorted_blend_launch(
     const float* records, const int* tile_tris, const int* counts,
     const int* big_list, const float* opaque_depth, const float* hdr, int cap,
-    int n_big, int t_count, int n_tiles, int tiles_x, int tile_w, int tile_h,
-    int width, int height, int p, const float* rects, int n_rects, float* out,
-    int smem, void* stream) {
-  if (tile_w * tile_h != kThreads * p || kThreads % tile_w != 0 ||
-      n_rects > kMaxRects || n_big + cap > 1024 || cap % kBlock != 0 ||
-      n_big % kBlock != 0)
+    int n_big, int n_tiles, int tiles_x, int tile_w, int tile_h, int width,
+    int height, int bands, const float* rects, int n_rects, float* out,
+    int* kept, int smem, void* stream) {
+  if (bands < 1 || tile_h % bands != 0 ||
+      tile_w * tile_h != kThreads * kBlendPixels * bands || kThreads % tile_w != 0 ||
+      n_rects > kMaxRects || n_big + cap > kMaxSlots || cap % kBlock != 0 ||
+      n_big % kBlock != 0 ||
+      smem < tile_w * (tile_h / bands) * 16 + (n_big + cap) * kRec * 4)
     return (int)cudaErrorInvalidValue;
+  // the bulk copies and 16-byte stores need 16-byte aligned rows
+  const auto aligned = [](const void* ptr) {
+    return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
+  };
+  const int bulk = tile_w % 4 == 0 && width % 4 == 0 && aligned(opaque_depth) &&
+                   aligned(hdr) && aligned(out);
+  cudaError_t err = prepare(sorted_blend_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define GTT_LAUNCH(P)                                                          \
-  case P: {                                                                    \
-    cudaError_t err = prepare(sorted_blend_kernel<P>, smem);                   \
-    if (err != cudaSuccess) return (int)err;                                   \
-    sorted_blend_kernel<P><<<n_tiles, kThreads, smem, s>>>(                    \
-        records, tile_tris, counts, big_list, opaque_depth, hdr, cap, n_big,   \
-        t_count, tiles_x, tile_w, tile_h, width, height, rects, n_rects, out); \
-    return (int)cudaGetLastError();                                            \
-  }
-  switch (p) {
-    GTT_LAUNCH(8)
-    GTT_LAUNCH(16)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef GTT_LAUNCH
+  sorted_blend_kernel<<<n_tiles * bands, kThreads, smem, s>>>(
+      records, tile_tris, counts, big_list, opaque_depth, hdr, cap, n_big,
+      tiles_x, tile_w, tile_h, bands, width, height, rects, n_rects, bulk, out,
+      kept);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int oit_launch(const float* records, const int* tile_tris,

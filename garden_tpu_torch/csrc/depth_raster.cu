@@ -29,27 +29,46 @@
 // zmax = z2 + max(dz0, dz1, 0) is not a rounding-safe bound, so stopping
 // elsewhere could change a pixel by an ulp.
 //
-// What bounds it on the H100. Per (slot, pixel) ~25 float operations and no
-// memory traffic: the work is ALU-bound in tiles x slots x pixels (3072
+// What bounds them on the H100. Per (slot, pixel) ~25 float operations and
+// no memory traffic: the work is ALU-bound in tiles x slots x pixels (3072
 // tiles of 128x16 x <= 64 big slots in pass 1 of the flagship atlas; <= 768
 // tiles x <= 64 slots in pass 2; 768 tiles of 128x128 x (64 + 256) slots in
-// the dense default). Bytes are small: each tile reads its list's records
-// once (64 B a slot) and writes its pixels once.
+// the dense default). With -fmad=false each counted operation is one
+// instruction while the card's 67 TFLOP/s counts an FMA as two, so such a
+// kernel reaches at most ~50% of its operations bound unless it skips
+// work. Bytes are small: each tile reads its list's records once (64 B a
+// slot) and writes its pixels once.
 //
-// What the design does about it. One 256-thread block per tile. The tile's
-// records are staged once into shared memory, and every thread then reads
-// the same record at the same time (a broadcast); empty slots are skipped
-// with a block-uniform branch. Tile widths divide 256, so a thread keeps one
-// pixel column and P = tile pixels / 256 rows of it (8 for 128x16, 64 for
-// 128x128) with their running maxima in registers; only py changes along
-// them. The early exit takes a block-wide min (warp shuffles, then shared
-// memory) once per 16-slot block. Pixels of a warp are 32 consecutive
-// columns, so loads and stores of the depth image are coalesced. Built with
-// -fmad=false so each multiply and add rounds as the plain version's
-// separate PyTorch ops do.
+// What the design does about it. One 256-thread block per tile. Tile widths
+// divide 256, so a thread keeps one pixel column and P = tile pixels / 256
+// rows of it (8 for 128x16, 64 for 128x128) with their running maxima in
+// registers; only py changes along them. Pixels of a warp are 32
+// consecutive columns, so loads and stores of the depth image are
+// coalesced. Built with -fmad=false so each multiply and add rounds as the
+// plain version's separate PyTorch ops do.
+// - depth_super and depth_grid stage their tile's records once into shared
+//   memory and walk every slot (merge_records; empty slots skipped by a
+//   block-uniform branch); every thread reads the same record at the same
+//   time (a broadcast). The early exit takes a block-wide min (warp
+//   shuffles, then shared memory) once per 16-slot block.
+// - depth_dense first culls its scanned slots (the big list's used blocks,
+//   then the grid blocks), one thread a slot, exactly (cull.cuh): a slot
+//   whose edges cannot all be >= 0 at any pixel centre of the tile, or
+//   whose cascade rect the tile misses, cannot raise a depth. The
+//   survivors are compacted into shared memory in list order (warp ballots
+//   and a block prefix sum), each flagged when the tile lies wholly inside
+//   its rect (the per-pixel rect test then drops out), and only they are
+//   walked. On the translucent shadow map most tiles keep no slot and just
+//   store zeros. The early exit stays at the original 16-slot block ends:
+//   after every grid block the tile minimum is compared with bound[cb + 1]
+//   as merge_grid does, a block the cull emptied reuses the last minimum
+//   (its depths did not change), and the walk ends once no survivor is
+//   left. `kept` (optional) receives each tile's survivor count.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "cull.cuh"
 
 namespace {
 
@@ -58,6 +77,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kEdge = 16;
 constexpr int kBlock = 16;
 constexpr int kMaxRects = 8;
+constexpr int kMaxSlots = 1024;          // depth_dense: n_big + cap
 
 // Per-block state shared by the three kernels.
 struct Shared {
@@ -247,18 +267,80 @@ depth_grid_kernel(const float* __restrict__ records,
   store<P>(depth_img, w_pad, tx, ty, tile_w, tile_h, pix, depth);
 }
 
+// Max-merge one surviving record into this thread's P pixels: merge_records'
+// per-pixel test without its empty-slot check (a survivor names a
+// triangle), and the two must stay in step (the tests hold both to the
+// plain versions bit for bit). Sharing one helper with merge_records
+// changed depth_super's and depth_grid's code (more registers, spills) and
+// slowed them by 6-10% on the card (PERF.md), so the copy stays.
+// kRect: the tile straddles the record's rect, so each pixel tests it;
+// otherwise the tile lies wholly inside and the test is dropped.
+template <int P, bool kRect>
+__device__ __forceinline__ void merge_survivor(const float* d, const Shared& sh,
+                                               int n_rects, const Pixels& pix,
+                                               float (&depth)[P]) {
+  float y_lo = 0.0f, y_hi = 0.0f;
+  if (kRect) {
+    float x0 = 0.0f, x1 = 0.0f;
+    for (int c = 0; c < n_rects; ++c) {
+      if (d[15] == (float)c) {
+        x0 = sh.rects[c][0];
+        x1 = sh.rects[c][1];
+        y_lo = sh.rects[c][2];
+        y_hi = sh.rects[c][3];
+      }
+    }
+    if (!(pix.px >= x0 && pix.px < x1)) return;      // this thread's column
+  }
+  const float ax0 = d[0] * pix.px, ax1 = d[1] * pix.px;
+  const float b0 = d[3], b1 = d[4], c0 = d[6], c1 = d[7];
+  const float sum = d[9], z2 = d[10], dz0 = d[11], dz1 = d[12];
+  const float inv_area = d[13];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const float py = pix.py0 + (float)(i * pix.rstep);
+    const float e0 = ax0 + b0 * py + c0;
+    const float e1 = ax1 + b1 * py + c1;
+    const float e2 = sum - e0 - e1;
+    const float z = z2 + e0 * inv_area * dz0 + e1 * inv_area * dz1;
+    bool cand = e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && z <= 1.0f && z > 0.0f;
+    if (kRect) cand = cand && py >= y_lo && py < y_hi;
+    depth[i] = fmaxf(depth[i], cand ? z : 0.0f);
+  }
+}
+
+// Max-merge the staged survivors [s0, s1); lane 14 holds 1 where the tile
+// lies wholly inside the record's rect.
 template <int P>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void merge_survivors(const float* s_rec, int s0, int s1,
+                                                const Shared& sh, int n_rects,
+                                                const Pixels& pix, float (&depth)[P]) {
+  for (int s = s0; s < s1; ++s) {
+    const float* d = s_rec + s * kEdge;
+    if (d[14] == 0.0f)                                // block-uniform
+      merge_survivor<P, true>(d, sh, n_rects, pix, depth);
+    else
+      merge_survivor<P, false>(d, sh, n_rects, pix, depth);
+  }
+}
+
+// Blocks of 256 threads resident per SM: four (at most 64 registers) up to
+// 16 pixels a thread, two at 32, one at 64 (128x128 tiles, whose depths
+// fill the registers).
+template <int P>
+__global__ void __launch_bounds__(kThreads, P <= 16 ? 4 : (P == 32 ? 2 : 1))
 depth_dense_kernel(const float* __restrict__ records,
                    const int* __restrict__ tile_tris,
                    const int* __restrict__ counts,
                    const int* __restrict__ big_list,
                    const float* __restrict__ bound, int cap, int n_big,
-                   int t_count, int tiles_x, int tile_w, int tile_h,
+                   int tiles_x, int tile_w, int tile_h,
                    const float* __restrict__ rects, int n_rects,
-                   float* __restrict__ depth_img) {
-  extern __shared__ float s_rec[];
+                   float* __restrict__ depth_img, int* __restrict__ kept) {
+  extern __shared__ float s_rec[];         // survivors [<= n_big + cap][16]
   __shared__ Shared sh;
+  __shared__ int s_blk[kMaxSlots / kBlock + 1];  // survivors before grid block cb
+  __shared__ int s_warp[kWarps];
   const int tile = blockIdx.x;
   const int tx = tile % tiles_x;
   const int ty = tile / tiles_x;
@@ -270,18 +352,67 @@ depth_dense_kernel(const float* __restrict__ records,
   }
   const int n_bigs = blocks_of(big_count, n_big) * kBlock;
   const int n_blocks = blocks_of(counts[tile], cap);
+  const int n_scan = n_bigs + n_blocks * kBlock;
   load_rects(sh, rects, n_rects);
-  stage(records, big_list, n_bigs, t_count, s_rec);
-  stage(records, tile_tris + (size_t)tile * cap, n_blocks * kBlock, t_count,
-        s_rec + n_bigs * kEdge);
   __syncthreads();
+
+  // the cull, one thread a slot; survivors compacted in list order, lane 14
+  // (the id) then holding 1 when the tile lies wholly inside the rect; and
+  // where each grid block's survivors start
+  const cull::Corners corners = cull::tile_corners(tx, ty, tile_w, tile_h);
+  int n_keep = 0;
+  for (int s0 = 0; s0 < n_scan; s0 += kThreads) {
+    const int s = s0 + threadIdx.x;
+    const int id = s >= n_scan ? -1
+                   : s < n_bigs ? big_list[s]
+                                : tile_tris[(size_t)tile * cap + (s - n_bigs)];
+    float d[16];
+    int flags = 0;
+    if (id >= 0) {
+      cull::load_record(records, id, d);
+      flags = cull::edge_flags(d, corners, &sh.rects[0][0], n_rects);
+    }
+    int total;
+    const int pos = n_keep + cull::block_prefix<kWarps>(flags != 0, s_warp, &total);
+    if (flags) {
+      d[14] = (flags & cull::kInside) ? 1.0f : 0.0f;
+#pragma unroll
+      for (int k = 0; k < kEdge; ++k) s_rec[pos * kEdge + k] = d[k];
+    }
+    if (s < n_scan && s >= n_bigs && (s - n_bigs) % kBlock == 0)
+      s_blk[(s - n_bigs) / kBlock] = pos;
+    n_keep += total;
+  }
+  if (threadIdx.x == 0) {
+    s_blk[n_blocks] = n_keep;
+    if (kept != nullptr) kept[tile] = n_keep;
+  }
+  __syncthreads();
+
   const Pixels pix = tile_pixels(tx, ty, tile_w, tile_h);
   float depth[P];
 #pragma unroll
   for (int i = 0; i < P; ++i) depth[i] = 0.0f;
-  merge_records<P>(s_rec, 0, n_bigs, sh, n_rects, pix, depth);
-  merge_grid<P>(s_rec, n_bigs, n_blocks, bound + (size_t)tile * (cap / kBlock + 1),
-                sh, n_rects, pix, depth);
+  merge_survivors<P>(s_rec, 0, s_blk[0], sh, n_rects, pix, depth);
+  // the grid blocks with merge_grid's early exit, tested after every
+  // original 16-slot block; a block the cull emptied leaves the depths and
+  // so the tile minimum as they were
+  const float* bnd = bound + (size_t)tile * (cap / kBlock + 1);
+  bool have_min = false;
+  float t_min = 0.0f;
+  for (int cb = 0; cb < n_blocks; ++cb) {
+    const int lo = s_blk[cb], hi = s_blk[cb + 1];
+    if (lo == n_keep) break;                   // no survivor left to merge
+    if (hi > lo) {
+      merge_survivors<P>(s_rec, lo, hi, sh, n_rects, pix, depth);
+      have_min = false;
+    }
+    if (!have_min) {
+      t_min = tile_min<P>(depth, sh);
+      have_min = true;
+    }
+    if (t_min >= bnd[cb + 1]) break;
+  }
   store<P>(depth_img, tiles_x * tile_w, tx, ty, tile_w, tile_h, pix, depth);
 }
 
@@ -315,6 +446,8 @@ int pixels_per_thread(int tile_w, int tile_h) {
   }
 
 // C entry points (loaded with ctypes). Each returns a cudaError_t code; 0 = OK.
+// depth_dense: `kept` (one int a tile, or null) receives each tile's
+// surviving slots.
 
 extern "C" int depth_super_launch(const float* records, const int* sup_tris,
                                   const int* sup_counts, int cap, int t_count,
@@ -362,19 +495,21 @@ extern "C" int depth_grid_launch(const float* records, const int* act_ids,
 extern "C" int depth_dense_launch(const float* records, const int* tile_tris,
                                   const int* counts, const int* big_list,
                                   const float* bound, int cap, int n_big,
-                                  int t_count, int n_tiles, int tiles_x,
+                                  int n_tiles, int tiles_x,
                                   int tile_w, int tile_h, const float* rects,
-                                  int n_rects, float* depth, int smem,
+                                  int n_rects, float* depth, int* kept, int smem,
                                   void* stream) {
-  if (n_rects > kMaxRects) return (int)cudaErrorInvalidValue;
+  if (n_rects > kMaxRects || n_big + cap > kMaxSlots || cap % kBlock != 0 ||
+      n_big % kBlock != 0 || smem < (n_big + cap) * kEdge * 4)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define GTT_DENSE(P)                                                         \
   {                                                                          \
     cudaError_t err = prepare(depth_dense_kernel<P>, smem);                  \
     if (err != cudaSuccess) return (int)err;                                 \
     depth_dense_kernel<P><<<n_tiles, kThreads, smem, st>>>(                  \
-        records, tile_tris, counts, big_list, bound, cap, n_big, t_count,    \
-        tiles_x, tile_w, tile_h, rects, n_rects, depth);                     \
+        records, tile_tris, counts, big_list, bound, cap, n_big, tiles_x,    \
+        tile_w, tile_h, rects, n_rects, depth, kept);                        \
     return (int)cudaGetLastError();                                          \
   }
   GTT_DISPATCH(pixels_per_thread(tile_w, tile_h), GTT_DENSE)

@@ -3,8 +3,8 @@
 Each kernel lives in `csrc/<name>.cu` with a plain C interface. On first
 use, `load(name)` compiles it with nvcc for Hopper (`sm_90a`) into
 `_build/` beside this file and loads the shared library with ctypes. The
-library file name carries a hash of the source and flags, so an edited
-kernel is rebuilt. A failed build raises; nothing falls back.
+library file name carries a hash of the source, the headers beside it and
+the flags, so an edited kernel is rebuilt. A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -48,7 +48,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the headers in csrc/ count too: a source may include any of them
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -735,13 +735,16 @@ def _edges_vertex(d: Tensor, px: Tensor, py: Tensor):
 
 def blend_plain(records: Tensor, tile_tris: Tensor, counts: Tensor,
                 big_list: Tensor, opaque_depth: Tensor, hdr: Tensor, width: int,
-                height: int, tile: int, tile_h: int, atlas_bounds: tuple = ()
-                ) -> Tensor:
+                height: int, tile: int, tile_h: int, atlas_bounds: tuple = (),
+                keep: Tensor = None) -> Tensor:
     """Plain version of the sorted_blend kernel: every tile blends the
     shared big list's used blocks, then its own list's blocks, one
     triangle at a time in list order, source-over onto `hdr` (H, W, 3)
     where z >= opaque_depth (reverse-Z), z <= 1 and, with atlas rects,
-    inside the record's rect. Empty slots blend nothing. -> (H, W, 3)."""
+    inside the record's rect. Empty slots blend nothing. -> (H, W, 3).
+    With `keep` (tiles, big + cap) bool, only the slots it marks blend:
+    with `tile_slot_keep`'s mask the result is the same, which the tests
+    hold; the renderer never passes it."""
     dev = records.device
     tiles_x, tiles_y, n_tiles = _grid(width, height, tile, tile_h)
     h_pad, w_pad = tiles_y * tile_h, tiles_x * tile
@@ -761,6 +764,8 @@ def blend_plain(records: Tensor, tile_tris: Tensor, counts: Tensor,
         ids = lists[:, j]
         scanned = (j < big_end) if j < n_big else (j < grid_end)
         act = (scanned & (ids >= 0))[:, None]
+        if keep is not None:
+            act = act & keep[:, j:j + 1]
         d = records[torch.where(ids >= 0, ids, t_count).long()]
         e0, e1, e2 = _edges_vertex(d, px, py)
         b0 = e0 * d[:, 9:10]
@@ -804,10 +809,12 @@ def _rects(atlas_bounds: tuple, dev) -> Tensor:
 
 def blend_cuda(records: Tensor, tile_tris: Tensor, counts: Tensor,
                big_list: Tensor, opaque_depth: Tensor, hdr: Tensor, width: int,
-               height: int, tile: int, tile_h: int, atlas_bounds: tuple = ()
-               ) -> Tensor:
+               height: int, tile: int, tile_h: int, atlas_bounds: tuple = (),
+               kept: Tensor = None) -> Tensor:
     """Launch the sorted_blend kernel (csrc/blend_raster.cu); same inputs and
-    output as `blend_plain`."""
+    output as `blend_plain`. With `kept` (tiles,) int32, the kernel also
+    writes each tile's number of slots that pass its cull (the row sums
+    of `tile_slot_keep(..., form="vertex")`)."""
     from garden_tpu_torch import cuda_build
 
     dev = records.device
@@ -825,22 +832,25 @@ def blend_cuda(records: Tensor, tile_tris: Tensor, counts: Tensor,
     _check("opaque_depth", opaque_depth, torch.float32, (height, width), dev,
            "sorted_blend")
     _check("hdr", hdr, torch.float32, (height, width, 3), dev, "sorted_blend")
-    if n_big + cap > 1024:
-        raise ValueError(f"sorted_blend: {n_big + cap} list slots, at most 1024")
-    p = _blend_pixels("sorted_blend", tile, tile_h, (8, 16))
+    _check_kept(kept, n_tiles, dev, "sorted_blend")
+    if n_big + cap > MAX_SLOTS:
+        raise ValueError(f"sorted_blend: {n_big + cap} list slots, at most {MAX_SLOTS}")
+    # row bands of 2048 pixels, one block each, 8 pixels a thread
+    bands = _blend_pixels("sorted_blend", tile, tile_h, (8, 16)) // 8
     rects = _rects(atlas_bounds, dev)
     out = torch.empty_like(hdr)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    # shared memory: the band's hdr rows and opaque depth, then the records
+    smem = _smem_bytes("sorted_blend", n_big + cap, tile * tile_h // bands * 4 * 4)
     _call(cuda_build.load("blend_raster").sorted_blend_launch,
-          [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
-          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p],
+          [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_void_p],
           "sorted_blend",
           _ptr(records), _ptr(tile_tris), _ptr(counts), _ptr(big_list),
-          _ptr(opaque_depth), _ptr(hdr), cap, n_big, records.shape[0] - 1,
-          n_tiles, tiles_x, tile, tile_h, width, height, p,
-          _ptr(rects), len(atlas_bounds), _ptr(out),
-          _smem_bytes("sorted_blend", n_big + cap), ctypes.c_void_p(stream))
+          _ptr(opaque_depth), _ptr(hdr), cap, n_big, n_tiles, tiles_x, tile, tile_h,
+          width, height, bands, _ptr(rects), len(atlas_bounds), _ptr(out),
+          _kept_ptr(kept), smem, ctypes.c_void_p(stream))
     rasterize_sorted_blend.launches += 1
     return out
 
@@ -888,6 +898,7 @@ rasterize_sorted_blend.launches = 0
 
 DEPTH_THREADS = 256
 MAX_ATLAS_RECTS = 8
+MAX_SLOTS = 1024       # big + cap list slots of one sorted_blend / depth_dense tile
 
 
 def _pad_slots(lists: Tensor) -> Tensor:
@@ -921,10 +932,10 @@ def _image_tiles(img: Tensor, tiles_x: int, tile: int, th: int) -> Tensor:
         .reshape(tiles_y * tiles_x, th * tile)
 
 
-def _atlas_guard(idx: Tensor, px: Tensor, py: Tensor, atlas_bounds: tuple) -> Tensor:
-    """Cascade-atlas clip: a record counts only inside the (x0, x1, y0, y1)
-    rect of its cascade (record lane 15); an index that names no rect
-    covers nothing."""
+def _rect_of(idx: Tensor, atlas_bounds: tuple) -> Tuple[Tensor, ...]:
+    """(x0, x1, y0, y1) of the rect that each cascade index names (record
+    lane 15; the last match wins, as in the kernels), all zero where none
+    does."""
     x0a = torch.zeros_like(idx)
     x1a = torch.zeros_like(idx)
     y0a = torch.zeros_like(idx)
@@ -935,6 +946,14 @@ def _atlas_guard(idx: Tensor, px: Tensor, py: Tensor, atlas_bounds: tuple) -> Te
         x1a = torch.where(m, float(x1), x1a)
         y0a = torch.where(m, float(y0), y0a)
         y1a = torch.where(m, float(y1), y1a)
+    return x0a, x1a, y0a, y1a
+
+
+def _atlas_guard(idx: Tensor, px: Tensor, py: Tensor, atlas_bounds: tuple) -> Tensor:
+    """Cascade-atlas clip: a record counts only inside the (x0, x1, y0, y1)
+    rect of its cascade (record lane 15); an index that names no rect
+    covers nothing."""
+    x0a, x1a, y0a, y1a = _rect_of(idx, atlas_bounds)
     return (px >= x0a) & (px < x1a) & (py >= y0a) & (py < y1a)
 
 
@@ -956,20 +975,24 @@ def _depth_candidates(d: Tensor, px: Tensor, py: Tensor, atlas_bounds: tuple
 
 def _depth_blocks(records: Tensor, lists: Tensor, n_blocks: Tensor,
                   depth: Tensor, px: Tensor, py: Tensor, atlas_bounds: tuple,
-                  bound: Tensor = None, work: list = None) -> Tensor:
+                  bound: Tensor = None, work: list = None,
+                  keep: Tensor = None) -> Tensor:
     """Max-merge the 16-slot blocks 0 .. n_blocks - 1 of each row's list
     into depth (rows, n_px). With `bound`, a row stops after block cb once
     its smallest depth is >= bound[:, cb + 1] (the kernels' early exit).
-    With `work` (a one-element list), adds to work[0] the (slot, pixel)
-    pairs of the non-empty slots the kernels test: a measurement for the
-    kernels' bound in chip_smoke.py, which syncs with the host once a
-    block; the renderer never passes it."""
+    With `keep` (rows, slots) bool, the slots it does not mark count as
+    empty. With `work` (a one-element list), adds to work[0] the (slot,
+    pixel) pairs of the non-empty slots the kernels test: a measurement
+    for the kernels' bound in chip_smoke.py, which syncs with the host once
+    a block; the renderer passes neither."""
     t_count = records.shape[0] - 1
     n_blocks = torch.clamp(n_blocks.long(), max=lists.shape[1] // TRI_BLOCK)
     done = torch.zeros(lists.shape[0], dtype=torch.bool, device=lists.device)
     px, py = px[:, None, :], py[:, None, :]
     for cb in range(int(n_blocks.max()) if n_blocks.numel() else 0):
         ids = lists[:, cb * TRI_BLOCK:(cb + 1) * TRI_BLOCK]
+        if keep is not None:
+            ids = torch.where(keep[:, cb * TRI_BLOCK:(cb + 1) * TRI_BLOCK], ids, -1)
         d = records[torch.where(ids >= 0, ids, t_count).long()][..., None]
         zs = torch.amax(_depth_candidates(d, px, py, atlas_bounds), dim=1)
         act = (cb < n_blocks) & ~done
@@ -1040,12 +1063,17 @@ def depth_grid_plain(depth: Tensor, records: Tensor, act_ids: Tensor,
 def depth_dense_plain(records: Tensor, tile_tris: Tensor, counts: Tensor,
                       big_list: Tensor, bound: Tensor, width: int, height: int,
                       tile: int, tile_h: int, atlas_bounds: tuple = (),
-                      max_elems: int = 1 << 23, work: list = None) -> Tensor:
+                      max_elems: int = 1 << 23, work: list = None,
+                      keep: Tensor = None) -> Tensor:
     """Plain version of the depth_dense kernel: every tile max-reduces the
     shared big list, then its own list with the early exit. -> the padded
-    depth image; `work` counts as in `_depth_blocks`."""
+    depth image; `work` counts as in `_depth_blocks`. With `keep` (tiles,
+    big + cap) bool, only the slots it marks are drawn: with
+    `tile_slot_keep`'s mask the result is the same, which the tests hold;
+    the renderer never passes it."""
     tiles_x, tiles_y, n_tiles = _grid(width, height, tile, tile_h)
     n_px = tile * tile_h
+    n_big = big_list.shape[0]
     dev = records.device
     out = torch.zeros((n_tiles, n_px), device=dev)
     big_blocks = _blocks_of((big_list >= 0).sum())
@@ -1053,13 +1081,101 @@ def depth_dense_plain(records: Tensor, tile_tris: Tensor, counts: Tensor,
     for t0 in range(0, n_tiles, step):
         tiles = torch.arange(t0, min(t0 + step, n_tiles), device=dev)
         px, py = _tile_coords(tiles, tiles_x, tile, tile_h)
+        kb, kg = (None, None) if keep is None else (keep[tiles, :n_big],
+                                                      keep[tiles, n_big:])
         d = _depth_blocks(records, big_list[None, :].expand(len(tiles), -1),
                           big_blocks.expand(len(tiles)), out[tiles], px, py,
-                          atlas_bounds, work=work)
+                          atlas_bounds, work=work, keep=kb)
         out[tiles] = _depth_blocks(records, tile_tris[tiles], _blocks_of(counts[tiles]),
-                                   d, px, py, atlas_bounds, bound[tiles], work)
+                                   d, px, py, atlas_bounds, bound[tiles], work, kg)
     return _tiles_to_image(out, tiles_y, tiles_x, tile_h, tile, tiles_y * tile_h,
                            tiles_x * tile)
+
+
+# -- the exact per-tile slot cull of sorted_blend and depth_dense -------------
+#
+# Rounding to nearest is monotone, so each edge function, evaluated with the
+# kernels' own float operations in their order, is monotone in px and in py
+# separately, in the directions that the signs of its coefficients give.
+# Its largest value over a tile's pixel centres is that same expression at
+# one corner centre: where it is < 0, the slot covers no pixel of the tile
+# and cannot change it (the blend adds c * 0 to o * 1, the depth max takes
+# max(d, 0) with d >= 0). A NaN corner value keeps the slot.
+
+
+def _tile_corners(n_tiles: int, tiles_x: int, tile: int, tile_h: int, dev):
+    """(x_lo, x_hi, y_lo, y_hi), each (tiles, 1): the first and last pixel
+    centres of every tile, formed as `_tile_coords` forms them."""
+    tiles = torch.arange(n_tiles, device=dev)
+    x = ((tiles % tiles_x) * tile).float()[:, None] + 0.5
+    y = (torch.div(tiles, tiles_x, rounding_mode="floor") * tile_h).float()[:, None] \
+        + 0.5
+    return x, x + float(tile - 1), y, y + float(tile_h - 1)
+
+
+def _vertex_edge_max(xa, ya, xb, yb, x_lo, x_hi, y_lo, y_hi) -> Tensor:
+    """Largest value over the tile of the vertex-form edge (px - xa)(yb -
+    ya) - (py - ya)(xb - xa), as the blend kernel evaluates it."""
+    a = yb - ya
+    b = xb - xa
+    px = torch.where(a >= 0, x_hi, x_lo)
+    py = torch.where(b >= 0, y_lo, y_hi)
+    return (px - xa) * a - (py - ya) * b
+
+
+def _edge_extreme(a, b, c, x_lo, x_hi, y_lo, y_hi, largest: bool) -> Tensor:
+    """Largest (or smallest) value over the tile of the edge-form edge a px
+    + b py + c, as the depth kernels evaluate it."""
+    px = torch.where((a >= 0) == largest, x_hi, x_lo)
+    py = torch.where((b >= 0) == largest, y_hi, y_lo)
+    return a * px + b * py + c
+
+
+def tile_slot_keep(records: Tensor, lists: Tensor, counts: Tensor, big_list: Tensor,
+                   width: int, height: int, tile: int, tile_h: int,
+                   atlas_bounds: tuple = (), form: str = "vertex") -> Tensor:
+    """The cull of the sorted_blend (form "vertex", `pack_blend_records`)
+    and depth_dense (form "edge", `_pack_edge_records`) kernels: (tiles,
+    big + cap) bool over each tile's scanned slots (the big list's used
+    16-slot blocks, then the tile's own blocks, as the kernels scan them),
+    True where the slot names a triangle that may reach a pixel centre of
+    the tile: no edge's largest value over the tile is < 0 (for e2 of the
+    edge form, S - min e0 - min e1 bounds it) and, with atlas rects, the
+    tile meets the record's rect. The kernels' `kept` output is its row
+    sums; `blend_plain` and `depth_dense_plain` take it as `keep`."""
+    tiles_x, _, n_tiles = _grid(width, height, tile, tile_h)
+    dev = records.device
+    t_count = records.shape[0] - 1
+    n_big, cap = big_list.shape[0], lists.shape[1]
+    ids = torch.cat([big_list[None, :].expand(n_tiles, -1), lists], dim=1)
+    slot = torch.arange(n_big + cap, device=dev)[None, :]
+    big_end = torch.clamp(_blocks_of((big_list >= 0).sum()), max=n_big // TRI_BLOCK)
+    grid_end = torch.clamp(_blocks_of(counts), max=cap // TRI_BLOCK)[:, None]
+    scanned = torch.where(slot < n_big, slot < big_end * TRI_BLOCK,
+                          slot - n_big < grid_end * TRI_BLOCK)
+    d = records[torch.where(ids >= 0, ids, t_count).long()]      # (tiles, S, 16)
+    lane = lambda i: d[..., i]
+    corners = _tile_corners(n_tiles, tiles_x, tile, tile_h, dev)
+    if form == "vertex":
+        x0, y0, x1, y1, x2, y2 = (lane(i) for i in range(6))
+        e_max = [_vertex_edge_max(x1, y1, x2, y2, *corners),
+                 _vertex_edge_max(x2, y2, x0, y0, *corners),
+                 _vertex_edge_max(x0, y0, x1, y1, *corners)]
+    elif form == "edge":
+        ext = lambda k, largest: _edge_extreme(lane(k), lane(3 + k), lane(6 + k),
+                                               *corners, largest)
+        e_max = [ext(0, True), ext(1, True),
+                 lane(9) - ext(0, False) - ext(1, False)]
+    else:
+        raise ValueError(f"tile_slot_keep: form must be 'vertex' or 'edge', got {form!r}")
+    keep = scanned & (ids >= 0)
+    for e in e_max:
+        keep = keep & ~(e < 0)
+    if atlas_bounds:
+        x_lo, x_hi, y_lo, y_hi = corners
+        rx0, rx1, ry0, ry1 = _rect_of(lane(15), atlas_bounds)
+        keep = keep & (x_hi >= rx0) & (x_lo < rx1) & (y_hi >= ry0) & (y_lo < ry1)
+    return keep
 
 
 def _depth_kernel_setup(kernel: str, records: Tensor, tile: int, tile_h: int,
@@ -1084,12 +1200,23 @@ def _depth_kernel_setup(kernel: str, records: Tensor, tile: int, tile_h: int,
             len(atlas_bounds), stream)
 
 
-def _smem_bytes(kernel: str, slots: int) -> int:
-    smem = slots * EDGE_WIDTH * 4
+def _smem_bytes(kernel: str, slots: int, extra: int = 0) -> int:
+    """Dynamic shared memory of a kernel staging `slots` records, plus
+    `extra` bytes."""
+    smem = slots * EDGE_WIDTH * 4 + extra
     if smem > _MAX_SMEM:
         raise ValueError(f"{kernel}: {slots} list slots need {smem} bytes of "
                          "shared memory")
     return smem
+
+
+def _check_kept(kept: Tensor, n_tiles: int, dev, kernel: str) -> None:
+    if kept is not None:
+        _check("kept", kept, torch.int32, (n_tiles,), dev, kernel)
+
+
+def _kept_ptr(kept: Tensor):
+    return ctypes.c_void_p(None if kept is None else kept.data_ptr())
 
 
 def depth_super_cuda(records: Tensor, sup_tris: Tensor, sup_counts: Tensor,
@@ -1152,9 +1279,12 @@ def depth_grid_cuda(depth: Tensor, records: Tensor, act_ids: Tensor,
 
 def depth_dense_cuda(records: Tensor, tile_tris: Tensor, counts: Tensor,
                      big_list: Tensor, bound: Tensor, width: int, height: int,
-                     tile: int, tile_h: int, atlas_bounds: tuple = ()) -> Tensor:
+                     tile: int, tile_h: int, atlas_bounds: tuple = (),
+                     kept: Tensor = None) -> Tensor:
     """Launch the depth_dense kernel (csrc/depth_raster.cu); same inputs and
-    output as `depth_dense_plain`."""
+    output as `depth_dense_plain`. With `kept` (tiles,) int32, the kernel
+    also writes each tile's number of slots that pass its cull (the row
+    sums of `tile_slot_keep(..., form="edge")`)."""
     lib, rects, n_rects, stream = _depth_kernel_setup(
         "depth_dense", records, tile, tile_h, atlas_bounds)
     tiles_x, tiles_y, n_tiles = _grid(width, height, tile, tile_h)
@@ -1168,14 +1298,17 @@ def depth_dense_cuda(records: Tensor, tile_tris: Tensor, counts: Tensor,
     _check("big_list", big_list, torch.int32, (n_big,), dev, "depth_dense")
     _check("bound", bound, torch.float32, (n_tiles, cap // TRI_BLOCK + 1), dev,
            "depth_dense")
+    _check_kept(kept, n_tiles, dev, "depth_dense")
+    if n_big + cap > MAX_SLOTS:
+        raise ValueError(f"depth_dense: {n_big + cap} list slots, at most {MAX_SLOTS}")
     depth = torch.empty((tiles_y * tile_h, tiles_x * tile), device=dev)
-    _call(lib.depth_dense_launch, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p], "depth_dense",
+    _call(lib.depth_dense_launch, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_void_p], "depth_dense",
           _ptr(records), _ptr(tile_tris), _ptr(counts), _ptr(big_list), _ptr(bound),
-          cap, n_big, records.shape[0] - 1, n_tiles, tiles_x, tile, tile_h,
-          _ptr(rects), n_rects, _ptr(depth), _smem_bytes("depth_dense", n_big + cap),
-          ctypes.c_void_p(stream))
+          cap, n_big, n_tiles, tiles_x, tile, tile_h,
+          _ptr(rects), n_rects, _ptr(depth), _kept_ptr(kept),
+          _smem_bytes("depth_dense", n_big + cap), ctypes.c_void_p(stream))
     depth_dense.launches += 1
     return depth
 

@@ -335,3 +335,110 @@ def test_small_glass_step_matches_cpu(cuda):
     d = (out["cpu"][0].int() - out["cuda"][0].int()).abs().amax(-1)
     assert (d <= 2).float().mean().item() >= 0.995
     assert (out["cpu"][1] - out["cuda"][1]).abs().max().item() <= 1e-4
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _cull_scene(seed, w, h, tile, tile_h, covering, n=96, n_big=48, cap=64):
+    """Triangles and lists for the culled kernels (K4, K6): with
+    `covering`, every triangle covers the whole frame, so no slot misses a
+    tile; else small and large triangles anywhere, named by lists drawn at
+    random, so most slots miss most tiles. -> (setup, lists, counts, big,
+    atlas indices, rgba, hdr, opaque)."""
+    rng = np.random.default_rng(seed)
+    if covering:
+        c = rng.uniform([-4e3, -4e3], [-2e3, -2e3], (n, 2))
+        pts = np.stack([c, c + [0.0, 1e4], c + [1e4, 0.0]], 0)
+    else:
+        c = rng.uniform([-40, -20], [w + 40, h + 20], (n, 2))
+        size = rng.choice([3.0, 20.0, 90.0, 300.0], (n, 1))
+        pts = np.stack([c, c + size * rng.uniform(-1, 1, (n, 2)),
+                        c + size * rng.uniform(-1, 1, (n, 2))], 0)
+    sx, sy = pts[..., 0].astype(np.float32), pts[..., 1].astype(np.float32)
+    area = (sx[1] - sx[0]) * (sy[2] - sy[0]) - (sy[1] - sy[0]) * (sx[2] - sx[0])
+    host = {"sx": sx, "sy": sy, "z": rng.uniform(0.05, 0.95, (3, n)),
+            "inv_area": 1.0 / np.maximum(np.abs(area), 1e-6),
+            "xmin": sx.min(0), "xmax": sx.max(0), "ymin": sy.min(0), "ymax": sy.max(0)}
+    setup = {k: torch.tensor(v, dtype=torch.float32) for k, v in host.items()}
+    setup["valid"] = torch.ones(n, dtype=torch.bool)
+    _, _, n_tiles = raster._grid(w, h, tile, tile_h)
+    big = torch.full((n_big,), -1, dtype=torch.int32)
+    big[:n_big - 5] = torch.from_numpy(rng.permutation(n)[:n_big - 5].astype(np.int32))
+    counts = torch.from_numpy(rng.integers(0, cap + 1, n_tiles).astype(np.int32))
+    lists = torch.full((n_tiles, cap), -1, dtype=torch.int32)
+    for t in range(n_tiles):
+        lists[t, :counts[t]] = torch.from_numpy(rng.choice(n, int(counts[t]),
+                                                           replace=False).astype(np.int32))
+    atlas = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32))
+    rgba = torch.tensor(rng.uniform(0.05, 0.95, (n, 4)), dtype=torch.float32)
+    hdr = torch.tensor(rng.uniform(0.1, 2.0, (h, w, 3)), dtype=torch.float32)
+    opaque = torch.tensor(rng.choice([0.0, 0.4], (h, w)), dtype=torch.float32)
+    return setup, lists, counts, big, atlas, rgba, hdr, opaque
+
+
+def _check_kept_share(kept, lists, big, covering, atlas):
+    """Where triangles lie anywhere, the cull drops over a third of the
+    named slots; where they cover the frame and no rect clips them, none."""
+    named = int((lists >= 0).sum() + (big >= 0).sum() * lists.shape[0])
+    if not covering:
+        assert 3 * int(kept.sum()) < 2 * named
+    elif not atlas:
+        assert int(kept.sum()) == named
+
+
+def _cull_bounds(w, h):
+    return ((0, w // 2, 0, h), (w // 2, w, 0, h // 2), (w // 2 + 8, w, h // 2 + 3, h))
+
+
+@pytest.mark.parametrize("w,h", [(264, 72), (262, 70)], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("tile_h", [16, 32])
+@pytest.mark.parametrize("covering", [False, True], ids=["most_miss", "none_miss"])
+@pytest.mark.parametrize("atlas", [False, True], ids=["screen", "atlas_rects"])
+def test_culled_blend_matches_plain_on_card(cuda, w, h, tile_h, covering, atlas):
+    """K6 with its cull equals blend_plain bit for bit, whether or not its
+    rows are 16-byte aligned; `kept` equals tile_slot_keep's row sums; a
+    null `kept` changes nothing."""
+    setup, lists, counts, big, atl, rgba, hdr, opaque = _cull_scene(
+        21 + tile_h, w, h, 128, tile_h, covering)
+    bounds = _cull_bounds(w, h) if atlas else ()
+    args = [_to(a, cuda) for a in raster.blend_args(
+        setup, rgba, lists, counts, big, opaque, hdr, w, h, 128, bounds,
+        atl if atlas else None, tile_h)]
+    kept = torch.full((counts.shape[0],), -7, dtype=torch.int32, device=cuda)
+    kb = raster.blend_cuda(*args, kept=kept)
+    kb0 = raster.blend_cuda(*args)
+    pb = raster.blend_plain(*args)
+    keep = raster.tile_slot_keep(*args[:4], w, h, 128, tile_h, bounds, "vertex")
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(kb), _bits(pb)) and torch.equal(_bits(kb0), _bits(kb))
+    assert torch.equal(kept, keep.sum(1).int())
+    _check_kept_share(kept, args[1], args[3], covering, atlas)
+    assert (kb.cpu() != hdr).any(-1).float().mean().item() > 0.05
+
+
+@pytest.mark.parametrize("w,h", [(264, 72), (262, 70)], ids=["even", "odd"])
+@pytest.mark.parametrize("tile_h", [16, 32, 128])
+@pytest.mark.parametrize("covering", [False, True], ids=["most_miss", "none_miss"])
+@pytest.mark.parametrize("atlas", [False, True], ids=["screen", "atlas_rects"])
+def test_culled_depth_matches_plain_on_card(cuda, w, h, tile_h, covering, atlas):
+    """K4 with its cull and early exit equals depth_dense_plain bit for bit;
+    `kept` equals tile_slot_keep's row sums; a null `kept` changes
+    nothing."""
+    setup, lists, counts, big, atl, *_ = _cull_scene(31 + tile_h, w, h, 128, tile_h,
+                                                     covering)
+    bounds = _cull_bounds(w, h) if atlas else ()
+    a = [_to(x, cuda) for x in raster.depth_args(
+        setup, lists, counts, big, w, h, 128, bounds, atl if atlas else None,
+        tile_h)["dense"]]
+    kept = torch.full((counts.shape[0],), -7, dtype=torch.int32, device=cuda)
+    kd = raster.depth_dense_cuda(*a, kept=kept)
+    kd0 = raster.depth_dense_cuda(*a)
+    pd = raster.depth_dense_plain(*a)
+    keep = raster.tile_slot_keep(*a[:4], w, h, 128, tile_h, bounds, "edge")
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(kd), _bits(pd)) and torch.equal(_bits(kd0), _bits(kd))
+    assert torch.equal(kept, keep.sum(1).int())
+    _check_kept_share(kept, a[1], a[3], covering, atlas)
+    assert (kd > 0).float().mean().item() > 0.05

@@ -15,12 +15,15 @@ torch.profiler and prints the wall time per step, the device's busy time
 (kernel and copy time, and its share of the wall time), the host and
 device time of each stage (physics, instance matrices, and the render's
 main raster, csm_render, csm_resolve, hbao, sky_lighting, oit, refraction,
-sorted, trans_depth and post) and the
+sorted, trans_depth and post; device time counts the hand kernels, see
+`stage_times`) and the
 operators with the most device time; the profiler adds host overhead to
 every launch. `--trace` also writes a Chrome trace.
 """
 
 import argparse
+import bisect
+import collections
 import statistics
 import subprocess
 import sys
@@ -28,6 +31,39 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+
+def stage_times(prof, names):
+    """{name: (host ns, device ns)} summed over every occurrence of each
+    named record_function range. A range's device time is that of the
+    kernels and copies whose launch (a `cuda*` or `cu*` API call) starts
+    inside it, matched to the launch by CUPTI's correlation id. The
+    profiler's own `device_time_total` follows the operator tree instead,
+    and so misses every kernel launched outside a PyTorch operator, as the
+    port's hand kernels are (through ctypes)."""
+    from torch.autograd import DeviceType
+    events = prof.profiler.kineto_results.events()
+    dev_ns = collections.Counter()
+    for e in events:
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            dev_ns[e.correlation_id()] += e.duration_ns()
+    launches = sorted((e.start_ns(), dev_ns[e.correlation_id()]) for e in events
+                      if e.device_type() == DeviceType.CPU and e.name().startswith("cu")
+                      and e.correlation_id() in dev_ns)
+    starts = [t for t, _ in launches]
+    prefix = [0]
+    for _, ns in launches:
+        prefix.append(prefix[-1] + ns)
+    out = {}
+    for e in events:
+        if (e.device_type() != DeviceType.CPU or not e.is_user_annotation()
+                or e.name() not in names):
+            continue
+        lo = bisect.bisect_left(starts, e.start_ns())
+        hi = bisect.bisect_right(starts, e.start_ns() + e.duration_ns())
+        host, dev = out.get(e.name(), (0, 0))
+        out[e.name()] = (host + e.duration_ns(), dev + prefix[hi] - prefix[lo])
+    return {n: out[n] for n in names if n in out}
 
 
 def main() -> int:
@@ -96,19 +132,14 @@ def main() -> int:
 
     # device time of each stage: the kernels and copies launched inside the
     # stage's range; the rest of the wall time the device sits idle
-    events = prof.events()
+    stages = stage_times(prof, ("physics", "instances", "render", "raster",
+                                "csm_render", "csm_resolve", "hbao", "sky_lighting",
+                                "oit", "refraction", "sorted", "trans_depth", "post"))
     busy_ms = 0.0
     lines = []
     # the render's own ranges (deferred.DeferredRenderer.render) nest in it
-    for name in ("physics", "instances", "render", "raster", "csm_render",
-                 "csm_resolve", "hbao", "sky_lighting", "oit", "refraction", "sorted",
-                 "trans_depth", "post"):
-        ranges = [e for e in events if e.name == name
-                  and e.device_type == torch.autograd.DeviceType.CPU]
-        if not ranges:
-            continue
-        ms = sum(r.device_time_total for r in ranges) / 1e3 / args.steps
-        host = sum(r.time_range.elapsed_us() for r in ranges) / 1e3 / args.steps
+    for name, (host_ns, dev_ns) in stages.items():
+        ms, host = dev_ns / 1e6 / args.steps, host_ns / 1e6 / args.steps
         if name in ("physics", "instances", "render"):
             busy_ms += ms
         indent = "  " if name not in ("physics", "instances", "render") else ""
