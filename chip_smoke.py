@@ -11,7 +11,8 @@ toolkit, and it imports nothing of JAX. Phases, each of which must pass:
 3. build the combined step at full size: 10,240 bodies, 1920x1080, the
    first slice's pass set (`SLICE_OVERRIDES`);
 4. compare the raster_shade kernel (K1) with its plain PyTorch version on
-   the inputs of one real combined step;
+   the inputs of one real combined step: tri_id, depth and barycentrics in
+   every bit, the G-buffer planes within TOL_GBUF;
 5. run 5 such steps (K1 once per step, a real frame, finite bodies); 5b:
    one small step on the card against the same step on the CPU;
 6. time K1 (the card's time in it, and one call from an idle card), its
@@ -23,46 +24,51 @@ b. on one real flagship atlas: depth_super (K2) and depth_grid (K3, on
    occupied tiles against max_active_tiles; depth_dense (K4) on the dense
    corner binning of the same casters, which must equal the split result;
 c. run 5 flagship steps: K1, K2 and K3 launch once per step; a real frame
-   with shadows and AO; finite bodies;
+   with shadows and AO; finite bodies; K1 against its plain version on
+   the last step's inputs, as in phase 4;
 d. render one frame with the reference-parity shadows (ShadowConfig()):
    K4 launches once and equals its plain version, which equals itself
    masked by raster.tile_slot_keep; K4's bound at that shape;
 e. a small flagship step on the card against the same step on the CPU;
-f. time K2, K3, K4 against their plain versions and the flagship's stages,
-   render and step;
+f. time K2, K3, K4 against their plain versions, K1 at the flagship's
+   shape, and the flagship's stages, render and step;
 then the glass step (`box_materials=GLASS_BOXES`, `GLASS_OVERRIDES`): the
 flagship frame with OIT, refractive and sorted boxes, trans-depth and the
 translucent shadow map, at full size:
 g. build the glass step;
-h. on one real glass frame's inputs, each exactly against its plain
-   version: the visibility kernel (K5), the sorted_blend kernel (K6) on
-   the sorted pass and on the translucent atlas tint, the OIT kernel (K7),
-   and depth_dense (K4) on the translucent casters' atlas and at
-   trans-depth's screen tiles (K4 and K6 in every bit); the plain K4 and
-   K6 masked by raster.tile_slot_keep equal the unmasked ones bit for bit;
-   on the translucent atlas the cull keeps under 10% of the scanned slots;
+h. on one real glass frame's inputs, each in every bit against its plain
+   version: K1 (its G-buffer within TOL_GBUF), the visibility kernel (K5),
+   the sorted_blend kernel (K6) on the sorted pass and on the translucent
+   atlas tint, the OIT kernel (K7), and depth_dense (K4) on the translucent
+   casters' atlas and at trans-depth's screen tiles; every plain version
+   masked by raster.tile_slot_keep equals the unmasked one bit for bit; on
+   the translucent atlas the cull keeps under 10% of the scanned slots;
 i. run 5 glass steps: K1, K2, K3, K5 and K7 launch once per step, K4 and
    K6 twice; a real frame whose OIT, refraction, trans-depth and
    translucent shadow map each drew something; finite bodies;
 j. a small glass step on the card against the same step on the CPU;
-k. time K4, K5, K6 and K7 at the glass step's shapes against their plain
-   versions, the non-opaque stages, the glass render and the glass step.
+k. time K1 at the glass step's shape, and K4, K5, K6 and K7 there against
+   their plain versions, the non-opaque stages, the glass render and the
+   glass step.
 
-Wherever K4 and K6 run in phases b, d and h, they also write their
-per-tile `kept` counts (the slots that pass their exact cull), which must
-equal the row sums of `raster.tile_slot_keep`, the cull's plain twin: a
-redesign that culled nothing would fail there.
+Every kernel but K2 and K3 culls its slots exactly. Wherever K1, K4, K5,
+K6 and K7 are checked (phases 4, b, c, d and h), they also write their
+per-tile (K1, K5, K7: per row band) `kept` counts (the slots that pass
+their cull), which must equal the row sums of `raster.tile_slot_keep`
+(over `raster.band_args` or `oit.band_lists` for the banded kernels), the
+cull's plain twin: a redesign that culled nothing would fail there.
 
 The line before the last is a JSON object describing each kernel (its
 launches on its main path, max |d| against its plain version, its device
 time, one call of the plain version, and the bound: the least time the card could take
 for the same work, from the work these inputs need: the (slot, pixel)
 pairs that hold a triangle, after early exits, and the record rows the
-lists name, each once; for K4 and K6 only the pairs that tile_slot_keep
-keeps, which alone can change a pixel, plus the cull's own operations,
-the lists' used slots and, for K6, the opaque depth of the tiles that
-keep a slot, with the count before the cull (every scanned pair)
-beside it as `bound_ms_full`);
+lists name, each once; for the culled kernels only the pairs that
+tile_slot_keep keeps, which alone can change a pixel, plus the cull's own
+operations (for K4, K6 and K7 also the lists' used slots and, for K6
+and K7, the opaque depth of the tiles or bands that keep a slot; K7's
+operations split by where they are needed, OPS_OIT_*), with the count
+before the cull (every scanned pair) beside it as `bound_ms_full`);
 the last line is `{"ok": true, "device": {...}}`. Any failure exits
 non-zero before those lines are printed.
 """
@@ -90,9 +96,7 @@ KERNELS = {   # name -> (route, source, the TPU kernel it replaces)
             "garden_tpu/render/oit.py:31"),
 }
 SOURCES = ["raster_shade", "depth_raster", "blend_raster"]
-TOL_TRI_AGREE = 0.999      # fraction of pixels whose tri_id must agree
-TOL_VIS = 1e-5             # depth, b0, b1 where the ids agree
-TOL_GBUF = 2e-5            # G-buffer planes (rsqrt may differ by an ulp)
+TOL_GBUF = 2e-5            # K1's G-buffer planes (rsqrt may differ by an ulp)
 N_BODIES, WIDTH, HEIGHT = 10240, 1920, 1080
 
 # The bound of a kernel: the larger of its float32 operations over the
@@ -111,7 +115,15 @@ HBM_RATE = 3.35e12
 # select 1, four accumulations 7 and the reveal 2 (K7) -> 50. K1 also
 # finishes the G-buffer, ~60 operations a pixel.
 OPS_EDGE, OPS_RECT, OPS_BLEND, OPS_OIT, OPS_SHADE = 22, 4, 45, 50, 60
-# The cull of K4 and K6 (csrc/cull.cuh), per scanned slot that names a
+# K7's least work splits that count by where it is needed: each kept slot
+# forms three column shares (px - xa)(yc - ya) of 3 operations, three edge
+# deltas and 1 - alpha once a column of its band (13); each kept (slot,
+# pixel) pair the three edges from them, 3 each, and their three tests
+# (12); only a pair whose pixel is inside the triangle the depth 8, the two
+# depth tests, the weight 6, its select, the four accumulations 7 and the
+# reveal's select and multiply 2 (26).
+OPS_OIT_COLUMN, OPS_OIT_EDGE, OPS_OIT_INSIDE = 13, 12, 26
+# The cull of K1 and K4-K7 (csrc/cull.cuh), per scanned slot that names a
 # triangle: vertex form three edges of 12 (2 coefficient subtracts, 2 sign
 # tests, 2 corner selects, 2 subtracts, 2 multiplies, 1 subtract, the < 0
 # test) = 36; edge form four corner values of 8 and 5 more (two < 0 tests,
@@ -213,36 +225,59 @@ def kept_pairs(keep, width: int, height: int, tile: int, tile_h: int) -> int:
     return int((keep.sum(1) * px).sum())
 
 
+def kept_columns(keep, width: int, tile: int) -> int:
+    """The (slot, column) pairs of the kept slots of a band grid `tile`
+    pixels wide: each band's kept slots times its columns inside the
+    frame."""
+    import torch
+    tiles_x = -(-width // tile)
+    tx = torch.arange(keep.shape[0], device=keep.device) % tiles_x
+    return int((keep.sum(1) * (width - tx * tile).clamp(max=tile)).sum())
+
+
 def named_slots(tile_tris, counts, big_list) -> int:
-    """The (tile, slot) pairs that a culled kernel (K4, K6) tests: each
-    tile's used slots that name a triangle and the big list's triangles."""
+    """The (tile, slot) pairs that a culled kernel tests: each tile's used
+    slots that name a triangle and the big list's triangles."""
     return (int(used_slots(tile_tris, counts).sum())
             + int((big_list >= 0).sum()) * tile_tris.shape[0])
 
 
-def keep_of(args, form: str):
-    """raster.tile_slot_keep's mask for the arguments of blend_cuda (form
-    "vertex") or depth_dense_cuda ("edge")."""
-    from garden_tpu_torch.render import raster
-    geo = args[6:11] if form == "vertex" else args[5:10]
-    return raster.tile_slot_keep(*args[:4], *geo, form)
+def cull_args(args, kind: str) -> tuple:
+    """The arguments of raster.tile_slot_keep (records, lists, counts, big
+    list, width, height, tile, tile_h, rects, form) that give the cull of a
+    kernel called with `args`: blend_cuda ("blend"), depth_dense_cuda
+    ("depth"), raster_shade_cuda ("shade"), visibility_cuda ("visibility")
+    or oit_cuda ("oit"); the last three cull per row band, so their rows
+    are bands (raster.band_args, oit.band_lists)."""
+    from garden_tpu_torch.render import oit, raster
+    if kind == "oit":
+        lists, counts = oit.band_lists(*args[1:3], *args[4:7])
+        return (args[0], lists, counts, lists[0, :0], *args[4:7],
+                oit.band_rows(args[6]), (), "vertex")
+    return {"blend": lambda: (*args[:4], *args[6:11], "vertex"),
+            "depth": lambda: (*args[:4], *args[5:10], "edge"),
+            "shade": lambda: (args[0], *raster.band_args(args)[2:9], (), "edge"),
+            "visibility": lambda: (*raster.band_args(args)[:8], (), "edge")}[kind]()
 
 
-def run_kept(fn, args, form: str, name: str):
+def run_kept(fn, args, kind: str, name: str):
     """fn(*args, kept=...) on the card; checks that the kernel's per-tile
-    kept counts equal tile_slot_keep's row sums exactly and prints the
-    share of the scanned slots kept; -> (output, keep mask, kept slots,
-    named slots)."""
+    (or per-band) kept counts equal tile_slot_keep's row sums exactly and
+    prints the share of the scanned slots kept; -> (output, keep mask,
+    kept slots, named slots)."""
     import torch
-    kept = torch.full((args[1].shape[0],), -1, dtype=torch.int32, device=args[1].device)
+    from garden_tpu_torch.render import raster
+    ca = cull_args(args, kind)
+    keep = raster.tile_slot_keep(*ca)
+    kept = torch.full((keep.shape[0],), -1, dtype=torch.int32, device=keep.device)
     out = fn(*args, kept=kept)
-    keep = keep_of(args, form)
     same = torch.equal(kept, keep.sum(1).int())
-    n_kept, n_named = int(keep.sum()), named_slots(*args[1:4])
+    n_kept, n_named = int(keep.sum()), named_slots(*ca[1:4])
     per_tile = keep.sum(1)
+    unit = "band" if kind in ("oit", "shade", "visibility") else "tile"
     print(f"{name}: the cull keeps {n_kept} of {n_named} scanned slots "
-          f"({n_kept / max(n_named, 1):.4f}; at most {int(per_tile.max())} in a tile, "
-          f"none in {int((per_tile == 0).sum())} of {per_tile.numel()} tiles); "
+          f"({n_kept / max(n_named, 1):.4f}; at most {int(per_tile.max())} in a {unit}, "
+          f"none in {int((per_tile == 0).sum())} of {per_tile.numel()} {unit}s); "
           f"kernel kept == tile_slot_keep: {same}")
     check(same, f"{name}: the kernel's kept counts differ from tile_slot_keep")
     return out, keep, n_kept, n_named
@@ -271,6 +306,37 @@ def atlas_inputs(step, mats):
     planes, _ = mesh.transform_triangle_planes(step.scene, mats)
     light, _ = step.renderer.shadow_light(step.constants)
     return step.renderer.cascade_inputs(step.scene, planes, light)
+
+
+def glass_kernel_args(step, state):
+    """The kernels' inputs on one real glass frame, after one physics step
+    of `state`, built as the frame builds them -> (args, light, hdr): args
+    maps "raster_shade" (K1), "visibility" (K5), "sorted" and "atlas_tint"
+    (K6), "oit" (K7), "depth_atlas" and "trans_depth" (K4) to the
+    positional arguments of their wrappers; light and hdr are the frame's
+    shadow light and opaque HDR."""
+    from garden_tpu_torch.render import csm, oit, raster
+    rend, scene, const = step.renderer, step.scene, step.constants
+    mats = step.instance_matrices(step.physics(state["physics"]))
+    geo, vis, g = rend.gbuffer_pass(scene, mats, const)
+    light, splits = rend.shadow_light(const)
+    atlas, trans = rend.shadow_atlas(scene, geo["planes"], light)
+    shadow = rend.shadow_factor(g, const, atlas, light, splits, trans)
+    hdr = rend.shade(g, const, shadow, rend.ambient_occlusion(g, const))
+    _, tkw = rend.cascade_inputs(scene, geo["planes"], light)
+    args = {
+        "raster_shade": raster.kernel_args(**rend.raster_inputs(scene, mats, const)),
+        "visibility": raster.visibility_args(**rend.refraction_inputs(scene, geo, const)),
+        "sorted": raster.blend_args(**rend.sorted_inputs(scene, geo, const, vis["depth"],
+                                                         hdr)),
+        "atlas_tint": raster.blend_args(**csm.translucent_tint_inputs(
+            tkw, rend.caster_tint(scene), atlas)),
+        "oit": oit.oit_args(**rend.oit_inputs(scene, geo, const, vis["depth"])),
+        "depth_atlas": raster.depth_args(**tkw)["dense"],
+        "trans_depth": raster.depth_args(**rend.trans_depth_inputs(
+            scene, geo, const))["dense"],
+    }
+    return args, light, hdr
 
 
 def bound(ops: float, moved: int) -> dict:
@@ -322,6 +388,77 @@ def negative_zeros(x) -> int:
     return int(((x == 0) & torch.signbit(x)).sum())
 
 
+def check_raster_shade(args, name: str):
+    """K1 on `args` against its plain version: tri_id, depth, b0 and b1 in
+    every bit, the G-buffer planes within TOL_GBUF; its kept counts against
+    tile_slot_keep (run_kept); the plain version masked by that mask equal
+    to the unmasked one in every bit. -> (vis, planes, keep, named slots,
+    max |d| of the G-buffer)."""
+    import torch
+    from garden_tpu_torch.render import raster
+    (vis_k, gp_k), keep, _, n_named = run_kept(raster.raster_shade_cuda, args, "shade",
+                                               f"{name}: raster_shade (K1)")
+    vis_p, gp_p = raster.raster_shade_plain(*args)
+    vis_m, gp_m = raster.raster_shade_plain(*raster.band_args(args), keep=keep)
+    torch.cuda.synchronize()
+    bits = {k: same_bits(vis_k[k], vis_p[k]) for k in ("tri_id", "depth", "b0", "b1")}
+    err_gbuf = max_diff(gp_k, gp_p)
+    masked = all(same_bits(vis_m[k], vis_p[k]) for k in vis_p) and same_bits(gp_m, gp_p)
+    covered = (vis_k["tri_id"] >= 0).float().mean().item()
+    print(f"{name}: raster_shade vs plain at {args[5]}x{args[6]}: same bits {bits}, "
+          f"max|d| gbuffer {err_gbuf:.3g} (<= {TOL_GBUF}), covered {covered:.4f}; "
+          f"masked plain == plain: {masked}; big list {int((args[4] >= 0).sum())} of "
+          f"{args[4].numel()} slots used")
+    check(all(bits.values()), f"{name}: raster_shade differs from its plain version")
+    check(err_gbuf <= TOL_GBUF, f"{name}: raster_shade G-buffer planes disagree")
+    check(masked, f"{name}: the plain raster_shade masked by tile_slot_keep differs "
+                  "from the unmasked one")
+    return vis_k, gp_k, keep, n_named, err_gbuf
+
+
+def raster_shade_bounds(args, vis, planes, keep, n_named):
+    """(bound, bound_full) of raster_shade on `args` with outputs vis and
+    planes: the operations of the (slot, pixel) pairs that tile_slot_keep
+    keeps on the kernel's band grid, the cull's own per named slot of each
+    band and the G-buffer finish per pixel; bound_full, the count before
+    the cull, every scanned pair. Bytes: the named edge records, the
+    lists, the winners' shading records and the outputs."""
+    from garden_tpu_torch.render import raster
+    pairs, ids = raster_work(*args[2:9])
+    moved = (input_bytes(args[0], ids, *args[2:5]) + input_bytes(args[1], vis["tri_id"])
+             + nbytes(*vis.values(), planes))
+    finish = args[5] * args[6] * OPS_SHADE
+    return (bound(kept_pairs(keep, *raster.band_args(args)[5:9]) * OPS_EDGE
+                  + n_named * OPS_CULL_EDGE + finish, moved),
+            bound(pairs * OPS_EDGE + finish, moved))
+
+
+def oit_bounds(args, out, keep, n_named: int, inside: int):
+    """(bound, bound_full) of the OIT kernel on `args` with outputs `out`
+    and the band mask `keep` (oit.band_keep). bound: the column shares of
+    each kept (band, slot), the edges of each kept pair, the rest only on
+    the `inside` pairs whose pixel is inside the triangle (oit_plain's
+    `work`), and the cull's own per named slot; bytes: the named records,
+    the lists' used slots, the outputs and the opaque depth of the bands
+    that keep a slot (a band that keeps none stores accum 0 and reveal 1).
+    bound_full, the count before the cull: every scanned pair at OPS_OIT,
+    the lists and the opaque depth whole. The merged list's holes add
+    exactly zero: no work."""
+    from garden_tpu_torch.render import oit
+    records, tile_tris, counts, opaque, width, height, tile = args
+    rows = oit.band_rows(tile)
+    pairs, ids = raster_work(tile_tris, counts, None, width, height, tile, tile)
+    px = frame_pixels(keep.shape[0], width, height, tile, rows, keep.device)
+    moved = (input_bytes(records, ids) + list_bytes(tile_tris, counts, tile_tris[0, :0])
+             + opaque.element_size() * int(px[keep.any(1)].sum()) + nbytes(*out))
+    ops = (kept_columns(keep, width, tile) * OPS_OIT_COLUMN
+           + kept_pairs(keep, width, height, tile, rows) * OPS_OIT_EDGE
+           + inside * OPS_OIT_INSIDE + n_named * OPS_CULL_VERTEX)
+    return (bound(ops, moved),
+            bound(pairs * OPS_OIT, input_bytes(records, ids, tile_tris, counts, opaque)
+                  + nbytes(*out)))
+
+
 def small_step_vs_cpu(build, overrides, phase: str, box_materials=None) -> None:
     """One 32-body 256x128 step on the card and on the CPU: tri_id on >=
     99.9% of pixels, the image within 2 levels on >= 99.5%, bodies within
@@ -358,7 +495,7 @@ def main() -> int:
     from garden_tpu_torch.core.config import ShadowConfig
     from garden_tpu_torch.entry import (DENSE_SHADOW_OVERRIDES, GLASS_BOXES,
                                         GLASS_OVERRIDES, SLICE_OVERRIDES, build)
-    from garden_tpu_torch.render import csm, oit, raster
+    from garden_tpu_torch.render import oit, raster
 
     # phase 2: build the kernels, every source at once
     t0 = time.perf_counter()
@@ -380,22 +517,7 @@ def main() -> int:
     kin = step.renderer.raster_inputs(step.scene, step.instance_matrices(phys),
                                       step.constants)
     args = raster.kernel_args(**kin)
-    vis_k, gp_k = raster.raster_shade_cuda(*args)
-    vis_p, gp_p = raster.raster_shade_plain(*args)
-    torch.cuda.synchronize()
-    same = vis_k["tri_id"] == vis_p["tri_id"]
-    agree = same.float().mean().item()
-    err_vis = max((vis_k[k] - vis_p[k]).abs()[same].max().item()
-                  for k in ("depth", "b0", "b1"))
-    err_gbuf = (gp_k - gp_p).abs()[:, same].max().item()
-    covered = (vis_k["tri_id"] >= 0).float().mean().item()
-    print(f"phase 4: raster_shade vs plain at 1920x1080: tri_id agreement "
-          f"{agree:.7f} (>= {TOL_TRI_AGREE}), max|d| depth/b0/b1 {err_vis:.3g} "
-          f"(<= {TOL_VIS}), max|d| gbuffer {err_gbuf:.3g} (<= {TOL_GBUF}), "
-          f"covered {covered:.4f}")
-    check(agree >= TOL_TRI_AGREE, "raster_shade tri_id disagrees with plain")
-    check(err_vis <= TOL_VIS, "raster_shade depth/barycentrics disagree")
-    check(err_gbuf <= TOL_GBUF, "raster_shade G-buffer planes disagree")
+    vis_k, gp_k, keep1, named1, err_gbuf = check_raster_shade(args, "phase 4")
 
     # phase 5: 5 combined steps of the slice, counting kernel launches
     raster.rasterize_visibility_shaded.launches = 0
@@ -431,15 +553,13 @@ def main() -> int:
                      ("physics step", phys_ms), ("slice render", render_ms),
                      ("slice combined step", step_ms)):
         print(f"phase 6: {name} median {ms:.4f} ms  [{card}]")
-    pairs1, ids1 = raster_work(*args[2:9])
-    k1_bound = bound(pairs1 * OPS_EDGE + WIDTH * HEIGHT * OPS_SHADE,
-                     input_bytes(args[0], ids1, *args[2:5])
-                     + input_bytes(args[1], vis_k["tri_id"])
-                     + nbytes(*vis_k.values(), gp_k))
-    del step, state, st, out, args, kin, vis_k, gp_k, vis_p, gp_p
-    results = {"raster_shade": dict(launches=launches,
-                                    max_abs_err=max(err_vis, err_gbuf),
-                                    ms=k_dev, plain_ms=p_ms, **k1_bound)}
+    k1_bound, k1_full = raster_shade_bounds(args, vis_k, gp_k, keep1, named1)
+    print(f"phase 6: raster_shade bound {k1_bound} (full: every scanned pair "
+          f"{k1_full})")
+    del step, state, st, out, args, kin, vis_k, gp_k, keep1
+    results = {"raster_shade": dict(launches=launches, max_abs_err=err_gbuf,
+                                    ms=k_dev, plain_ms=p_ms, **k1_bound,
+                                    bound_ms_full=k1_full["bound_ms"])}
 
     # phase a: the flagship step, no overrides
     t0 = time.perf_counter()
@@ -483,7 +603,7 @@ def main() -> int:
           f"{int(sup_counts.max())} of 64")
     dense = raster.depth_args(setup, d_tiles, d_counts, d_big, atlas_w, atlas_h, 128,
                               din["atlas_bounds"], din["tri_atlas"], th)["dense"]
-    k4_flag, _, _, _ = run_kept(raster.depth_dense_cuda, dense, "edge",
+    k4_flag, _, _, _ = run_kept(raster.depth_dense_cuda, dense, "depth",
                                 "phase b: depth_dense (K4) on the flagship atlas")
     torch.cuda.synchronize()
     split_vs_dense = max_diff(k4_flag, k3)
@@ -508,6 +628,11 @@ def main() -> int:
     check(counts["raster_shade"] == 5 and counts["depth_super"] == 5
           and counts["depth_grid"] == 5 and counts["depth_dense"] == 0,
           "the flagship step did not run K1, K2 and K3 once per step")
+    fargs = raster.kernel_args(**rend.raster_inputs(
+        fstep.scene, fstep.instance_matrices(fst["physics"]), fstep.constants))
+    *out_f, err_gbuf_f = check_raster_shade(fargs, "phase c")
+    print(f"phase c: raster_shade bound (and full) {raster_shade_bounds(fargs, *out_f)}")
+    del out_f
     check(tuple(fimage.shape) == (HEIGHT, WIDTH, 3) and fimage.dtype == torch.uint8,
           f"flagship image is {tuple(fimage.shape)} {fimage.dtype}")
     fout = fstep.render(fstep.instance_matrices(fst["physics"]), fst["frame"])
@@ -532,7 +657,7 @@ def main() -> int:
     torch.cuda.synchronize()
     k4_launches = raster.depth_dense.launches
     dargs = raster.depth_args(**atlas_inputs(dstep, dmats)[0])["dense"]
-    k4, keep_d, _, named_d = run_kept(raster.depth_dense_cuda, dargs, "edge",
+    k4, keep_d, _, named_d = run_kept(raster.depth_dense_cuda, dargs, "depth",
                                       "phase d: depth_dense (K4) on the dense-shadow atlas")
     work_d, work_dk = [0], [0]
     p4 = raster.depth_dense_plain(*dargs, work=work_d)
@@ -579,6 +704,8 @@ def main() -> int:
                                      reps=3),
         "depth_dense kernel, device, flagship atlas": kernel_ms(
             lambda: raster.depth_dense_cuda(*dense)),
+        "raster_shade kernel, device, flagship": kernel_ms(
+            lambda: raster.raster_shade_cuda(*fargs)),
     }
     fmats = fstep.instance_matrices(fst["physics"])
     fgeo, fvis, g = rend.gbuffer_pass(fstep.scene, fmats, fstep.constants)
@@ -623,6 +750,7 @@ def main() -> int:
                 + 8 * act_px))
     err4_all = max(err4, split_vs_dense)
     del fstep, fstate, fst, fout, dstep, dstate, dout, k2, p2, k3, p3, k4, p4, dense
+    del fargs
     del fgeo, fvis, g, atlas, shadow, ao, hdr
 
     # phase g: the glass step at full size
@@ -639,33 +767,29 @@ def main() -> int:
 
     # phase h: K5, K6, K7 and K4 against their plain versions on one real
     # glass frame's inputs
-    gmats = gstep.instance_matrices(gstep.physics(gstate["physics"]))
-    geo, gvis, gg = grend.gbuffer_pass(gscene, gmats, gconst)
-    light, splits = grend.shadow_light(gconst)
-    gatlas, gtrans = grend.shadow_atlas(gscene, geo["planes"], light)
-    gshadow = grend.shadow_factor(gg, gconst, gatlas, light, splits, gtrans)
-    gao = grend.ambient_occlusion(gg, gconst)
-    ghdr = grend.shade(gg, gconst, gshadow, gao)
-    vargs = raster.visibility_args(**grend.refraction_inputs(gscene, geo, gconst))
-    sargs = raster.blend_args(**grend.sorted_inputs(gscene, geo, gconst, gvis["depth"],
-                                                    ghdr))
-    _, tkw = grend.cascade_inputs(gscene, geo["planes"], light)
-    aargs = raster.blend_args(**csm.translucent_tint_inputs(
-        tkw, grend.caster_tint(gscene), gatlas))
-    oargs = oit.oit_args(**grend.oit_inputs(gscene, geo, gconst, gvis["depth"]))
-    d4 = {"atlas": raster.depth_args(**tkw)["dense"],
-          "trans_depth": raster.depth_args(**grend.trans_depth_inputs(
-              gscene, geo, gconst))["dense"]}
-    kv, pv = raster.visibility_cuda(*vargs), raster.visibility_plain(*vargs)
-    ks, keep_s, _, _ = run_kept(raster.blend_cuda, sargs, "vertex",
+    ga, light, ghdr = glass_kernel_args(gstep, gstate)
+    gargs, vargs, sargs, aargs, oargs = (ga[k] for k in (
+        "raster_shade", "visibility", "sorted", "atlas_tint", "oit"))
+    d4 = {"atlas": ga["depth_atlas"], "trans_depth": ga["trans_depth"]}
+    *out_g, err_gbuf_g = check_raster_shade(gargs, "phase h")
+    print(f"phase h: raster_shade bound (and full) {raster_shade_bounds(gargs, *out_g)}")
+    del out_g
+    kv, keep5, _, named5 = run_kept(raster.visibility_cuda, vargs, "visibility",
+                                    "phase h: visibility (K5)")
+    pv = raster.visibility_plain(*vargs)
+    pv_keep = raster.visibility_plain(*raster.band_args(vargs), keep=keep5)
+    ks, keep_s, _, _ = run_kept(raster.blend_cuda, sargs, "blend",
                                 "phase h: sorted_blend (K6), sorted pass")
-    ka, keep_a, kept_a, named_a = run_kept(raster.blend_cuda, aargs, "vertex",
+    ka, keep_a, kept_a, named_a = run_kept(raster.blend_cuda, aargs, "blend",
                                            "phase h: sorted_blend (K6), atlas tint")
     ps, pa = raster.blend_plain(*sargs), raster.blend_plain(*aargs)
-    ko, po = oit.oit_cuda(*oargs), oit.oit_plain(*oargs)
+    ko, keep7, _, named7 = run_kept(oit.oit_cuda, oargs, "oit", "phase h: oit (K7)")
+    inside7 = [0]
+    po = oit.oit_plain(*oargs, work=inside7)
+    po_keep = oit.oit_plain(*oargs, keep=keep7)
     # the plain K4 counts its (slot, pixel) pairs after early exits, over
     # the scanned slots (work4) and over the slots the cull keeps (work4k)
-    run4 = {k: run_kept(raster.depth_dense_cuda, a, "edge",
+    run4 = {k: run_kept(raster.depth_dense_cuda, a, "depth",
                         f"phase h: depth_dense (K4), {k}") for k, a in d4.items()}
     k4g = {k: r[0] for k, r in run4.items()}
     work4, work4k = {k: [0] for k in d4}, {k: [0] for k in d4}
@@ -676,7 +800,9 @@ def main() -> int:
     pa_keep = raster.blend_plain(*aargs, keep=keep_a)
     torch.cuda.synchronize()
     check(same_bits(ps_keep, ps) and same_bits(pa_keep, pa)
-          and all(same_bits(p4k[k], p4g[k]) for k in d4),
+          and all(same_bits(p4k[k], p4g[k]) for k in d4)
+          and all(same_bits(pv_keep[k], pv[k]) for k in pv)
+          and all(same_bits(a, b) for a, b in zip(po_keep, po)),
           "a plain version masked by tile_slot_keep differs from the unmasked one")
     for name, (n_kept, n_named) in (("sorted_blend atlas tint", (kept_a, named_a)),
                                     ("depth_dense translucent atlas", run4["atlas"][2:])):
@@ -684,14 +810,18 @@ def main() -> int:
               f"{name}: the cull keeps {n_kept} of {n_named} slots, not under 10%")
     same5 = torch.equal(kv["tri_id"], pv["tri_id"])
     err5 = max(max_diff(kv[k], pv[k]) for k in ("depth", "b0", "b1"))
+    bits5 = all(same_bits(kv[k], pv[k]) for k in pv)
     err6 = {"sorted": max_diff(ks, ps), "atlas": max_diff(ka, pa)}
     err7 = max(max_diff(ko[0], po[0]), max_diff(ko[1], po[1]))
     err4g = {k: max_diff(k4g[k], p4g[k]) for k in d4}
-    # K4 and K6 must match their plain versions in every bit: a culled slot
-    # would turn a -0.0 destination into +0.0 in the plain version (the
-    # cull's precondition), which a comparison of values cannot see
-    bits = {"sorted_blend sorted pass": same_bits(ks, ps),
+    # the culled kernels must match their plain versions in every bit: a
+    # culled slot would turn a -0.0 destination into +0.0 in the plain
+    # version (the cull's precondition), which a comparison of values
+    # cannot see
+    bits = {"visibility": bits5,
+            "sorted_blend sorted pass": same_bits(ks, ps),
             "sorted_blend atlas tint": same_bits(ka, pa),
+            "oit accum": same_bits(ko[0], po[0]), "oit reveal": same_bits(ko[1], po[1]),
             **{f"depth_dense {k}": same_bits(k4g[k], p4g[k]) for k in d4}}
     print(f"phase h: visibility (K5) vs plain at 1920x1080: tri_id equal {same5}, "
           f"max|d| depth/b0/b1 {err5}; refraction covers "
@@ -703,10 +833,8 @@ def main() -> int:
     print(f"phase h: same bits as the plain version: {bits}; -0.0 in the "
           f"destination: sorted pass {negative_zeros(sargs[5])}, atlas tint "
           f"{negative_zeros(aargs[5])}")
-    check(same5 and err5 == 0.0, "visibility disagrees with its plain version")
-    check(err7 == 0.0, "oit disagrees with its plain version")
-    check(all(bits.values()), "sorted_blend or depth_dense differs from its plain "
-          f"version in some bit: {bits}")
+    check(all(bits.values()), f"a culled kernel differs from its plain version in "
+          f"some bit: {bits}")
 
     # phase i: 5 glass steps, counting every kernel's launches
     wrappers = {"raster_shade": raster.rasterize_visibility_shaded,
@@ -748,7 +876,8 @@ def main() -> int:
 
     # phase k: timings at the glass step's shapes (medians; kernels also by
     # their device time)
-    gt = {}
+    gt = {"raster_shade: kernel, device": kernel_ms(
+        lambda: raster.raster_shade_cuda(*gargs))}
     for name, fn, plain in (
             ("visibility", lambda: raster.visibility_cuda(*vargs),
              lambda: raster.visibility_plain(*vargs)),
@@ -785,12 +914,19 @@ def main() -> int:
     for name, ms in gt.items():
         print(f"phase k: {name} median {ms:.4f} ms  [{card}]")
 
+    results["raster_shade"]["max_abs_err"] = max(err_gbuf, err_gbuf_f, err_gbuf_g)
+    # K1, K5 and K7: the operations of the (slot, pixel) pairs that the cull
+    # keeps plus the cull's own per named slot; bytes as before the cull.
+    # bound_ms_full counts every scanned pair
     pairs5, ids5 = raster_work(*vargs[1:8])
+    moved5 = input_bytes(vargs[0], ids5, *vargs[1:4]) + nbytes(*kv.values())
     results["visibility"] = dict(
         launches=glaunch["visibility"], max_abs_err=err5,
         ms=gt["visibility: kernel, device"], plain_ms=gt["visibility: plain"],
-        **bound(pairs5 * OPS_EDGE,
-                input_bytes(vargs[0], ids5, *vargs[1:4]) + nbytes(*kv.values())))
+        **bound(kept_pairs(keep5, *raster.band_args(vargs)[4:8]) * OPS_EDGE
+                + named5 * OPS_CULL_EDGE,
+                moved5),
+        bound_ms_full=bound(pairs5 * OPS_EDGE, moved5)["bound_ms"])
     # K4 and K6: the operations of the (slot, pixel) pairs that the cull
     # keeps (a culled pair cannot change a pixel) plus the cull's own per
     # scanned slot; K6's bytes: the named records, the lists' used slots,
@@ -817,12 +953,12 @@ def main() -> int:
         bound_ms=b6[0]["bound_ms"] + b6[1]["bound_ms"],
         bound_by=max(b6, key=lambda b: b["bound_ms"])["bound_by"],
         bound_ms_full=b6_full[0]["bound_ms"] + b6_full[1]["bound_ms"])
-    # the merged list's holes (sentinel slots) add exactly zero: no work
-    pairs7, ids7 = raster_work(oargs[1], oargs[2], None, *oargs[4:7], oargs[6])
+    b7, b7_full = oit_bounds(oargs, ko, keep7, named7, inside7[0])
     results["oit"] = dict(
         launches=glaunch["oit"], max_abs_err=err7, ms=gt["oit: kernel, device"],
-        plain_ms=gt["oit: plain"],
-        **bound(pairs7 * OPS_OIT, input_bytes(oargs[0], ids7, *oargs[1:4]) + nbytes(*ko)))
+        plain_ms=gt["oit: plain"], **b7, bound_ms_full=b7_full["bound_ms"])
+    print(f"phase k: oit bound {b7} (full {b7_full}): {inside7[0]} inside pairs of "
+          f"{kept_pairs(keep7, *oargs[4:7], oit.band_rows(oargs[6]))} kept")
     b4, b4_full = zip(*(dense_bounds(a, k4g[k], work4[k][0], work4k[k][0], run4[k][3])
                         for k, a in d4.items()))
     results["depth_dense"] = dict(

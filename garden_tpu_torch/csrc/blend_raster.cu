@@ -37,13 +37,13 @@
 // (blend) or ~50 (OIT); with -fmad=false every counted operation is one
 // instruction, while the card's 67 TFLOP/s counts an FMA as two, so a
 // design that keeps the operation count reaches at most ~50% of an
-// operations bound. The OIT is bound by that ALU work. The blend is not,
-// once its cull skips the work that cannot change a pixel: on the
-// translucent shadow map (3072 tiles of 128x16, every tile scanning all 64
-// big casters) few (slot, tile) pairs can reach the tile, and what is left
-// is bytes: the RGB destination read once, the result written once, and
-// the opaque depth only of the tiles that keep a slot (~154 MB at
-// 3072x2048).
+// operations bound. Past that only skipping work helps, so both cull the
+// slots that cannot change a pixel. The blend is then no longer bound by
+// ALU work: on the translucent shadow map (3072 tiles of 128x16, every tile
+// scanning all 64 big casters) few (slot, tile) pairs can reach the tile,
+// and what is left is bytes: the RGB destination read once, the result
+// written once, and the opaque depth only of the tiles that keep a slot
+// (~154 MB at 3072x2048).
 //
 // What sorted_blend does about it. One block of 256 threads per row band
 // of 2048 pixels (a 128x16 atlas tile is one band, a 128x32 main-view tile
@@ -75,13 +75,40 @@
 // Preconditions of the cull's exactness: finite colours and no -0.0 in
 // the destination (a culled slot would have added c * 0).
 //
-// What oit does. One block of 256 threads per row band of 16 pixels a
-// thread (its 128x128 tiles split into four 128x32 bands that read the
-// same list); accumulators (5 floats) in registers for the whole walk, so
-// a pixel's destination is written once. The tile's records are staged
-// once into shared memory; every thread reads the same record at the same
-// time (a broadcast); sentinel slots are walked (their all-zero record adds
-// exactly zero, as the reference's loop does).
+// What oit does. Its merged lists put the whole 64-slot big list, holes
+// included, in front of every tile's own list (up to 320 slots), and a
+// 128x128 tile binned by bounding boxes holds many slots that miss most of
+// it. One block of 256 threads per row band of 1024 pixels (a 128x128 tile
+// is sixteen 128x8 bands that read the same list), kOitPixels = 4 rows of
+// one column a thread: the bands that keep the most slots end the launch,
+// and small bands spread them over more SMs (on the H100, 128x32, 128x16
+// and 128x8 bands ran 0.155, 0.071 and 0.067 ms; PERF.md).
+// 1. A band wholly below the frame returns at once (at 1080p, 135 band rows
+//    of 144).
+// 2. The cull per band, one thread a slot of [0, count), exactly (cull.cuh,
+//    vertex form, no rects): a hole (id < 0) is dropped, and so is a slot
+//    whose edge stays < 0 at the band's corner pixel centres. Survivors are
+//    compacted into shared memory IN LIST ORDER (warp ballots and a block
+//    prefix sum): float sums are not associative, so the accumulation order
+//    is the result. `kept` (optional, one int a band of the band grid)
+//    receives the survivor count.
+//    Why the result is unchanged. A culled slot is not visible at any pixel
+//    of the band, so it adds c * 0 to sums that start at +0.0 and can never
+//    become -0.0 (round to nearest gives x + (-x) = +0.0), which leaves
+//    them as they are for a finite colour c, and multiplies reveal by 1. A
+//    hole's all-zero record has alpha 0, so even where it is visible it
+//    adds exactly zero and multiplies by 1: that is why the plain version's
+//    walk over holes and the kernel's skip agree.
+// 3. A band with no survivor stores accum 0 and reveal 1, the plain
+//    version's result there, without reading its opaque depth. Otherwise the
+//    band's opaque depth comes into shared memory, and each thread walks the
+//    survivors with its accumulators (5 floats a pixel) in registers, so a
+//    pixel's destination is written once; per slot, the column's share of
+//    each edge, fl(fl(px - xa) fl(yb - ya)), is computed once (the same
+//    product, so the same value). A warp holds 32 pixels of one row: where
+//    none of them is inside the triangle (a warp vote), the rest of the
+//    pair's work is skipped, for the same reason a culled slot changes
+//    nothing. Four blocks share an SM.
 
 #include <cuda_runtime.h>
 
@@ -98,18 +125,7 @@ constexpr int kBlock = 16;
 constexpr int kMaxRects = 8;
 constexpr int kMaxSlots = 1024;          // sorted_blend: n_big + cap
 constexpr int kBlendPixels = 8;          // sorted_blend pixels a thread
-constexpr int kOitPixels = 16;           // OIT pixels a thread (5 accumulators each)
-
-// Stage slots [0, n) of `ids` (the sentinel row t_count where -1) into
-// shared memory, 16 floats a slot.
-__device__ void stage(const float* __restrict__ records, const int* ids, int n,
-                      int t_count, float* s_rec) {
-  for (int i = threadIdx.x; i < n * kRec; i += kThreads) {
-    const int t = ids[i / kRec];
-    const int row = t >= 0 ? t : t_count;
-    s_rec[i] = records[(size_t)row * kRec + i % kRec];
-  }
-}
+constexpr int kOitPixels = 4;            // OIT pixels a thread (5 accumulators each)
 
 // -- copies of the band's image rows into shared memory: the Tensor Memory
 // Accelerator's bulk copy, completing on an mbarrier, where rows are
@@ -380,56 +396,115 @@ sorted_blend_kernel(const float* __restrict__ records,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// One block per row band of 1024 pixels (n_sub bands a tile), kOitPixels
+// rows of one column a thread; four blocks resident per SM (at most 64
+// registers).
+__global__ void __launch_bounds__(kThreads, 4)
 oit_kernel(const float* __restrict__ records, const int* __restrict__ tile_tris,
            const int* __restrict__ counts,
-           const float* __restrict__ opaque_depth, int cap, int t_count,
-           int tiles_x, int tile, int width, int height, int n_sub,
-           float* __restrict__ accum, float* __restrict__ reveal_out) {
-  extern __shared__ float smem[];          // [cap][16] records
+           const float* __restrict__ opaque_depth, int cap, int tiles_x,
+           int tile, int width, int height, int n_sub,
+           float* __restrict__ accum, float* __restrict__ reveal_out,
+           int* __restrict__ kept) {
+  // dynamic smem: the band's opaque depth [1024], then the survivors'
+  // records [<= cap][16]
+  extern __shared__ float smem[];
+  __shared__ int s_warp[kWarps];
+  constexpr int P = kOitPixels;
+  float* s_opq = smem;
+  float* s_rec = smem + kThreads * P;
   const int t_idx = blockIdx.x / n_sub;
   const int band = blockIdx.x % n_sub;
   const int tx = t_idx % tiles_x;
   const int ty = t_idx / tiles_x;
   const int band_h = tile / n_sub;
+  const int brow = ty * n_sub + band;          // the band's row of the band grid
+  // 1. nothing of a band wholly below the frame is stored
+  if (brow * band_h >= height) return;
+
+  // 2. the cull over the band, one thread a slot, survivors in list order
   const int n_scan = min(counts[t_idx], cap);
-  stage(records, tile_tris + (size_t)t_idx * cap, n_scan, t_count, smem);
-  __syncthreads();
+  const cull::Corners corners = cull::tile_corners(tx, brow, tile, band_h);
+  int n_keep = 0;
+  for (int s0 = 0; s0 < n_scan; s0 += kThreads) {
+    const int s = s0 + threadIdx.x;
+    const int id = s < n_scan ? tile_tris[(size_t)t_idx * cap + s] : -1;
+    float d[16];
+    int flags = 0;
+    if (id >= 0) {
+      cull::load_record(records, id, d);
+      flags = cull::vertex_flags(d, corners, nullptr, 0);
+    }
+    int total;
+    const int pos = n_keep + cull::block_prefix<kWarps>(flags != 0, s_warp, &total);
+    if (flags) {
+#pragma unroll
+      for (int k = 0; k < kRec; ++k) s_rec[pos * kRec + k] = d[k];
+    }
+    n_keep += total;
+  }
+  if (kept != nullptr && threadIdx.x == 0) kept[brow * tiles_x + tx] = n_keep;
 
   const int col = threadIdx.x % tile;
   const int row0 = band * band_h + threadIdx.x / tile;
   const int row_step = kThreads / tile;
-  const float px = (float)(tx * tile) + 0.5f + (float)col;
   const int x = tx * tile + col;
-  constexpr int P = kOitPixels;
-  float opq[P], acc_r[P], acc_g[P], acc_b[P], acc_w[P], rev[P];
+  const int y_top = ty * tile + row0;           // this thread's first row
+  // 3. without a survivor, the plain version's sums stay +0.0 and reveal 1
+  if (n_keep == 0) {
+    if (x >= width) return;
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const int y = y_top + i * row_step;
+      if (y >= height) continue;
+      const size_t o = (size_t)y * width + x;
+      reinterpret_cast<float4*>(accum)[o] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      reveal_out[o] = 1.0f;
+    }
+    return;
+  }
+  // past the frame the opaque depth pads with 2.0: nothing passes
 #pragma unroll
   for (int i = 0; i < P; ++i) {
-    const int y = ty * tile + row0 + i * row_step;
-    // past the frame the opaque depth pads with 2.0: nothing passes
-    opq[i] = (x < width && y < height) ? opaque_depth[(size_t)y * width + x] : 2.0f;
+    const int y = y_top + i * row_step;
+    s_opq[threadIdx.x + i * kThreads] =
+        (x < width && y < height) ? opaque_depth[(size_t)y * width + x] : 2.0f;
+  }
+  __syncthreads();
+
+  const float px = (float)(tx * tile) + 0.5f + (float)col;
+  const float py0 = (float)(ty * tile) + 0.5f + (float)row0;
+  const float* opq = s_opq + threadIdx.x;
+  float acc_r[P], acc_g[P], acc_b[P], acc_w[P], rev[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
     acc_r[i] = 0.0f;
     acc_g[i] = 0.0f;
     acc_b[i] = 0.0f;
     acc_w[i] = 0.0f;
     rev[i] = 1.0f;
   }
-
-  for (int s = 0; s < n_scan; ++s) {
-    const float* d = smem + s * kRec;
+  for (int s = 0; s < n_keep; ++s) {
+    const float* d = s_rec + s * kRec;
     const float x0 = d[0], y0 = d[1], x1 = d[2], y1 = d[3], x2 = d[4], y2 = d[5];
     const float z0 = d[6], z1 = d[7], z2 = d[8], inv_area = d[9];
     const float cr = d[10], cg = d[11], cb = d[12], alpha = d[13];
     const float pass = 1.0f - alpha;
+    const float u0 = (px - x1) * (y2 - y1);
+    const float u1 = (px - x2) * (y0 - y2);
+    const float u2 = (px - x0) * (y1 - y0);
+    const float w0 = x2 - x1, w1 = x0 - x2, w2 = x1 - x0;
 #pragma unroll
     for (int i = 0; i < P; ++i) {
-      const float py = (float)(ty * tile) + 0.5f + (float)(row0 + i * row_step);
-      const float e0 = (px - x1) * (y2 - y1) - (py - y1) * (x2 - x1);
-      const float e1 = (px - x2) * (y0 - y2) - (py - y2) * (x0 - x2);
-      const float e2 = (px - x0) * (y1 - y0) - (py - y0) * (x1 - x0);
+      const float py = py0 + (float)(i * row_step);
+      const float e0 = u0 - (py - y1) * w0;
+      const float e1 = u1 - (py - y2) * w1;
+      const float e2 = u2 - (py - y0) * w2;
+      const bool inside = e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f;
+      // a warp row with no pixel inside would add c * 0 and multiply by 1
+      if (!__any_sync(0xffffffffu, inside)) continue;
       const float z = e0 * inv_area * z0 + e1 * inv_area * z1 + e2 * inv_area * z2;
-      const bool vis = e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && z >= opq[i] &&
-                       z <= 1.0f;
+      const bool vis = inside && z >= opq[i * kThreads] && z <= 1.0f;
       const float wgt = fminf(fmaxf(z * z * 10.0f + 0.01f, 0.01f), 30.0f) * alpha;
       const float wv = vis ? wgt : 0.0f;
       acc_r[i] = acc_r[i] + cr * wv;
@@ -440,15 +515,14 @@ oit_kernel(const float* __restrict__ records, const int* __restrict__ tile_tris,
     }
   }
 
+  if (x >= width) return;
 #pragma unroll
   for (int i = 0; i < P; ++i) {
-    const int y = ty * tile + row0 + i * row_step;
-    if (x >= width || y >= height) continue;
+    const int y = y_top + i * row_step;
+    if (y >= height) continue;
     const size_t o = (size_t)y * width + x;
-    accum[o * 4 + 0] = acc_r[i];
-    accum[o * 4 + 1] = acc_g[i];
-    accum[o * 4 + 2] = acc_b[i];
-    accum[o * 4 + 3] = acc_w[i];
+    reinterpret_cast<float4*>(accum)[o] = make_float4(acc_r[i], acc_g[i], acc_b[i],
+                                                      acc_w[i]);
     reveal_out[o] = rev[i];
   }
 }
@@ -470,7 +544,10 @@ cudaError_t prepare(K kernel, int smem) {
 // tile_w * tile_h / bands * 16 + (n_big + cap) * 64 bytes; `kept` (one int
 // a tile, or null) receives each tile's surviving slots.
 // oit: `n_sub` is the row bands a tile splits into, one thread block each
-// (tile * tile == 256 * 16 * n_sub). tile_w divides 256.
+// (tile * tile == 1024 * n_sub); tile divides 256; `smem` is at least
+// 4096 + cap * 64 bytes; accum is 16-byte aligned; `kept` (one int for each band of the band grid,
+// ceil(height / band_h) rows of tiles_x, or null) receives each band's
+// surviving slots.
 extern "C" int sorted_blend_launch(
     const float* records, const int* tile_tris, const int* counts,
     const int* big_list, const float* opaque_depth, const float* hdr, int cap,
@@ -501,17 +578,18 @@ extern "C" int sorted_blend_launch(
 
 extern "C" int oit_launch(const float* records, const int* tile_tris,
                           const int* counts, const float* opaque_depth, int cap,
-                          int t_count, int n_tiles, int tiles_x, int tile,
-                          int width, int height, int n_sub, float* accum,
-                          float* reveal, int smem, void* stream) {
-  if (tile * tile != kThreads * kOitPixels * n_sub || tile % n_sub != 0 ||
-      kThreads % tile != 0)
+                          int n_tiles, int tiles_x, int tile, int width,
+                          int height, int n_sub, float* accum, float* reveal,
+                          int* kept, int smem, void* stream) {
+  if (n_sub < 1 || tile * tile != kThreads * kOitPixels * n_sub || tile % n_sub != 0 ||
+      kThreads % tile != 0 || smem < (kThreads * kOitPixels + cap * kRec) * 4 ||
+      (reinterpret_cast<uintptr_t>(accum) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = prepare(oit_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   oit_kernel<<<n_tiles * n_sub, kThreads, smem, s>>>(
-      records, tile_tris, counts, opaque_depth, cap, t_count, tiles_x, tile,
-      width, height, n_sub, accum, reveal);
+      records, tile_tris, counts, opaque_depth, cap, tiles_x, tile, width,
+      height, n_sub, accum, reveal, kept);
   return (int)cudaGetLastError();
 }

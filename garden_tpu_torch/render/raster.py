@@ -404,13 +404,15 @@ def _tile_coords(tiles: Tensor, tiles_x: int, tile: int, th: int):
 
 def _scan_visibility(edge: Tensor, tile_tris: Tensor, big_list: Tensor,
                      width: int, height: int, tile: int, tile_h: int,
-                     max_elems: int):
+                     max_elems: int, keep: Tensor = None):
     """The visibility scan of the raster kernels' plain versions: every
     tile takes the shared big list, then its own list, in 16-slot blocks
     with the BITREV16 tie order. Tiles run in chunks whose (tiles, slots,
     pixels) temporaries stay under `max_elems` elements; yields per chunk
     (tiles, px, py, vis) with vis the (chunk, pixels) depth, tri_id, b0,
-    b1 and the winning record row `row` (the sentinel where empty)."""
+    b1 and the winning record row `row` (the sentinel where empty). With
+    `keep` (tiles, big + cap) bool, only the slots it marks are
+    candidates."""
     dev = edge.device
     tiles_x, _, n_tiles = _grid(width, height, tile, tile_h)
     t_count = edge.shape[0] - 1
@@ -418,6 +420,8 @@ def _scan_visibility(edge: Tensor, tile_tris: Tensor, big_list: Tensor,
     lists = torch.cat([big_list[None, :].expand(n_tiles, -1), tile_tris], dim=1)
     pad = (-lists.shape[1]) % TRI_BLOCK
     lists = torch.nn.functional.pad(lists, (0, pad), value=-1)
+    if keep is not None:
+        keep = torch.nn.functional.pad(keep, (0, pad), value=False)
     n_slots = lists.shape[1]
     safe = torch.where(lists >= 0, lists, t_count).long()
     # scan rank of each slot: blocks in order, bit-reversed inside a block
@@ -441,6 +445,8 @@ def _scan_visibility(edge: Tensor, tile_tris: Tensor, big_list: Tensor,
         z = d[:, :, 10] + w0 * d[:, :, 11] + w1 * d[:, :, 12]
         cand = ((e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (z <= 1.0) & (z > 0.0)
                 & (d[:, :, 14] >= 0.0))
+        if keep is not None:
+            cand = cand & keep[tiles][:, :, None]
         zc = torch.where(cand, z, torch.zeros_like(z))
         best = torch.amax(zc, dim=1)                    # (nt, n_px)
         tie = cand & (zc == best[:, None, :])
@@ -460,16 +466,20 @@ def _scan_visibility(edge: Tensor, tile_tris: Tensor, big_list: Tensor,
 def raster_shade_plain(edge: Tensor, shade: Tensor, tile_tris: Tensor,
                        counts: Tensor, big_list: Tensor, width: int,
                        height: int, tile: int, tile_h: int,
-                       max_elems: int = 1 << 23
+                       max_elems: int = 1 << 23, keep: Tensor = None
                        ) -> Tuple[Dict[str, Tensor], Tensor]:
     """The plain PyTorch version of the raster_shade kernel (same inputs,
-    same tie rule); `shade` has a zero sentinel row."""
+    same tie rule); `shade` has a zero sentinel row. With `keep` (tiles,
+    big + cap) bool, only the slots it marks are candidates: with
+    `tile_slot_keep(..., form="edge")`'s mask the result is the same, on
+    these tiles or on the kernel's band grid (`band_args`), which the
+    tests hold; the renderer never passes it."""
     tiles_x, tiles_y, n_tiles = _grid(width, height, tile, tile_h)
     n_px = tile_h * tile
     out = _empty_vis(n_tiles, n_px, edge.device)
     planes = torch.zeros((GBUF_PLANES, n_tiles, n_px), device=edge.device)
     for tiles, px, py, vis in _scan_visibility(edge, tile_tris, big_list, width,
-                                               height, tile, tile_h, max_elems):
+                                               height, tile, tile_h, max_elems, keep):
         for k in out:
             out[k][tiles] = vis[k]
         rec = shade[vis["row"]]                         # (nt, n_px, REC)
@@ -488,14 +498,16 @@ def _empty_vis(n_tiles: int, n_px: int, dev) -> Dict[str, Tensor]:
 
 def visibility_plain(edge: Tensor, tile_tris: Tensor, counts: Tensor,
                      big_list: Tensor, width: int, height: int, tile: int,
-                     tile_h: int, max_elems: int = 1 << 23) -> Dict[str, Tensor]:
+                     tile_h: int, max_elems: int = 1 << 23,
+                     keep: Tensor = None) -> Dict[str, Tensor]:
     """The plain PyTorch version of the visibility kernel: raster_shade's
     scan without the shading; the big list and the tile lists come padded
-    to 16-slot blocks (`visibility_args`)."""
+    to 16-slot blocks (`visibility_args`). `keep` as in
+    `raster_shade_plain`."""
     tiles_x, tiles_y, n_tiles = _grid(width, height, tile, tile_h)
     out = _empty_vis(n_tiles, tile_h * tile, edge.device)
     for tiles, _, _, vis in _scan_visibility(edge, tile_tris, big_list, width,
-                                             height, tile, tile_h, max_elems):
+                                             height, tile, tile_h, max_elems, keep):
         for k in out:
             out[k][tiles] = vis[k]
     return {k: _tiles_to_image(v, tiles_y, tiles_x, tile_h, tile, height, width)
@@ -517,6 +529,9 @@ def _check(name: str, x: Tensor, dtype: torch.dtype, shape: tuple, device,
 
 _THREADS = 256
 _MAX_SMEM = 232448     # per-block shared memory limit on Hopper
+# pixels of one block of the raster_shade and visibility kernels (256
+# threads of 4, csrc kPixels): a tile runs as row bands of this many
+RASTER_BAND = 1024
 
 
 def _ptr(x: Tensor):
@@ -533,15 +548,18 @@ def _call(fn, argtypes, kernel: str, *args) -> None:
 
 def raster_shade_cuda(edge: Tensor, shade: Tensor, tile_tris: Tensor,
                       counts: Tensor, big_list: Tensor, width: int,
-                      height: int, tile: int, tile_h: int
+                      height: int, tile: int, tile_h: int, kept: Tensor = None
                       ) -> Tuple[Dict[str, Tensor], Tensor]:
     """Launch the raster_shade CUDA kernel (csrc/raster_shade.cu); same
-    inputs and outputs as `raster_shade_plain`."""
+    inputs and outputs as `raster_shade_plain`. With `kept` (bands,) int32
+    on the grid of its row bands, the kernel also writes each band's number
+    of slots that pass its cull (the row sums of `tile_slot_keep(...,
+    form="edge")` over `band_args`)."""
     from garden_tpu_torch import cuda_build
 
     dev, tiles_x, n_tiles, smem = _raster_checks(
         "raster_shade", edge, tile_tris, counts, big_list, width, height, tile,
-        tile_h, 36)
+        tile_h, kept)
     _check("shade", shade, torch.float32, (edge.shape[0], shade.shape[1]), dev)
     if shade.shape[1] < 36:
         raise ValueError("raster_shade: shading records need >= 36 channels")
@@ -549,23 +567,51 @@ def raster_shade_cuda(edge: Tensor, shade: Tensor, tile_tris: Tensor,
     planes = torch.empty((GBUF_PLANES, height, width), device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _call(cuda_build.load("raster_shade").raster_shade_launch,
-          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 6,
+          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 7,
           "raster_shade",
           _ptr(edge), _ptr(shade), _ptr(tile_tris), _ptr(counts), _ptr(big_list),
-          big_list.shape[0], tile_tris.shape[1], edge.shape[0] - 1, shade.shape[1],
+          big_list.shape[0], tile_tris.shape[1], shade.shape[1],
           n_tiles, tiles_x, tile, tile_h, width, height, smem,
           *[_ptr(vis[k]) for k in ("depth", "tri_id", "b0", "b1")], _ptr(planes),
-          ctypes.c_void_p(stream))
+          _kept_ptr(kept), ctypes.c_void_p(stream))
     rasterize_visibility_shaded.launches += 1
     return vis, planes
 
 
+def band_lists(tile_tris: Tensor, counts: Tensor, width: int, height: int, tile: int,
+               tile_h: int, rows: int) -> Tuple[Tensor, Tensor]:
+    """The tile lists on the grid of the row bands, `rows` pixel rows tall,
+    that a kernel runs each `tile` x `tile_h` tile as: ceil(height / rows)
+    band rows by tiles_x, each band taking its tile's list and count ->
+    (lists (bands, C), counts (bands,)). Bands wholly below the frame
+    store nothing and are not in the grid."""
+    dev = tile_tris.device
+    tiles_x, _, _ = _grid(width, height, tile, tile_h)
+    _, bands_y, _ = _grid(width, height, tile, rows)
+    band_tile = torch.arange(bands_y, device=dev) * rows // tile_h
+    idx = (band_tile[:, None] * tiles_x + torch.arange(tiles_x, device=dev)[None, :])
+    return tile_tris[idx.reshape(-1)].contiguous(), counts[idx.reshape(-1)].contiguous()
+
+
+def band_args(args: tuple) -> tuple:
+    """The arguments of raster_shade_plain or visibility_plain (`args`, as
+    `kernel_args` or `visibility_args` give them) on the grid of their
+    kernels' row bands of RASTER_BAND pixels (`band_lists`): the same
+    result, each band scanning its tile's slots. `tile_slot_keep(...,
+    form="edge")` over them is the kernels' cull, and its row sums their
+    `kept`."""
+    *head, tile_tris, counts, big_list, width, height, tile, tile_h = args
+    rows = RASTER_BAND // tile
+    return (*head, *band_lists(tile_tris, counts, width, height, tile, tile_h, rows),
+            big_list, width, height, tile, rows)
+
+
 def _raster_checks(kernel: str, edge: Tensor, tile_tris: Tensor, counts: Tensor,
                    big_list: Tensor, width: int, height: int, tile: int,
-                   tile_h: int, rec_floats: int):
+                   tile_h: int, kept: Tensor):
     """Checks shared by the raster_shade and visibility wrappers; -> (device,
-    tiles_x, n_tiles, shared-memory bytes for the tile's list with
-    `rec_floats` shading floats a slot)."""
+    tiles_x, n_tiles, shared-memory bytes for the tile's surviving slots:
+    the edge record and the triangle id)."""
     dev = edge.device
     if dev.type != "cuda":
         raise ValueError(f"{kernel}_cuda needs CUDA tensors, got {dev}")
@@ -575,12 +621,13 @@ def _raster_checks(kernel: str, edge: Tensor, tile_tris: Tensor, counts: Tensor,
     _check("tile_tris", tile_tris, torch.int32, (n_tiles, cap), dev, kernel)
     _check("counts", counts, torch.int32, (n_tiles,), dev, kernel)
     _check("big_list", big_list, torch.int32, (n_big,), dev, kernel)
-    n_px = tile * tile_h
-    if n_px % _THREADS or (n_px // _THREADS) not in (4, 8, 16, 32, 64):
+    if _THREADS % tile or (tile * tile_h) % RASTER_BAND:
         raise ValueError(f"{kernel}: a {tile}x{tile_h} tile is not a kernel "
-                         f"shape (pixels per thread must be 4..64)")
+                         f"shape (the width must divide {_THREADS} and the "
+                         f"pixels be a multiple of {RASTER_BAND})")
+    _check_kept(kept, _grid(width, height, tile, RASTER_BAND // tile)[2], dev, kernel)
     n_slots = -(-(n_big + cap) // TRI_BLOCK) * TRI_BLOCK
-    smem = n_slots * (EDGE_WIDTH + rec_floats + 1) * 4
+    smem = n_slots * (EDGE_WIDTH + 1) * 4
     if smem > _MAX_SMEM:
         raise ValueError(f"{kernel}: {n_slots} list slots need {smem} bytes "
                          "of shared memory")
@@ -624,12 +671,8 @@ def rasterize_visibility_shaded(setup: Dict[str, Tensor], shade_records: Tensor,
     launches."""
     args = kernel_args(setup, shade_records, tile_tris, counts, big_list,
                        width, height, tile, tile_h)
-    edge = args[0]
-    if edge.device.type == "cuda":
-        return raster_shade_cuda(*args)
-    if edge.device.type == "cpu":
-        return raster_shade_plain(*args)
-    raise ValueError(f"rasterize_visibility_shaded: no path for device {edge.device}")
+    return _on_device("rasterize_visibility_shaded", args[0], raster_shade_cuda,
+                      raster_shade_plain)(*args)
 
 
 rasterize_visibility_shaded.launches = 0
@@ -639,27 +682,27 @@ rasterize_visibility_shaded.launches = 0
 
 def visibility_cuda(edge: Tensor, tile_tris: Tensor, counts: Tensor,
                     big_list: Tensor, width: int, height: int, tile: int,
-                    tile_h: int) -> Dict[str, Tensor]:
+                    tile_h: int, kept: Tensor = None) -> Dict[str, Tensor]:
     """Launch the visibility kernel (csrc/raster_shade.cu, raster_shade's
-    scan without its shading phase); same inputs and outputs as
-    `visibility_plain`."""
+    scan and cull without its shading phase); same inputs and outputs as
+    `visibility_plain`; `kept` as in `raster_shade_cuda`."""
     from garden_tpu_torch import cuda_build
 
     dev, tiles_x, n_tiles, smem = _raster_checks(
         "visibility", edge, tile_tris, counts, big_list, width, height, tile,
-        tile_h, 0)
+        tile_h, kept)
     if big_list.shape[0] % TRI_BLOCK or tile_tris.shape[1] % TRI_BLOCK:
         raise ValueError("visibility: lists must have 16k slots")
     vis = _vis_outputs(height, width, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _call(cuda_build.load("raster_shade").visibility_launch,
-          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 5,
+          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 6,
           "visibility",
           _ptr(edge), _ptr(tile_tris), _ptr(counts), _ptr(big_list),
-          big_list.shape[0], tile_tris.shape[1], edge.shape[0] - 1, n_tiles,
+          big_list.shape[0], tile_tris.shape[1], n_tiles,
           tiles_x, tile, tile_h, width, height, smem,
           *[_ptr(vis[k]) for k in ("depth", "tri_id", "b0", "b1")],
-          ctypes.c_void_p(stream))
+          _kept_ptr(kept), ctypes.c_void_p(stream))
     rasterize_visibility.launches += 1
     return vis
 
@@ -784,7 +827,7 @@ def blend_plain(records: Tensor, tile_tris: Tensor, counts: Tensor,
 
 
 def _blend_pixels(kernel: str, tile: int, tile_h: int, allowed: tuple) -> int:
-    """Pixels a thread owns in a tile of the blend or OIT kernel, one of
+    """Pixels a thread owns in a tile of the sorted_blend kernel, one of
     `allowed`: the tile's width must divide the block's 256 threads."""
     n_px = tile * tile_h
     p = n_px // _THREADS
@@ -1092,7 +1135,7 @@ def depth_dense_plain(records: Tensor, tile_tris: Tensor, counts: Tensor,
                            tiles_x * tile)
 
 
-# -- the exact per-tile slot cull of sorted_blend and depth_dense -------------
+# -- the exact per-tile slot cull of the raster kernels ------------------------
 #
 # Rounding to nearest is monotone, so each edge function, evaluated with the
 # kernels' own float operations in their order, is monotone in px and in py
@@ -1100,7 +1143,10 @@ def depth_dense_plain(records: Tensor, tile_tris: Tensor, counts: Tensor,
 # Its largest value over a tile's pixel centres is that same expression at
 # one corner centre: where it is < 0, the slot covers no pixel of the tile
 # and cannot change it (the blend adds c * 0 to o * 1, the depth max takes
-# max(d, 0) with d >= 0). A NaN corner value keeps the slot.
+# max(d, 0) with d >= 0, the OIT adds c * 0 to sums that are never -0.0 and
+# multiplies reveal by 1, and the nearest-hit raster never makes the slot a
+# candidate, so no winner changes, ties included). A NaN corner value keeps
+# the slot.
 
 
 def _tile_corners(n_tiles: int, tiles_x: int, tile: int, tile_h: int, dev):
@@ -1134,15 +1180,19 @@ def _edge_extreme(a, b, c, x_lo, x_hi, y_lo, y_hi, largest: bool) -> Tensor:
 def tile_slot_keep(records: Tensor, lists: Tensor, counts: Tensor, big_list: Tensor,
                    width: int, height: int, tile: int, tile_h: int,
                    atlas_bounds: tuple = (), form: str = "vertex") -> Tensor:
-    """The cull of the sorted_blend (form "vertex", `pack_blend_records`)
-    and depth_dense (form "edge", `_pack_edge_records`) kernels: (tiles,
-    big + cap) bool over each tile's scanned slots (the big list's used
-    16-slot blocks, then the tile's own blocks, as the kernels scan them),
-    True where the slot names a triangle that may reach a pixel centre of
-    the tile: no edge's largest value over the tile is < 0 (for e2 of the
-    edge form, S - min e0 - min e1 bounds it) and, with atlas rects, the
-    tile meets the record's rect. The kernels' `kept` output is its row
-    sums; `blend_plain` and `depth_dense_plain` take it as `keep`."""
+    """The cull of the sorted_blend and oit kernels (form "vertex",
+    `pack_blend_records`, `oit.pack_oit_records`; oit on its band grid,
+    `oit.band_keep`) and of depth_dense, raster_shade and visibility (form
+    "edge", `_pack_edge_records`; the last two on their band grid,
+    `band_args`): (tiles, big + cap) bool over each
+    tile's scanned slots (the big list's used 16-slot blocks, then the
+    tile's own blocks; raster_shade scans the whole big list, whose holes
+    are -1 and come last, so with a 16k-slot big list the named slots are
+    the same), True where the slot names a triangle that may reach a pixel
+    centre of the tile: no edge's largest value over the tile is < 0 (for
+    e2 of the edge form, S - min e0 - min e1 bounds it) and, with atlas
+    rects, the tile meets the record's rect. The kernels' `kept` output is
+    its row sums; their plain versions take it as `keep`."""
     tiles_x, _, n_tiles = _grid(width, height, tile, tile_h)
     dev = records.device
     t_count = records.shape[0] - 1

@@ -1,5 +1,6 @@
-"""The exact per-tile slot cull of the sorted_blend (K6) and depth_dense
-(K4) kernels, on the CPU.
+"""The exact per-tile slot cull of the sorted_blend (K6), depth_dense
+(K4), raster_shade (K1), visibility (K5) and OIT (K7, per row band)
+kernels, on the CPU.
 
 `raster.tile_slot_keep` marks the scanned slots whose triangle may reach a
 pixel centre of the tile, from the kernels' own float expressions at one
@@ -14,6 +15,15 @@ list whose early exit fires after a block that the cull emptied, and on a
 real glass frame at 256x128. Colours are finite and the destination holds
 no -0.0, the cull's preconditions. On the glass inputs the mask must also
 prune: fewer (slot, pixel) pairs than `chip_smoke.raster_work` counts.
+
+K1 and K5 keep the first of equal depths in the bit-reversed scan order;
+their tests add exact ties across a culled slot of the same 16-slot block
+and edges exactly 0 at a tile's corner centre, and check that the slots K1
+scans are those tile_slot_keep scans. Their kernels cull per row band
+(`raster.band_args`): the plain rasters on that band grid, masked, equal
+the unmasked ones on the tiles. K7's cull works on the OIT kernel's
+band grid (`oit.band_keep`): its tests add big-list holes and big triangles
+that each lie in a few rows, so most of a tile's bands cull them.
 """
 
 import numpy as np
@@ -23,7 +33,7 @@ import torch
 import chip_smoke
 from garden_tpu_torch.core.config import ShadowConfig
 from garden_tpu_torch.entry import GLASS_BOXES, GLASS_OVERRIDES, build
-from garden_tpu_torch.render import csm, raster
+from garden_tpu_torch.render import csm, oit, raster
 
 W, H = 264, 72                 # ragged: the last tile column and row are partial
 BOUNDS = ((0.0, 128.0, 0.0, 48.0), (128.0, 264.0, 0.0, 32.0), (150.0, 230.0, 30.0, 72.0))
@@ -119,10 +129,12 @@ CASES = {"slivers": _slivers, "centres": _centres, "slopes": _slopes,
          "rect_borders": _rects, "far": _far}
 
 
-def _inputs(case, seed, n=120, tile=128, tile_h=16, n_big=48, cap=64):
+def _inputs(case, seed, n=120, tile=128, tile_h=16, n_big=48, cap=64,
+            compact_big=False):
     """A scene of `case` triangles and lists that name triangles whatever
-    their bounds: the big list (a hole in it) and every tile's own list
-    take triangles at random, so most slots miss most tiles."""
+    their bounds: the big list (a hole in it, moved to the end with
+    `compact_big`, as binning leaves it) and every tile's own list take
+    triangles at random, so most slots miss most tiles."""
     rng = np.random.default_rng(seed)
     pts = CASES[case](rng, n)
     z = rng.uniform(0.05, 0.95, (3, n))
@@ -132,6 +144,8 @@ def _inputs(case, seed, n=120, tile=128, tile_h=16, n_big=48, cap=64):
     nb = rng.integers(n_big // 2, n_big)
     big[:nb] = rng.permutation(n)[:nb]
     big[nb // 2] = -1
+    if compact_big:
+        big = np.concatenate([big[big >= 0], big[big < 0]])
     counts = rng.integers(0, cap + 1, n_tiles).astype(np.int32)
     lists = np.full((n_tiles, cap), -1, np.int32)
     for t in range(n_tiles):
@@ -298,3 +312,334 @@ def test_cull_prunes_the_glass_frame(glass):
         full[shape] = chip_smoke.raster_work(a[1], a[2], a[3], w, h, tile, th)[0]
         assert 0 < kept[shape] <= full[shape], shape
     assert kept["sorted"] < full["sorted"] and kept["trans_depth"] < full["trans_depth"]
+
+
+# -- K1 and K5: the nearest-hit raster, edge form, bit-reversed tie order ----
+
+def _raster_args(kernel, setup, lists, counts, big, w, h, tile, tile_h, seed=0):
+    """(arguments of the plain version, tile_slot_keep's mask) of
+    raster_shade (K1) or visibility (K5)."""
+    if kernel == "shade":
+        n = setup["valid"].shape[0]
+        rec = np.random.default_rng(seed).uniform(0, 1, (n, 36)).astype(np.float32)
+        rec[:, 32:35] += 0.4
+        a = raster.kernel_args(setup, torch.from_numpy(rec), lists, counts, big, w, h,
+                               tile, tile_h)
+        return a, raster.tile_slot_keep(a[0], *a[2:9], (), "edge")
+    a = raster.visibility_args(setup, lists, counts, big, w, h, tile, tile_h)
+    return a, raster.tile_slot_keep(*a[:8], (), "edge")
+
+
+def _raster_plain(kernel, a, keep=None):
+    """The plain version's outputs as one dict."""
+    if kernel == "shade":
+        vis, planes = raster.raster_shade_plain(*a, keep=keep)
+        return dict(vis, planes=planes)
+    return raster.visibility_plain(*a, keep=keep)
+
+
+def _assert_same_bits(out, ref):
+    assert out.keys() == ref.keys()
+    for k in ref:
+        assert torch.equal(_bits(out[k]), _bits(ref[k])), k
+
+
+@pytest.mark.parametrize("kernel", ["shade", "visibility"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_raster_cull_is_exact(case, kernel):
+    """K1's and K5's edge-form cull: the masked plain raster equals the
+    unmasked one bit for bit (tri_id, depth, barycentrics and K1's
+    G-buffer planes), and the mask culls."""
+    setup, big, lists, counts, _, _ = _inputs(case, 4, tile_h=32, n_big=32, cap=96,
+                                              compact_big=True)
+    a, keep = _raster_args(kernel, setup, lists, counts, big, W, H, 128, 32)
+    ref = _raster_plain(kernel, a)
+    _assert_same_bits(_raster_plain(kernel, a, keep), ref)
+    assert (ref["tri_id"] >= 0).any()
+    assert 0 < int(keep.sum()) < _named(lists, counts, big)
+
+
+def _square_halves(x0, y0, side, z):
+    """The two front-facing halves of an axis-aligned square with corners
+    on pixel centres, at one depth: their shared diagonal runs through
+    pixel centres, where both edges are exactly 0 and the depths tie."""
+    x1, y1 = x0 + side, y0 + side
+    return [([x0, x0, x1], [y0, y1, y0], [z] * 3),
+            ([x1, x1, x0], [y1, y0, y1], [z] * 3)]
+
+
+@pytest.mark.parametrize("kernel", ["shade", "visibility"])
+@pytest.mark.parametrize("order", ["culled_between", "culled_first"])
+def test_raster_cull_keeps_ties_and_corner_edges(kernel, order):
+    """Tile 0 (128x32 at the origin) lists, in one 16-slot block: the two
+    coplanar halves of a square (the cube face's diagonal: exact depth ties
+    on its pixel centres), duplicates of one half (ties on every pixel),
+    and triangles inside tile 1, which the cull removes for tile 0, at the
+    ranks between the halves (or before both). Another triangle has a
+    vertex on tile 0's corner centre (127.5, 31.5) and edges through it, so
+    its largest edge over tile 0 is exactly 0 and it keeps that one pixel.
+    The masked raster equals the unmasked one in every bit."""
+    a, keep, slots, n_big = _tie_scene(kernel, order)
+    culled = [s for s, t in slots.items() if 2 <= t <= 5]
+    assert not keep[0, [n_big + s for s in culled]].any()
+    assert keep[0, [n_big + s for s, t in slots.items() if t in (0, 1, 6)]].all()
+    ref = _raster_plain(kernel, a)
+    _assert_same_bits(_raster_plain(kernel, a, keep), ref)
+    tri = ref["tri_id"]
+    diag = [(34 - k, 10 + k) for k in range(1, 31)]                  # (row, col)
+    assert all(int(tri[r, c]) in (0, 1) for r, c in diag if r < 32)
+    assert int(tri[31, 127]) == 6                                    # the corner pixel
+    assert int(tri[31, 126]) == -1 and int(tri[30, 127]) == -1
+
+
+def _tie_scene(kernel, order):
+    """The scene of test_raster_cull_keeps_ties_and_corner_edges at 256x64
+    -> (plain version's arguments, tile_slot_keep's mask, {slot: triangle}
+    of tile 0's list, big-list slots)."""
+    w, h = 256, 64
+    tris = _square_halves(10.5, 2.5, 32.0, 0.5)                     # 0, 1
+    # 2-5 inside tile 1, their edge e1 on x = 130.5 + 8k (the edge form
+    # bounds e2 only loosely, so the separating edge is e1)
+    tris += [([130.5 + 8 * k, 136.5 + 8 * k, 130.5 + 8 * k], [9.5, 3.5, 3.5],
+              [0.9] * 3) for k in range(4)]
+    tris += [([127.5, 127.5, 200.5], [31.5, 80.5, 31.5], [0.7] * 3)]  # 6: corner
+    sx, sy, z = (np.array([t[i] for t in tris], np.float64).T for i in range(3))
+    setup = _setup(sx, sy, z)
+    # ranks of the block's slots: 0 -> slot 0, 1 -> 8, 2 -> 4, 3 -> 12, 4 -> 2, ...
+    slots = ({0: 1, 8: 2, 4: 3, 12: 0, 2: 0, 10: 6, 6: 4, 14: 5}
+             if order == "culled_between" else
+             {0: 2, 8: 3, 4: 4, 12: 5, 2: 1, 10: 0, 6: 0, 14: 6})
+    lists = torch.full((4, 32), -1, dtype=torch.int32)
+    for s, t in slots.items():
+        lists[0, s] = t
+    counts = torch.tensor([15, 0, 0, 0], dtype=torch.int32)
+    big = torch.full((32,), -1, dtype=torch.int32)
+    a, keep = _raster_args(kernel, setup, lists, counts, big, w, h, 128, 32)
+    n_big = a[4].shape[0] if kernel == "shade" else a[3].shape[0]
+    return a, keep, slots, n_big
+
+
+def _kernel_scan(lists, counts, big):
+    """(tiles, big + cap) bool: the slots the raster_shade kernel scans that
+    name a triangle (whole 16-slot blocks of the big list then the tile's
+    list, up to ceil16(count + n_big), as the kernel computes n_scan)."""
+    n_big, cap = big.shape[0], lists.shape[1]
+    n_slots = -(-(n_big + cap) // 16) * 16
+    n_scan = torch.clamp((counts.long() + n_big + 15) // 16 * 16, max=n_slots)
+    ids = torch.cat([big[None, :].expand(lists.shape[0], -1), lists], dim=1)
+    slot = torch.arange(n_big + cap)[None, :]
+    return (slot < n_scan[:, None]) & (ids >= 0)
+
+
+def _covering(records):
+    """Edge records that put every pixel centre inside (e0 = e1 = 1, S = 3):
+    with them tile_slot_keep marks exactly the scanned slots that name a
+    triangle."""
+    out = records.clone()
+    out[:, :9] = 0.0
+    out[:, 6:8] = 1.0
+    out[:, 9] = 3.0
+    return out
+
+
+# -- small real frames: K1 on the flagship and the glass step, K5 and K7 -----
+
+@pytest.fixture(scope="module")
+def frames():
+    """The kernels' arguments on one small flagship frame and one small
+    glass frame on the CPU: raster_shade (K1) on both, the refraction
+    pass's visibility (K5) and the OIT accumulation (K7)."""
+    shadow = ShadowConfig(resolve_step=2, cascade_sizes=(256, 128, 128),
+                          atlas_tile_h=16, atlas_foot_y=2, max_active_tiles=24)
+    out = {}
+    for name, kw in (("flagship", {}), ("glass", dict(box_materials=GLASS_BOXES))):
+        over = dict(GLASS_OVERRIDES, shadow=shadow) if kw else {"shadow": shadow}
+        step, state = build(32, 256, 128, grid_dim=8, cfg_overrides=over, device="cpu",
+                            **kw)
+        rend, scene, const = step.renderer, step.scene, step.constants
+        mats = step.instance_matrices(step.physics(state["physics"]))
+        out[f"shade_{name}"] = raster.kernel_args(**rend.raster_inputs(scene, mats, const))
+        if kw:
+            geo, vis, _ = rend.gbuffer_pass(scene, mats, const)
+            out["visibility"] = raster.visibility_args(**rend.refraction_inputs(
+                scene, geo, const))
+            out["oit"] = oit.oit_args(**rend.oit_inputs(scene, geo, const, vis["depth"]))
+    return out
+
+
+@pytest.mark.parametrize("shape", ["shade_flagship", "shade_glass", "visibility"])
+def test_raster_cull_on_small_frames(frames, shape):
+    """K1 on the flagship's and the glass step's frames and K5 on the
+    refraction pass: masked == unmasked in every bit. The slots the K1
+    kernel scans are the ones tile_slot_keep scans (its 32-slot big list
+    and 96-slot lists are whole 16-slot blocks, their holes -1 and last)."""
+    kernel = "shade" if shape.startswith("shade") else "visibility"
+    a = frames[shape]
+    lists, counts, big = (a[2:5] if kernel == "shade" else a[1:4])
+    w, h, tile, th = a[-4:]
+    records = a[0]
+    keep = raster.tile_slot_keep(records, lists, counts, big, w, h, tile, th, (), "edge")
+    ref = _raster_plain(kernel, a)
+    _assert_same_bits(_raster_plain(kernel, a, keep), ref)
+    assert (ref["tri_id"] >= 0).any()
+    scanned = raster.tile_slot_keep(_covering(records), lists, counts, big, w, h, tile,
+                                    th, (), "edge")
+    assert torch.equal(scanned, _kernel_scan(lists, counts, big))
+    assert int(keep.sum()) < int(scanned.sum())
+
+
+# -- K1 and K5 as their kernels cull: per row band of RASTER_BAND pixels ------
+
+def _band_keep(kernel, a):
+    """(the plain version's arguments on the kernels' band grid,
+    `raster.band_args`; the kernels' cull there, tile_slot_keep over
+    `chip_smoke.cull_args`)."""
+    return raster.band_args(a), raster.tile_slot_keep(*chip_smoke.cull_args(a, kernel))
+
+
+def _tile_keep_on_bands(a, keep_tile):
+    """Each band's row of its tile's mask, on the band grid of `a`."""
+    w, h, tile, th = a[-4:]
+    n = torch.zeros(keep_tile.shape[0], dtype=torch.int32)
+    return raster.band_lists(keep_tile, n, w, h, tile, th, raster.RASTER_BAND // tile)[0]
+
+
+def _tile_keep(kernel, a):
+    return raster.tile_slot_keep(*((a[0], *a[2:9]) if kernel == "shade" else a[:8]), (),
+                                 "edge")
+
+
+@pytest.mark.parametrize("kernel", ["shade", "visibility"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_raster_band_cull_is_exact(case, kernel):
+    """K1's and K5's cull as the kernels run it, per 128x8 row band of the
+    128x32 tiles: the plain raster on the band grid, masked by
+    tile_slot_keep there, equals the unmasked raster on the tiles bit for
+    bit; a band keeps only slots its tile keeps, and the bands fewer in
+    all; the grid holds no band below the frame."""
+    setup, big, lists, counts, _, _ = _inputs(case, 4, tile_h=32, n_big=32, cap=96,
+                                              compact_big=True)
+    a, keep_tile = _raster_args(kernel, setup, lists, counts, big, W, H, 128, 32)
+    b, keep = _band_keep(kernel, a)
+    assert keep.shape[0] == -(-W // 128) * -(-H // 8)
+    _assert_same_bits(_raster_plain(kernel, b, keep), _raster_plain(kernel, a))
+    tk = _tile_keep_on_bands(a, keep_tile)
+    assert not (keep & ~tk).any()
+    assert 0 < int(keep.sum()) < int(tk.sum())
+
+
+@pytest.mark.parametrize("kernel", ["shade", "visibility"])
+@pytest.mark.parametrize("order", ["culled_between", "culled_first"])
+def test_raster_band_cull_keeps_ties_and_corner_edges(kernel, order):
+    """The scene of test_raster_cull_keeps_ties_and_corner_edges on the
+    kernels' band grid: tile 0's four bands never keep the triangles inside
+    tile 1; the triangle through tile 0's corner centre (127.5, 31.5)
+    reaches only the last of them, which alone keeps it; the masked raster on
+    the bands equals the unmasked one on the tiles in every bit, ties
+    included."""
+    a, _, slots, n_big = _tie_scene(kernel, order)
+    b, keep = _band_keep(kernel, a)
+    bands0 = [2 * r for r in range(4)]            # tiles_x = 2: band rows 0-3, column 0
+    culled = [n_big + s for s, t in slots.items() if 2 <= t <= 5]
+    corner = [n_big + s for s, t in slots.items() if t == 6]
+    assert not keep[bands0][:, culled].any()
+    assert keep[bands0[3], corner].all() and not keep[bands0[:3]][:, corner].any()
+    _assert_same_bits(_raster_plain(kernel, b, keep), _raster_plain(kernel, a))
+
+
+@pytest.mark.parametrize("shape", ["shade_flagship", "shade_glass", "visibility"])
+def test_raster_band_cull_on_small_frames(frames, shape):
+    """K1 on the flagship's and the glass step's frames and K5 on the
+    refraction pass, culled per row band as the kernels cull: masked on the
+    band grid == unmasked in every bit; the bands keep only what their
+    tiles keep, and fewer."""
+    kernel = "shade" if shape.startswith("shade") else "visibility"
+    a = frames[shape]
+    b, keep = _band_keep(kernel, a)
+    _assert_same_bits(_raster_plain(kernel, b, keep), _raster_plain(kernel, a))
+    tk = _tile_keep_on_bands(a, _tile_keep(kernel, a))
+    assert not (keep & ~tk).any()
+    assert 0 < int(keep.sum()) < int(tk.sum())
+
+
+# -- K7: the OIT accumulation on the band grid --------------------------------
+
+def _oit_inputs(case, seed, tile):
+    """OIT arguments from `case` triangles on the W x H frame (the lower
+    bands of its 128x128 tiles lie below it): merged lists whose 64-slot
+    big list has holes inside and at the end and holds wide, short
+    triangles (slots 52-59, each within 9 rows), and tile lists drawn at
+    random."""
+    w, h = W, H
+    setup, big, lists, counts, _, rng = _inputs(case, seed, n=120, tile=tile,
+                                                tile_h=tile, n_big=64, cap=48)
+    n = setup["valid"].shape[0]
+    # 8 band-bound big triangles appended to the scene
+    y0 = rng.choice([4.5, 36.5, 52.5], 8) + rng.uniform(0, 3, 8)
+    x0 = rng.uniform(-20, w - 60, 8)
+    band = np.stack([np.stack([x0, x0 + 30, x0 + 200], 0),
+                     np.stack([y0, y0 + 8, y0 + 2], 0)], -1)
+    pts_x = np.concatenate([setup["sx"].numpy(), band[..., 0]], 1)
+    pts_y = np.concatenate([setup["sy"].numpy(), band[..., 1]], 1)
+    z = np.concatenate([setup["z"].numpy(), rng.uniform(0.05, 0.95, (3, 8))], 1)
+    setup = _setup(pts_x, pts_y, z)
+    big = big.clone()
+    big[-12:-4] = torch.arange(n, n + 8, dtype=torch.int32)
+    big[3] = -1
+    rgba = torch.tensor(rng.uniform(0.05, 0.95, (n + 8, 4)), dtype=torch.float32)
+    opaque = torch.tensor(rng.choice([0.0, 0.3, 0.6], (h, w)), dtype=torch.float32)
+    merged = raster.merge_big_list(lists, counts, big)
+    return oit.oit_args(setup, rgba, *merged, opaque, w, h, tile)
+
+
+@pytest.mark.parametrize("tile", [128, 64])
+@pytest.mark.parametrize("case", list(CASES))
+def test_oit_cull_is_exact(case, tile):
+    """K7's per-band vertex-form cull: oit_plain masked by band_keep equals
+    the unmasked one bit for bit; the band-bound big triangles are culled
+    from the other bands of their tiles, and the holes are dropped."""
+    w, h = W, H
+    a = _oit_inputs(case, 5, tile)
+    keep = oit.band_keep(a[0], a[1], a[2], w, h, tile)
+    ref = oit.oit_plain(*a)
+    out = oit.oit_plain(*a, keep=keep)
+    assert torch.equal(_bits(out[0]), _bits(ref[0]))
+    assert torch.equal(_bits(out[1]), _bits(ref[1]))
+    assert (ref[1] < 1).any()
+    lists, n = oit.band_lists(a[1], a[2], w, h, tile)
+    assert lists.shape[0] == -(-w // tile) * -(-h // oit.band_rows(tile))
+    assert 0 < int(keep.sum()) < int((lists >= 0).sum())
+    if tile == 128:
+        # each band-bound big triangle (slots 52-59, at most 9 rows tall) is
+        # kept in at most three bands of a tile
+        kb = keep[:, 52:60].reshape(-(-h // oit.band_rows(tile)), -(-w // tile), 8)
+        assert (kb.sum(0) <= 3).all() and kb.any()
+
+
+def test_oit_cull_on_a_small_glass_frame(frames):
+    """K7 on the small glass frame's OIT pass: masked == unmasked in every
+    bit, and the bands keep fewer slots than their lists name."""
+    a = frames["oit"]
+    w, h, tile = a[4:7]
+    keep = oit.band_keep(a[0], a[1], a[2], w, h, tile)
+    ref = oit.oit_plain(*a)
+    out = oit.oit_plain(*a, keep=keep)
+    assert torch.equal(_bits(out[0]), _bits(ref[0]))
+    assert torch.equal(_bits(out[1]), _bits(ref[1]))
+    lists, _ = oit.band_lists(a[1], a[2], w, h, tile)
+    assert 0 < int(keep.sum()) < int((lists >= 0).sum())
+
+
+def test_oit_inside_pairs_survive_the_cull(frames):
+    """oit_plain's `work`, the (slot, pixel) pairs whose pixel is inside the
+    slot's triangle (K7's bound counts its depth, weight and sums only
+    there), is the same with band_keep's mask: no culled pair is inside;
+    and it is a share of the kept pairs."""
+    a = frames["oit"]
+    w, h, tile = a[4:7]
+    keep = oit.band_keep(a[0], a[1], a[2], w, h, tile)
+    full, masked = [0], [0]
+    oit.oit_plain(*a, work=full)
+    oit.oit_plain(*a, keep=keep, work=masked)
+    assert full[0] == masked[0]
+    assert 0 < full[0] < chip_smoke.kept_pairs(keep, w, h, tile, oit.band_rows(tile))

@@ -11,9 +11,14 @@ planes to 2e-5 (the kernel's rsqrtf may differ from torch.rsqrt by an ulp).
 The depth kernels (depth_super, depth_grid, depth_dense) must equal their
 plain versions exactly, and the split pair the dense one. So must the
 visibility kernel (K5), the ordered blend (K6, with and without atlas
-rects) and the OIT accumulation (K7, whose 128x128 tiles run as four row
-bands). Small combined steps on the card, the glass step's among them,
-match the CPU within the image bar.
+rects) and the OIT accumulation (K7, whose 128x128 tiles run as sixteen
+128x8 row bands). Small combined steps on the card, the glass step's
+among them, match the CPU within the image bar. The kernels that cull their slots
+(K1, K4, K5, K6, K7) equal their plain versions in every bit, and their
+`kept` counts equal the row sums of the cull's plain twin
+(`raster.tile_slot_keep`; for the row bands of K1 and K5 over
+`raster.band_args`, of K7 `oit.band_keep`), at two tile shapes and at
+a frame size that is not a multiple of the tile.
 """
 
 import numpy as np
@@ -280,7 +285,7 @@ def test_blend_kernel_matches_plain_on_card(cuda, tile_h, atlas):
 @pytest.mark.parametrize("tile", [128, 64])
 def test_oit_kernel_matches_plain_on_card(cuda, tile):
     """Merged lists (overflowing the 32-slot cap), bit for bit; 128x128
-    tiles run as four 128x32 bands reading one list."""
+    tiles run as sixteen 128x8 bands reading one list."""
     w, h = 320, 200
     setup, rgba, _, opaque = _blend_scene(14, w, h)
     merged = raster.merge_big_list(*raster.bin_triangles(setup, w, h, tile, 32,
@@ -442,3 +447,86 @@ def test_culled_depth_matches_plain_on_card(cuda, w, h, tile_h, covering, atlas)
     assert torch.equal(kept, keep.sum(1).int())
     _check_kept_share(kept, a[1], a[3], covering, atlas)
     assert (kd > 0).float().mean().item() > 0.05
+
+
+def _shade_records(seed, n):
+    rec = np.random.default_rng(seed).uniform(0, 1, (n, 36)).astype(np.float32)
+    rec[:, 32:35] += 0.4
+    return torch.from_numpy(rec)
+
+
+def _compact_big(big):
+    """The big list with its holes moved to the end, as binning leaves it."""
+    return torch.cat([big[big >= 0], big[big < 0]])
+
+
+@pytest.mark.parametrize("w,h", [(320, 200), (384, 256)], ids=["ragged", "whole"])
+@pytest.mark.parametrize("tile,tile_h", [(128, 32), (64, 64)])
+@pytest.mark.parametrize("lists", ["random", "binned_ties"])
+def test_culled_raster_matches_plain_on_card(cuda, w, h, tile, tile_h, lists):
+    """K1 and K5 with their cull equal their plain versions in every bit
+    (tri_id, depth, b0, b1; K1's G-buffer within 2e-5), on lists that name
+    triangles at random (most slots miss most tiles) and on binned lists of
+    exactly tied triangles; `kept` equals tile_slot_keep's row sums over
+    the kernels' band grid (`raster.band_args`); a null `kept` changes
+    nothing."""
+    if lists == "random":
+        setup, tris, counts, big, *_ = _cull_scene(41 + tile_h, w, h, tile, tile_h,
+                                                   False, n_big=32, cap=96)
+        bins = (tris, counts, _compact_big(big))
+    else:
+        setup, _ = _scene(42, 60, w, h, True)
+        bins = raster.bin_triangles(setup, w, h, tile, 96, max_big=32, tile_h=tile_h,
+                                    foot=2, foot_y=2)
+    rec = _shade_records(43, setup["valid"].shape[0])
+    args = [_to(a, cuda) for a in raster.kernel_args(setup, rec, *bins, w, h, tile,
+                                                     tile_h)]
+    vargs = [_to(a, cuda) for a in raster.visibility_args(setup, *bins, w, h, tile,
+                                                          tile_h)]
+    band1, band5 = raster.band_args(args), raster.band_args(vargs)
+    keep1 = raster.tile_slot_keep(band1[0], *band1[2:9], (), "edge")
+    keep5 = raster.tile_slot_keep(*band5[:8], (), "edge")
+    n_bands = keep1.shape[0]
+    kept1 = torch.full((n_bands,), -7, dtype=torch.int32, device=cuda)
+    kept5 = torch.full((n_bands,), -7, dtype=torch.int32, device=cuda)
+    kvis, kg = raster.raster_shade_cuda(*args, kept=kept1)
+    kvis0, kg0 = raster.raster_shade_cuda(*args)
+    pvis, pg = raster.raster_shade_plain(*args)
+    kv = raster.visibility_cuda(*vargs, kept=kept5)
+    pv = raster.visibility_plain(*vargs)
+    torch.cuda.synchronize()
+    for k in ("tri_id", "depth", "b0", "b1"):
+        assert torch.equal(_bits(kvis[k]), _bits(pvis[k])), k
+        assert torch.equal(_bits(kvis0[k]), _bits(kvis[k])), k
+        assert torch.equal(_bits(kv[k]), _bits(pv[k])), k
+    assert (kg - pg).abs().max().item() <= 2e-5 and torch.equal(_bits(kg0), _bits(kg))
+    assert torch.equal(kept1, keep1.sum(1).int())
+    assert torch.equal(kept5, keep5.sum(1).int())
+    named = int((band1[2] >= 0).sum()) + int((args[4] >= 0).sum()) * n_bands
+    assert 0 < int(kept1.sum()) < named
+    assert (kvis["tri_id"] >= 0).any()
+
+
+@pytest.mark.parametrize("w,h", [(320, 200), (256, 256)], ids=["ragged", "whole"])
+@pytest.mark.parametrize("tile", [128, 64])
+def test_culled_oit_matches_plain_on_card(cuda, w, h, tile):
+    """K7 with its per-band cull equals oit_plain in every bit on merged
+    lists (64 big slots with holes, overflowing 32-slot tile lists);
+    `kept` equals band_keep's row sums over the band grid; a null `kept`
+    changes nothing."""
+    setup, rgba, _, opaque = _blend_scene(44, w, h)
+    merged = raster.merge_big_list(*raster.bin_triangles(setup, w, h, tile, 32,
+                                                         max_big=64))
+    args = [_to(a, cuda) for a in oit.oit_args(setup, rgba, *merged, opaque, w, h,
+                                               tile)]
+    keep = oit.band_keep(args[0], args[1], args[2], w, h, tile)
+    kept = torch.full((keep.shape[0],), -7, dtype=torch.int32, device=cuda)
+    (ka, kr), (ka0, kr0) = oit.oit_cuda(*args, kept=kept), oit.oit_cuda(*args)
+    pa, pr = oit.oit_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(ka), _bits(pa)) and torch.equal(_bits(kr), _bits(pr))
+    assert torch.equal(_bits(ka0), _bits(ka)) and torch.equal(_bits(kr0), _bits(kr))
+    assert torch.equal(kept, keep.sum(1).int())
+    lists, counts = oit.band_lists(args[1], args[2], w, h, tile)
+    assert 0 < int(kept.sum()) < int((lists >= 0).sum())
+    assert (kr < 1).float().mean().item() > 0.2
