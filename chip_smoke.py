@@ -20,9 +20,13 @@ toolkit, and it imports nothing of JAX. Phases, each of which must pass:
 then the flagship, every pass on:
 a. build the flagship step at full size with no overrides;
 b. on one real flagship atlas: depth_super (K2) and depth_grid (K3, on
-   K2's output) against their plain versions, exactly; the atlas's
-   occupied tiles against max_active_tiles; depth_dense (K4) on the dense
-   corner binning of the same casters, which must equal the split result;
+   K2's output) against their plain versions in every bit, each plain
+   version masked by raster.tile_slot_keep equal to the unmasked one, both
+   culls live (kept < named); what the lists hold (split_lists_report:
+   full super-tile lists and the big casters their cap drops, kept list
+   lengths, the share of the kept pairs that the warp cull keeps); the atlas's occupied tiles
+   against max_active_tiles; depth_dense (K4) on the dense corner binning
+   of the same casters, which must equal the split result;
 c. run 5 flagship steps: K1, K2 and K3 launch once per step; a real frame
    with shadows and AO; finite bodies; K1 against its plain version on
    the last step's inputs, as in phase 4;
@@ -51,12 +55,14 @@ k. time K1 at the glass step's shape, and K4, K5, K6 and K7 there against
    their plain versions, the non-opaque stages, the glass render and the
    glass step.
 
-Every kernel but K2 and K3 culls its slots exactly. Wherever K1, K4, K5,
-K6 and K7 are checked (phases 4, b, c, d and h), they also write their
-per-tile (K1, K5, K7: per row band) `kept` counts (the slots that pass
-their cull), which must equal the row sums of `raster.tile_slot_keep`
-(over `raster.band_args` or `oit.band_lists` for the banded kernels), the
-cull's plain twin: a redesign that culled nothing would fail there.
+Every kernel culls its slots exactly. Wherever one is checked (phases 4,
+b, c, d and h), it also writes its per-tile (K1, K5, K7: per row band;
+K3: per active row) `kept` counts (the slots that pass its cull), which
+must equal the row sums of `raster.tile_slot_keep`, the cull's plain twin,
+over the kernel's own layout (`cull_args`: `raster.band_args` or
+`oit.band_lists` for the banded kernels, `raster.super_lists` for K2,
+the active rows' tiles for K3): a redesign that culled nothing would fail
+there.
 
 The line before the last is a JSON object describing each kernel (its
 launches on its main path, max |d| against its plain version, its device
@@ -65,10 +71,13 @@ for the same work, from the work these inputs need: the (slot, pixel)
 pairs that hold a triangle, after early exits, and the record rows the
 lists name, each once; for the culled kernels only the pairs that
 tile_slot_keep keeps, which alone can change a pixel, plus the cull's own
-operations (for K4, K6 and K7 also the lists' used slots and, for K6
-and K7, the opaque depth of the tiles or bands that keep a slot; K7's
-operations split by where they are needed, OPS_OIT_*), with the count
-before the cull (every scanned pair) beside it as `bound_ms_full`);
+operations (for K2-K4, K6 and K7 also the lists' used slots; for K6 and
+K7 the opaque depth, and for K3 the depth image, only of the tiles, bands
+or rows that keep a slot; K7's operations split by where they are
+needed, OPS_OIT_*; K2's and K3's their edges only on the warps that keep
+a slot and their depth only where the pixel is inside, OPS_DEPTH_*), with
+the count before the cull (every scanned pair)
+beside it as `bound_ms_full`);
 the last line is `{"ok": true, "device": {...}}`. Any failure exits
 non-zero before those lines are printed.
 """
@@ -123,7 +132,13 @@ OPS_EDGE, OPS_RECT, OPS_BLEND, OPS_OIT, OPS_SHADE = 22, 4, 45, 50, 60
 # depth tests, the weight 6, its select, the four accumulations 7 and the
 # reveal's select and multiply 2 (26).
 OPS_OIT_COLUMN, OPS_OIT_EDGE, OPS_OIT_INSIDE = 13, 12, 26
-# The cull of K1 and K4-K7 (csrc/cull.cuh), per scanned slot that names a
+# K2's and K3's least work splits OPS_EDGE the same way: each (slot, pixel)
+# pair on a warp that keeps the slot its edges e0, e1 4 each, e2 2 and
+# their three tests (13; the rect's 4 only where the tile straddles the
+# rect); only a pair whose pixel is inside the two weights 2, z 4, its two
+# tests and the max (9).
+OPS_DEPTH_EDGE, OPS_DEPTH_INSIDE = 13, 9
+# The cull of every kernel (csrc/cull.cuh), per scanned slot that names a
 # triangle: vertex form three edges of 12 (2 coefficient subtracts, 2 sign
 # tests, 2 corner selects, 2 subtracts, 2 multiplies, 1 subtract, the < 0
 # test) = 36; edge form four corner values of 8 and 5 more (two < 0 tests,
@@ -244,11 +259,14 @@ def named_slots(tile_tris, counts, big_list) -> int:
 
 def cull_args(args, kind: str) -> tuple:
     """The arguments of raster.tile_slot_keep (records, lists, counts, big
-    list, width, height, tile, tile_h, rects, form) that give the cull of a
-    kernel called with `args`: blend_cuda ("blend"), depth_dense_cuda
-    ("depth"), raster_shade_cuda ("shade"), visibility_cuda ("visibility")
-    or oit_cuda ("oit"); the last three cull per row band, so their rows
-    are bands (raster.band_args, oit.band_lists)."""
+    list, width, height, tile, tile_h, rects, form[, tiles]) that give the
+    cull of a kernel called with `args`: blend_cuda ("blend"),
+    depth_dense_cuda ("depth"), depth_super_cuda ("super", each tile's
+    super-tile list, raster.super_lists), depth_grid_cuda after its depth
+    image ("grid", row i the list of tile act_ids[i]), raster_shade_cuda
+    ("shade"), visibility_cuda ("visibility") or oit_cuda ("oit"); the
+    last three cull per row band, so their rows are bands (raster.band_args,
+    oit.band_lists)."""
     from garden_tpu_torch.render import oit, raster
     if kind == "oit":
         lists, counts = oit.band_lists(*args[1:3], *args[4:7])
@@ -256,15 +274,19 @@ def cull_args(args, kind: str) -> tuple:
                 oit.band_rows(args[6]), (), "vertex")
     return {"blend": lambda: (*args[:4], *args[6:11], "vertex"),
             "depth": lambda: (*args[:4], *args[5:10], "edge"),
+            "super": lambda: (args[0], *raster.super_lists(*args[1:8]), args[1][0, :0],
+                              *args[4:9], "edge"),
+            "grid": lambda: (args[0], args[3], args[2], args[3][0, :0], *args[5:10],
+                             "edge", args[1]),
             "shade": lambda: (args[0], *raster.band_args(args)[2:9], (), "edge"),
             "visibility": lambda: (*raster.band_args(args)[:8], (), "edge")}[kind]()
 
 
 def run_kept(fn, args, kind: str, name: str):
     """fn(*args, kept=...) on the card; checks that the kernel's per-tile
-    (or per-band) kept counts equal tile_slot_keep's row sums exactly and
-    prints the share of the scanned slots kept; -> (output, keep mask,
-    kept slots, named slots)."""
+    (or per-band, per-row) kept counts equal tile_slot_keep's row sums
+    exactly and prints the share of the named slots kept and the longest
+    kept list; -> (output, keep mask, kept slots, named slots)."""
     import torch
     from garden_tpu_torch.render import raster
     ca = cull_args(args, kind)
@@ -273,14 +295,23 @@ def run_kept(fn, args, kind: str, name: str):
     out = fn(*args, kept=kept)
     same = torch.equal(kept, keep.sum(1).int())
     n_kept, n_named = int(keep.sum()), named_slots(*ca[1:4])
-    per_tile = keep.sum(1)
-    unit = "band" if kind in ("oit", "shade", "visibility") else "tile"
+    per_row = keep.sum(1)
+    unit = {"oit": "band", "shade": "band", "visibility": "band",
+            "grid": "active row"}.get(kind, "tile")
     print(f"{name}: the cull keeps {n_kept} of {n_named} scanned slots "
-          f"({n_kept / max(n_named, 1):.4f}; at most {int(per_tile.max())} in a {unit}, "
-          f"none in {int((per_tile == 0).sum())} of {per_tile.numel()} {unit}s); "
+          f"({n_kept / max(n_named, 1):.4f}; at most {int(per_row.max())} in one {unit}, "
+          f"none in {int((per_row == 0).sum())} of {per_row.numel()} {unit}s); "
           f"kernel kept == tile_slot_keep: {same}")
     check(same, f"{name}: the kernel's kept counts differ from tile_slot_keep")
     return out, keep, n_kept, n_named
+
+
+def split_warps(ca):
+    """raster.warp_keep over the cull arguments `ca` of depth_super or
+    depth_grid (cull_args kinds "super", "grid"): the survivors each warp
+    of their tiles keeps, (rows, raster.DEPTH_WARPS, cap)."""
+    from garden_tpu_torch.render import raster
+    return raster.warp_keep(*ca[:3], *ca[4:9], *ca[10:])
 
 
 def input_bytes(records, ids, *others) -> int:
@@ -365,6 +396,85 @@ def dense_bounds(a, out, work_full: int, work_kept: int, n_named: int):
     cull = n_named * (OPS_CULL_EDGE + (OPS_CULL_RECT if rect else 0))
     return (bound(work_kept * per_pair + cull, moved),
             bound(work_full * per_pair, moved_full))
+
+
+def split_bounds(sup, grid, out2, keep3, work: dict, named: dict, kept: dict) -> dict:
+    """{"depth_super": (bound, bound_tile, bound_full), "depth_grid": ...}
+    of the split atlas raster on the arguments `sup` and `grid`, with
+    depth_super's output out2 and depth_grid's cull mask keep3. work[k] is
+    the plain version's count after early exits without and with the
+    kernels' culls (`_depth_blocks`' four counts with `warps`). bound: the
+    edges of the (slot, pixel) pairs whose warp keeps the slot, the rect
+    test where the tile straddles the slot's rect, the depth and its max
+    only where the pixel is inside, plus the cull's own operations per
+    named slot (named[k]) and the warp cull's per kept slot (kept[k]) and
+    warp; the bytes of the named records, the lists' used slots, the
+    early-exit table, depth_super's output and the pixels that depth_grid
+    reads and writes in the rows that keep a slot (a row that keeps none
+    touches nothing). bound_tile, as dense_bounds counts K4: every pair of
+    the kept slots at OPS_EDGE (+ OPS_RECT) plus the tile cull. bound_full,
+    the count before the cull: every scanned pair, the lists whole and
+    every active row's pixels."""
+    from garden_tpu_torch.render import raster
+    rect = bool(sup[8])
+    per_pair = OPS_EDGE + (OPS_RECT if rect else 0)
+    per_slot = OPS_CULL_EDGE + (OPS_CULL_RECT if rect else 0)
+    ids2 = sup[1][used_slots(*sup[1:3])]
+    ids3 = grid[3][used_slots(grid[3], grid[2])]
+    none = grid[3][0, :0]
+    row_bytes = 8 * grid[7] * grid[8]           # a tile's pixels, read and written
+    moved = {"depth_super": input_bytes(sup[0], ids2) + list_bytes(sup[1], sup[2], none)
+             + nbytes(out2),
+             "depth_grid": input_bytes(grid[0], ids3, grid[1], grid[4])
+             + list_bytes(grid[3], grid[2], none) + row_bytes * int(keep3.any(1).sum())}
+    full = {"depth_super": input_bytes(sup[0], ids2, *sup[1:3]) + nbytes(out2),
+            "depth_grid": input_bytes(grid[0], ids3, *grid[1:5])
+            + row_bytes * grid[1].numel()}
+    out = {}
+    for k in moved:
+        pairs, (tile_pairs, warp_pairs, rect_pairs, inside) = work[k]
+        cull = named[k] * per_slot
+        ops = (warp_pairs * OPS_DEPTH_EDGE + rect_pairs * OPS_RECT
+               + inside * OPS_DEPTH_INSIDE + cull + kept[k] * raster.DEPTH_WARPS * per_slot)
+        out[k] = (bound(ops, moved[k]), bound(tile_pairs * per_pair + cull, moved[k]),
+                  bound(pairs * per_pair, full[k]))
+    return out
+
+
+def split_lists_report(din, sup, keep2, keep3, warps2, warps3) -> None:
+    """Prints what the split atlas raster's lists hold: the super-tile lists
+    that are full and the big casters their cap drops (raster.
+    supertile_counts, the lists before the cap); the slots that
+    depth_super's cull keeps in the tiles under full lists; the kept lists'
+    lengths (per tile, per active row); and the share of the tile's kept
+    (slot, warp) pairs that the warp cull keeps (split_warps)."""
+    import torch
+    from garden_tpu_torch.render import raster
+    sup_x, sup_y, _ = sup[3]
+    cap = sup[1].shape[1]
+    uncapped = raster.supertile_counts(din["setup"], din["big_list"], *sup[4:8], sup_x,
+                                       sup_y)
+    lists, counts = raster.super_lists(*sup[1:8])
+    under_full = counts >= cap
+    kept_full = keep2.sum(1)[under_full].float()
+    print(f"phase b: super-tile lists: {int((uncapped >= cap).sum())} of "
+          f"{uncapped.numel()} full at {cap} slots; the cap drops "
+          f"{int((uncapped - cap).clamp(min=0).sum())} of {int(uncapped.sum())} "
+          f"(super-tile, big caster) pairs; the {int(under_full.sum())} tiles under "
+          f"full lists keep {kept_full.mean().item() if kept_full.numel() else 0:.2f} "
+          f"slots on average, at most "
+          f"{int(kept_full.max()) if kept_full.numel() else 0} of {cap}")
+    q = torch.tensor([0.5, 0.9, 0.99], device=keep2.device)
+    n_w = raster.DEPTH_WARPS
+    for name, keep, warps in (("depth_super", keep2, warps2), ("depth_grid", keep3, warps3)):
+        rows = keep.sum(1).float()
+        on = (warps & keep[:, None, :]).sum((1, 2))
+        share = int(on.sum()) / max(n_w * int(keep.sum()), 1)
+        print(f"phase b: {name} kept slots per row p50/p90/p99/max "
+              f"{[round(v, 1) for v in torch.quantile(rows, q).tolist()]} / "
+              f"{int(rows.max())}; the warp cull keeps {share:.4f} of the kept "
+              f"(slot, warp) pairs; the busiest row's {n_w} warps keep "
+              f"{int(on.max())} (slot, warp) pairs of {n_w * int(rows.max())}")
 
 
 def check(cond: bool, what: str) -> None:
@@ -576,17 +686,45 @@ def main() -> int:
     fmats = fstep.instance_matrices(fphys)
     din, _ = atlas_inputs(fstep, fmats)
     split = raster.depth_args(**din)
-    work2, work3 = [0], [0]
-    k2 = raster.depth_super_cuda(*split["super"])
-    p2 = raster.depth_super_plain(*split["super"], work=work2)
-    k3 = raster.depth_grid_cuda(k2.clone(), *split["grid"])
-    p3 = raster.depth_grid_plain(k2.clone(), *split["grid"], work=work3)
+    sup, grid = split["super"], split["grid"]
+    k2, keep2, kept2, named2 = run_kept(raster.depth_super_cuda, sup, "super",
+                                        "phase b: depth_super (K2)")
+    k3, keep3, kept3, named3 = run_kept(
+        lambda *a, kept: raster.depth_grid_cuda(k2.clone(), *a, kept=kept), grid, "grid",
+        "phase b: depth_grid (K3)")
+    # the plain versions count their (slot, pixel) pairs after early exits,
+    # over the scanned slots and over the slots the cull keeps
+    # (with the warp culls' masks, also what the kernels' two culls leave)
+    warps2 = split_warps(cull_args(sup, "super"))
+    warps3 = split_warps(cull_args(grid, "grid"))
+    work2, work2k, work3, work3k = [0], [0] * 4, [0], [0] * 4
+    p2 = raster.depth_super_plain(*sup, work=work2)
+    p2k = raster.depth_super_plain(*sup, work=work2k, keep=keep2, warps=warps2)
+    p3 = raster.depth_grid_plain(k2.clone(), *grid, work=work3)
+    p3k = raster.depth_grid_plain(k2.clone(), *grid, work=work3k, keep=keep3, warps=warps3)
     torch.cuda.synchronize()
     err2, err3 = max_diff(k2, p2), max_diff(k3, p3)
+    bits23 = {"depth_super": same_bits(k2, p2), "depth_grid": same_bits(k3, p3)}
+    masked23 = same_bits(p2k, p2) and same_bits(p3k, p3)
     atlas_h, atlas_w = k3.shape
     print(f"phase b: atlas {atlas_w}x{atlas_h}: depth_super vs plain max|d| {err2}, "
-          f"depth_grid vs plain max|d| {err3}; covered {(k3 > 0).float().mean():.4f}")
-    check(err2 == 0.0 and err3 == 0.0, "depth_super/depth_grid disagree with plain")
+          f"depth_grid vs plain max|d| {err3}, same bits {bits23}; masked plain == "
+          f"plain: {masked23}; covered {(k3 > 0).float().mean():.4f}")
+    check(all(bits23.values()), "depth_super/depth_grid differ from their plain versions")
+    check(masked23, "a split plain version masked by tile_slot_keep differs from the "
+                    "unmasked one")
+    check(kept2 < named2 and kept3 < named3,
+          "the split atlas raster's cull keeps every named slot")
+    split_lists_report(din, sup, keep2, keep3, warps2, warps3)
+    b23 = split_bounds(sup, grid, k2, keep3,
+                       {"depth_super": (work2[0], work2k), "depth_grid": (work3[0], work3k)},
+                       {"depth_super": named2, "depth_grid": named3},
+                       {"depth_super": kept2, "depth_grid": kept3})
+    print(f"phase b: (slot, pixel) pairs all / tile-kept / warp-kept / rect-straddling / "
+          f"inside: depth_super {[work2[0], *work2k]}, depth_grid {[work3[0], *work3k]}")
+    print(f"phase b: bounds (after both culls; tile cull only; full: every scanned "
+          f"pair) {b23}")
+    del p2k, p3k
     setup, th = din["setup"], din["tile_h"]
     _, cap = din["tile_tris"].shape
     d_tiles, d_counts, d_big = raster.bin_triangles_corner(
@@ -595,12 +733,10 @@ def main() -> int:
     in_active = torch.zeros_like(occupied)
     in_active[din["act_ids"].long()] = True
     outside = int((occupied & ~in_active).sum())
-    sup_counts = din["sup_bins"][1]
     print(f"phase b: {int(occupied.sum())} occupied atlas tiles of "
           f"{occupied.numel()} (max_active_tiles {scfg.max_active_tiles}); "
           f"{outside} with a list outside the active set (expected 0); "
-          f"big casters {int((d_big >= 0).sum())}, largest super-tile list "
-          f"{int(sup_counts.max())} of 64")
+          f"big casters {int((d_big >= 0).sum())}")
     dense = raster.depth_args(setup, d_tiles, d_counts, d_big, atlas_w, atlas_h, 128,
                               din["atlas_bounds"], din["tri_atlas"], th)["dense"]
     k4_flag, _, _, _ = run_kept(raster.depth_dense_cuda, dense, "depth",
@@ -733,21 +869,16 @@ def main() -> int:
     })
     for name, ms in t.items():
         print(f"phase f: {name} median {ms:.4f} ms  [{card}]")
-    sup, grid = split["super"], split["grid"]
-    act_px = grid[1].numel() * grid[7] * grid[8]
     results["depth_super"] = dict(
         launches=counts["depth_super"], max_abs_err=err2,
-        ms=t["depth_super kernel, device"],
-        plain_ms=t["depth_super plain"],
-        **bound(work2[0] * (OPS_EDGE + OPS_RECT),
-                input_bytes(sup[0], sup[1][used_slots(*sup[1:3])], *sup[1:3])
-                + nbytes(k2)))
+        ms=t["depth_super kernel, device"], plain_ms=t["depth_super plain"],
+        **b23["depth_super"][0], bound_ms_tile=b23["depth_super"][1]["bound_ms"],
+        bound_ms_full=b23["depth_super"][2]["bound_ms"])
     results["depth_grid"] = dict(
         launches=counts["depth_grid"], max_abs_err=err3, ms=t["depth_grid kernel, device"],
-        plain_ms=t["depth_grid plain"],
-        **bound(work3[0] * (OPS_EDGE + OPS_RECT),
-                input_bytes(grid[0], grid[3][used_slots(grid[3], grid[2])], *grid[1:5])
-                + 8 * act_px))
+        plain_ms=t["depth_grid plain"], **b23["depth_grid"][0],
+        bound_ms_tile=b23["depth_grid"][1]["bound_ms"],
+        bound_ms_full=b23["depth_grid"][2]["bound_ms"])
     err4_all = max(err4, split_vs_dense)
     del fstep, fstate, fst, fout, dstep, dstate, dout, k2, p2, k3, p3, k4, p4, dense
     del fargs

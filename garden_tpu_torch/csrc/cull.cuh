@@ -1,8 +1,12 @@
-// The exact per-tile slot cull shared by sorted_blend (blend_raster.cu, K6)
-// and depth_dense (depth_raster.cu, K4). Its PyTorch twin is
+// The exact per-tile slot cull shared by every raster kernel: sorted_blend
+// and oit (blend_raster.cu, K6, K7), raster_shade and visibility
+// (raster_shade.cu, K1, K5), depth_super, depth_grid and depth_dense
+// (depth_raster.cu, K2-K4). Its PyTorch twin is
 // garden_tpu_torch/render/raster.py:tile_slot_keep, which must pick the
 // same slots: both evaluate the expressions below in float32 with every
-// multiply and add rounded on its own (-fmad=false here).
+// multiply and add rounded on its own (-fmad=false here). The argument
+// holds for any rectangle of pixel centres, so depth_super and depth_grid
+// also run it over each warp's pixels.
 //
 // Why it is exact. Rounding to nearest is monotone. So an edge function
 // evaluated as the pixel loop evaluates it,

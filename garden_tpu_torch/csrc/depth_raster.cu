@@ -24,46 +24,74 @@
 // Lists are walked in blocks of 16 slots, as the TPU kernels do. The early
 // exit is the TPU kernels' own: after grid block cb a tile stops once the
 // smallest depth over all its pixels (the padding past the frame included)
-// is >= bound[cb + 1], the suffix max of the remaining blocks' zmax. Only
-// the same rule at the same 16-slot granularity gives the same result:
-// zmax = z2 + max(dz0, dz1, 0) is not a rounding-safe bound, so stopping
-// elsewhere could change a pixel by an ulp.
+// is >= bound[cb + 1], the suffix max of the remaining blocks' zmax.
+//
+// Why skipping slots is exact. Each kernel first culls its tile's scanned
+// slots (cull.cuh): a slot whose edges cannot all be >= 0 at any pixel
+// centre of the tile, or whose cascade rect the tile misses, is never a
+// candidate there, so it takes fmaxf(d, 0) = d for every depth d >= 0
+// (depths start at +0.0 and only rise; no -0.0 arises). The survivors are
+// compacted into shared memory in list order, but order does not matter to
+// a max: it is exact and commutative, so any subset of non-candidates may
+// go. The early exit is another matter: zmax = z2 + max(dz0, dz1, 0) is not
+// a rounding-safe bound, so only the same rule at the same 16-slot
+// granularity gives the same result, and stopping elsewhere could change a
+// pixel by an ulp. So the exit stays at the ORIGINAL block ends: after
+// every grid block the tile minimum is compared with bound[cb + 1], a block
+// the cull emptied reuses the last minimum (its depths did not change, so
+// neither did the minimum the plain version takes there), and the walk ends
+// once no survivor is left (the remaining blocks change nothing, exit or
+// not).
 //
 // What bounds them on the H100. Per (slot, pixel) ~25 float operations and
-// no memory traffic: the work is ALU-bound in tiles x slots x pixels (3072
-// tiles of 128x16 x <= 64 big slots in pass 1 of the flagship atlas; <= 768
-// tiles x <= 64 slots in pass 2; 768 tiles of 128x128 x (64 + 256) slots in
-// the dense default). With -fmad=false each counted operation is one
-// instruction while the card's 67 TFLOP/s counts an FMA as two, so such a
-// kernel reaches at most ~50% of its operations bound unless it skips
-// work. Bytes are small: each tile reads its list's records once (64 B a
-// slot) and writes its pixels once.
+// no memory traffic: ALU-bound in tiles x slots x pixels, with -fmad=false
+// each counted operation one instruction while the card's 67 TFLOP/s
+// counts an FMA as two, so a kernel that keeps its operation count reaches
+// at most ~50% of an operations bound: past that only skipping work helps.
+// Bytes are small (each tile reads its list's records once, 64 B a slot,
+// and writes its pixels once) except depth_super's output, the whole atlas
+// (25 MB at 3072x2048), which sets its bound once the cull has removed
+// most of its pairs. The first design walked every slot of every list at
+// every pixel: depth_super's lists come from a bounding-box test over a
+// whole super-tile (4x8 atlas tiles), so most of their casters reach few of
+// its 32 tiles (on the flagship atlas 28.7% of the named slots reach the
+// tile), and depth_grid's from the corner binning, which admits a small
+// caster by its footprint, not its edges; the longest lists (64 slots x
+// 2048 pixels) ended the launch.
 //
-// What the design does about it. One 256-thread block per tile. Tile widths
-// divide 256, so a thread keeps one pixel column and P = tile pixels / 256
-// rows of it (8 for 128x16, 64 for 128x128) with their running maxima in
-// registers; only py changes along them. Pixels of a warp are 32
-// consecutive columns, so loads and stores of the depth image are
-// coalesced. Built with -fmad=false so each multiply and add rounds as the
-// plain version's separate PyTorch ops do.
-// - depth_super and depth_grid stage their tile's records once into shared
-//   memory and walk every slot (merge_records; empty slots skipped by a
-//   block-uniform branch); every thread reads the same record at the same
-//   time (a broadcast). The early exit takes a block-wide min (warp
-//   shuffles, then shared memory) once per 16-slot block.
-// - depth_dense first culls its scanned slots (the big list's used blocks,
-//   then the grid blocks), one thread a slot, exactly (cull.cuh): a slot
-//   whose edges cannot all be >= 0 at any pixel centre of the tile, or
-//   whose cascade rect the tile misses, cannot raise a depth. The
-//   survivors are compacted into shared memory in list order (warp ballots
-//   and a block prefix sum), each flagged when the tile lies wholly inside
-//   its rect (the per-pixel rect test then drops out), and only they are
-//   walked. On the translucent shadow map most tiles keep no slot and just
-//   store zeros. The early exit stays at the original 16-slot block ends:
-//   after every grid block the tile minimum is compared with bound[cb + 1]
-//   as merge_grid does, a block the cull emptied reuses the last minimum
-//   (its depths did not change), and the walk ends once no survivor is
-//   left. `kept` (optional) receives each tile's survivor count.
+// What the design does about it. One 256-thread block per tile (depth_grid:
+// per active row). Tile widths divide 256, so a thread keeps one pixel
+// column and P = tile pixels / 256 rows of it (8 for 128x16, 64 for
+// 128x128) with their running maxima in registers; only py changes along
+// them. Pixels of a warp are 32 consecutive columns, so loads and stores of
+// the depth image are coalesced. Built with -fmad=false so each multiply
+// and add rounds as the plain version's separate PyTorch ops do.
+// 1. The cull (cull_compact, shared by the three): one thread a scanned
+//    slot (depth_dense: the big list's used blocks, then the grid blocks),
+//    the survivors compacted in list order (warp ballots and a block prefix
+//    sum), each flagged in lane 14 (the id, no longer needed) when the tile
+//    lies wholly inside its rect, so the per-pixel rect test drops out.
+//    `kept` (optional, one int a tile or active row) receives the count.
+// 2. depth_super and depth_grid then cull once more per warp (mark_warps):
+//    one thread a (survivor, warp) pair tests the survivor against the
+//    bounding rect of that warp's pixel centres, by the same exact
+//    argument, and sets the warp's bit in lane 14. A warp skips a survivor
+//    whose bit is clear (a warp-uniform branch): at 128x16 a warp holds 32
+//    columns, and on the flagship atlas those keep about half (depth_super)
+//    and a third (depth_grid) of the tile's kept (slot, pixel) pairs. On
+//    each of its pixel rows a warp then votes, and where no lane's pixel
+//    is inside the triangle it skips the depth (no lane is a candidate, so
+//    every depth keeps its value). Without the two skips depth_super ran
+//    0.026 ms and depth_grid 0.052 on the flagship atlas, with them 0.021
+//    and 0.034 (PERF.md).
+// 3. The walk: every thread of a warp reads the same record at the same
+//    time (a broadcast). depth_super has no exit, and a tile that keeps no
+//    slot stores zeros. depth_grid and depth_dense keep the early exit at
+//    the original block ends (walk_grid); the block-wide minimum is warp
+//    shuffles, then shared memory. A depth_grid row that keeps no slot
+//    neither reads nor writes the image (the update is in place). On the
+//    translucent shadow map most depth_dense tiles keep no slot and just
+//    store zeros.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -77,12 +105,23 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kEdge = 16;
 constexpr int kBlock = 16;
 constexpr int kMaxRects = 8;
-constexpr int kMaxSlots = 1024;          // depth_dense: n_big + cap
+constexpr int kMaxSlots = 1024;          // depth_dense: n_big + cap; depth_grid: cap
+
+// Blocks of 256 threads resident per SM (at most 64 registers for four).
+// depth_dense: four up to 16 pixels a thread, two at 32, one at 64 (128x128
+// tiles, whose depths fill the registers). depth_super and depth_grid, whose
+// warp marks and row votes take more registers: four at 8 (128x16 tiles)
+// and below; at 16 (128x32) four spill depth_grid, so one from there.
+template <int P>
+constexpr int kDenseMinBlocks = P <= 16 ? 4 : (P == 32 ? 2 : 1);
+template <int P>
+constexpr int kSplitMinBlocks = P <= 8 ? 4 : 1;
 
 // Per-block state shared by the three kernels.
 struct Shared {
   float rects[kMaxRects][4];  // atlas rects: x0 x1 y0 y1
   float red[kWarps];          // block-min scratch
+  int warp[kWarps];           // block-prefix scratch
 };
 
 // The pixels of this thread inside its tile: one column, rows
@@ -103,62 +142,150 @@ __device__ __forceinline__ Pixels tile_pixels(int tx, int ty, int tile_w,
   return p;
 }
 
+// The bounding rect of warp w's pixel centres in tile (tx, ty): lanes
+// 32w .. 32w + 31 of tile_pixels (exact: integers + 0.5).
+template <int P>
+__device__ __forceinline__ cull::Corners warp_corners(int tx, int ty, int tile_w,
+                                                      int tile_h, int w) {
+  const int t0 = 32 * w, t1 = t0 + 31;
+  const int rstep = kThreads / tile_w;
+  const bool wide = tile_w >= 32;        // the warp's lanes share one row0
+  cull::Corners c;
+  c.x_lo = (float)(tx * tile_w + (wide ? t0 % tile_w : 0)) + 0.5f;
+  c.x_hi = (float)(tx * tile_w + (wide ? t1 % tile_w : tile_w - 1)) + 0.5f;
+  c.y_lo = (float)(ty * tile_h + t0 / tile_w) + 0.5f;
+  c.y_hi = (float)(ty * tile_h + t1 / tile_w + (P - 1) * rstep) + 0.5f;
+  return c;
+}
+
 __device__ __forceinline__ void load_rects(Shared& sh, const float* rects,
                                            int n_rects) {
   if (threadIdx.x < n_rects * 4) sh.rects[threadIdx.x / 4][threadIdx.x % 4] = rects[threadIdx.x];
 }
 
-// Stage list slots [0, n) into shared records; -1 slots get the sentinel row.
-__device__ __forceinline__ void stage(const float* __restrict__ records,
-                                      const int* __restrict__ list, int n,
-                                      int t_count, float* s_rec) {
-  for (int i = threadIdx.x; i < n * kEdge; i += kThreads) {
-    const int t = list[i / kEdge];
-    const int row = t >= 0 ? t : t_count;
-    s_rec[i] = records[(size_t)row * kEdge + i % kEdge];
+__device__ __forceinline__ int blocks_of(int count, int cap) {
+  const int n = (count + kBlock - 1) / kBlock;
+  return min(n, cap / kBlock);
+}
+
+// The cull of scanned slots [0, n_scan), slot s naming triangle id_of(s)
+// (< 0: empty), one thread a slot: the survivors' records are compacted into
+// s_rec in list order, lane 14 holding 1 where the tile lies wholly inside
+// the record's rect, else 0; with s_blk, s_blk[cb] receives the survivors
+// before grid block cb (slots grid0 + 16 cb ..). Returns the survivor count,
+// the same in every thread; a barrier must precede reading s_rec.
+template <typename IdOf>
+__device__ __forceinline__ int cull_compact(const float* __restrict__ records,
+                                            IdOf id_of, int n_scan, int grid0,
+                                            const cull::Corners& corners,
+                                            Shared& sh, int n_rects, float* s_rec,
+                                            int* s_blk) {
+  int n_keep = 0;
+  for (int s0 = 0; s0 < n_scan; s0 += kThreads) {
+    const int s = s0 + threadIdx.x;
+    const int id = s < n_scan ? id_of(s) : -1;
+    float d[16];
+    int flags = 0;
+    if (id >= 0) {
+      cull::load_record(records, id, d);
+      flags = cull::edge_flags(d, corners, &sh.rects[0][0], n_rects);
+    }
+    int total;
+    const int pos = n_keep + cull::block_prefix<kWarps>(flags != 0, sh.warp, &total);
+    if (flags) {
+      d[14] = (flags & cull::kInside) ? 1.0f : 0.0f;
+#pragma unroll
+      for (int k = 0; k < kEdge; ++k) s_rec[pos * kEdge + k] = d[k];
+    }
+    if (s_blk != nullptr && s < n_scan && s >= grid0 && (s - grid0) % kBlock == 0)
+      s_blk[(s - grid0) / kBlock] = pos;
+    n_keep += total;
+  }
+  return n_keep;
+}
+
+// The cull once more per warp: sets bit 1 + w of lane 14 of each of the
+// n_keep staged survivors whose edges and rect may reach a pixel centre of
+// warp w (the bounding rect of its pixels, warp_corners). One thread a
+// (survivor, warp) pair, the kWarps pairs of a survivor in consecutive
+// lanes, one ballot a warp. Needs a barrier before and after.
+template <int P>
+__device__ __forceinline__ void mark_warps(float* s_rec, int n_keep, int tx, int ty,
+                                           int tile_w, int tile_h, const Shared& sh,
+                                           int n_rects) {
+  const int w = threadIdx.x % kWarps;     // kThreads is a multiple of kWarps
+  const cull::Corners c = warp_corners<P>(tx, ty, tile_w, tile_h, w);
+  const int n_pairs = n_keep * kWarps;
+  for (int j0 = 0; j0 < n_pairs; j0 += kThreads) {
+    const int j = j0 + threadIdx.x;
+    const bool pair = j < n_pairs;
+    float* d = s_rec + (pair ? j / kWarps : 0) * kEdge;
+    const bool reach = pair && cull::edge_flags(d, c, &sh.rects[0][0], n_rects) != 0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, reach);
+    if (pair && w == 0)
+      d[14] += (float)(((ballot >> (threadIdx.x & 31)) & ((1u << kWarps) - 1u)) << 1);
   }
 }
 
-// Max-merge staged records [s0, s1) into this thread's P pixels. This is the
-// per-record test all three kernels share.
-template <int P>
-__device__ __forceinline__ void merge_records(const float* s_rec, int s0,
-                                              int s1, const Shared& sh,
-                                              int n_rects, const Pixels& pix,
-                                              float (&depth)[P]) {
+// Max-merge one surviving record into this thread's P pixels. kRect: the
+// tile straddles the record's rect, so each pixel tests it; otherwise the
+// tile lies wholly inside and the test is dropped. kVote: a warp skips the
+// depth of a pixel row where none of its pixels is inside. A survivor
+// names a triangle, so the id test always passes.
+template <int P, bool kRect, bool kVote>
+__device__ __forceinline__ void merge_survivor(const float* d, const Shared& sh,
+                                               int n_rects, const Pixels& pix,
+                                               float (&depth)[P]) {
+  float y_lo = 0.0f, y_hi = 0.0f;
+  bool col_ok = true;
+  if (kRect) {
+    float x0 = 0.0f, x1 = 0.0f;
+    for (int c = 0; c < n_rects; ++c) {
+      if (d[15] == (float)c) {
+        x0 = sh.rects[c][0];
+        x1 = sh.rects[c][1];
+        y_lo = sh.rects[c][2];
+        y_hi = sh.rects[c][3];
+      }
+    }
+    col_ok = pix.px >= x0 && pix.px < x1;
+    if (!kVote && !col_ok) return;                   // this thread's column
+  }
+  const float ax0 = d[0] * pix.px, ax1 = d[1] * pix.px;
+  const float b0 = d[3], b1 = d[4], c0 = d[6], c1 = d[7];
+  const float sum = d[9], z2 = d[10], dz0 = d[11], dz1 = d[12];
+  const float inv_area = d[13];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const float py = pix.py0 + (float)(i * pix.rstep);
+    const float e0 = ax0 + b0 * py + c0;
+    const float e1 = ax1 + b1 * py + c1;
+    const float e2 = sum - e0 - e1;
+    bool inside = e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f;
+    if (kRect) inside = inside && col_ok && py >= y_lo && py < y_hi;
+    if (kVote && !__any_sync(0xffffffffu, inside)) continue;   // warp-uniform
+    const float z = z2 + e0 * inv_area * dz0 + e1 * inv_area * dz1;
+    const bool cand = inside && z <= 1.0f && z > 0.0f;
+    depth[i] = fmaxf(depth[i], cand ? z : 0.0f);
+  }
+}
+
+// Max-merge the staged survivors [s0, s1). Lane 14: bit 0 set where the
+// tile lies wholly inside the record's rect; with kWarpSkip, bit 1 + w set
+// where the record may reach warp w (mark_warps), and the rows vote.
+template <int P, bool kWarpSkip>
+__device__ __forceinline__ void merge_survivors(const float* s_rec, int s0, int s1,
+                                                const Shared& sh, int n_rects,
+                                                const Pixels& pix, float (&depth)[P]) {
+  const int warp_bit = 2 << (threadIdx.x >> 5);
   for (int s = s0; s < s1; ++s) {
     const float* d = s_rec + s * kEdge;
-    if (!(d[14] >= 0.0f)) continue;        // empty slot: block-uniform
-    float y_lo = -INFINITY, y_hi = INFINITY;
-    if (n_rects > 0) {
-      float x0 = 0.0f, x1 = 0.0f, y0 = 0.0f, y1 = 0.0f;
-      for (int c = 0; c < n_rects; ++c) {
-        if (d[15] == (float)c) {
-          x0 = sh.rects[c][0];
-          x1 = sh.rects[c][1];
-          y0 = sh.rects[c][2];
-          y1 = sh.rects[c][3];
-        }
-      }
-      if (!(pix.px >= x0 && pix.px < x1)) continue;   // this thread's column
-      y_lo = y0;
-      y_hi = y1;
-    }
-    const float ax0 = d[0] * pix.px, ax1 = d[1] * pix.px;
-    const float b0 = d[3], b1 = d[4], c0 = d[6], c1 = d[7];
-    const float sum = d[9], z2 = d[10], dz0 = d[11], dz1 = d[12];
-    const float inv_area = d[13];
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-      const float py = pix.py0 + (float)(i * pix.rstep);
-      const float e0 = ax0 + b0 * py + c0;
-      const float e1 = ax1 + b1 * py + c1;
-      const float e2 = sum - e0 - e1;
-      const float z = z2 + e0 * inv_area * dz0 + e1 * inv_area * dz1;
-      const bool cand = e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && z <= 1.0f &&
-                        z > 0.0f && py >= y_lo && py < y_hi;
-      depth[i] = fmaxf(depth[i], cand ? z : 0.0f);
-    }
+    const int f = (int)d[14];
+    if (kWarpSkip && !(f & warp_bit)) continue;       // warp-uniform
+    if (f & 1)                                        // block-uniform
+      merge_survivor<P, false, kWarpSkip>(d, sh, n_rects, pix, depth);
+    else
+      merge_survivor<P, true, kWarpSkip>(d, sh, n_rects, pix, depth);
   }
 }
 
@@ -178,17 +305,30 @@ __device__ __forceinline__ float tile_min(const float (&depth)[P], Shared& sh) {
   return m;
 }
 
-// Merge the grid list's blocks [0, n_blocks) staged at s_rec[base..], stopping
-// after block cb once the tile's minimum depth is >= bound[cb + 1].
-template <int P>
-__device__ __forceinline__ void merge_grid(const float* s_rec, int base,
-                                           int n_blocks, const float* bound,
-                                           Shared& sh, int n_rects,
-                                           const Pixels& pix, float (&depth)[P]) {
+// Merge the survivors of grid blocks [0, n_blocks) (block cb's are
+// [s_blk[cb], s_blk[cb + 1])) with the early exit of the reference: after
+// every original block the tile stops once its minimum is >= bnd[cb + 1]; a
+// block the cull emptied leaves the depths, and so the minimum, as they
+// were; the walk ends once no survivor is left.
+template <int P, bool kWarpSkip>
+__device__ __forceinline__ void walk_grid(const float* s_rec, const int* s_blk,
+                                          int n_blocks, int n_keep, const float* bnd,
+                                          Shared& sh, int n_rects, const Pixels& pix,
+                                          float (&depth)[P]) {
+  bool have_min = false;
+  float t_min = 0.0f;
   for (int cb = 0; cb < n_blocks; ++cb) {
-    merge_records<P>(s_rec, base + cb * kBlock, base + (cb + 1) * kBlock, sh,
-                     n_rects, pix, depth);
-    if (tile_min<P>(depth, sh) >= bound[cb + 1]) break;
+    const int lo = s_blk[cb], hi = s_blk[cb + 1];
+    if (lo == n_keep) break;                   // no survivor left to merge
+    if (hi > lo) {
+      merge_survivors<P, kWarpSkip>(s_rec, lo, hi, sh, n_rects, pix, depth);
+      have_min = false;
+    }
+    if (!have_min) {
+      t_min = tile_min<P>(depth, sh);
+      have_min = true;
+    }
+    if (t_min >= bnd[cb + 1]) break;
   }
 }
 
@@ -203,57 +343,76 @@ __device__ __forceinline__ void store(float* __restrict__ img, int w_pad, int tx
   }
 }
 
-__device__ __forceinline__ int blocks_of(int count, int cap) {
-  const int n = (count + kBlock - 1) / kBlock;
-  return min(n, cap / kBlock);
-}
-
 template <int P>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kSplitMinBlocks<P>)
 depth_super_kernel(const float* __restrict__ records,
                    const int* __restrict__ sup_tris,
-                   const int* __restrict__ sup_counts, int cap, int t_count,
-                   int tiles_x, int tile_w, int tile_h, int sup_x, int sup_y,
-                   int sups_x, const float* __restrict__ rects, int n_rects,
-                   float* __restrict__ depth_img) {
-  extern __shared__ float s_rec[];
+                   const int* __restrict__ sup_counts, int cap, int tiles_x,
+                   int tile_w, int tile_h, int sup_x, int sup_y, int sups_x,
+                   const float* __restrict__ rects, int n_rects,
+                   float* __restrict__ depth_img, int* __restrict__ kept) {
+  extern __shared__ float s_rec[];         // survivors [<= cap][16]
   __shared__ Shared sh;
   const int tx = blockIdx.x % tiles_x;
   const int ty = blockIdx.x / tiles_x;
   const int sup = (ty / sup_y) * sups_x + tx / sup_x;
-  const int n = blocks_of(sup_counts[sup], cap) * kBlock;
+  const int* list = sup_tris + (size_t)sup * cap;
+  // the first slots' ids load beside the count, not after it
+  const int first = threadIdx.x < cap ? list[threadIdx.x] : -1;
+  const int n_scan = blocks_of(sup_counts[sup], cap) * kBlock;
   load_rects(sh, rects, n_rects);
-  stage(records, sup_tris + (size_t)sup * cap, n, t_count, s_rec);
   __syncthreads();
+  const int n_keep = cull_compact(
+      records, [=](int s) { return s == (int)threadIdx.x ? first : list[s]; }, n_scan,
+      n_scan, cull::tile_corners(tx, ty, tile_w, tile_h), sh, n_rects, s_rec, nullptr);
+  if (threadIdx.x == 0 && kept != nullptr) kept[blockIdx.x] = n_keep;
+  if (n_keep > 0) {                        // uniform; most tiles keep none
+    __syncthreads();
+    mark_warps<P>(s_rec, n_keep, tx, ty, tile_w, tile_h, sh, n_rects);
+    __syncthreads();
+  }
   const Pixels pix = tile_pixels(tx, ty, tile_w, tile_h);
   float depth[P];
 #pragma unroll
   for (int i = 0; i < P; ++i) depth[i] = 0.0f;
-  merge_records<P>(s_rec, 0, n, sh, n_rects, pix, depth);
+  merge_survivors<P, true>(s_rec, 0, n_keep, sh, n_rects, pix, depth);
   store<P>(depth_img, tiles_x * tile_w, tx, ty, tile_w, tile_h, pix, depth);
 }
 
 template <int P>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kSplitMinBlocks<P>)
 depth_grid_kernel(const float* __restrict__ records,
                   const int* __restrict__ act_ids,
                   const int* __restrict__ act_cnt,
                   const int* __restrict__ tile_tris,
-                  const float* __restrict__ bound, int cap, int t_count,
-                  int tiles_x, int tile_w, int tile_h,
-                  const float* __restrict__ rects, int n_rects,
-                  float* __restrict__ depth_img) {
-  extern __shared__ float s_rec[];
+                  const float* __restrict__ bound, int cap, int tiles_x,
+                  int tile_w, int tile_h, const float* __restrict__ rects,
+                  int n_rects, float* __restrict__ depth_img,
+                  int* __restrict__ kept) {
+  extern __shared__ float s_rec[];         // survivors [<= cap][16]
   __shared__ Shared sh;
+  __shared__ int s_blk[kMaxSlots / kBlock + 1];  // survivors before grid block cb
   const int i = blockIdx.x;
+  const int* list = tile_tris + (size_t)i * cap;
   const int n_blocks = blocks_of(act_cnt[i], cap);
-  if (n_blocks == 0) return;               // the tile keeps pass 1's depth
   const int tile = act_ids[i];
   const int tx = tile % tiles_x;
   const int ty = tile / tiles_x;
   const int w_pad = tiles_x * tile_w;
   load_rects(sh, rects, n_rects);
-  stage(records, tile_tris + (size_t)i * cap, n_blocks * kBlock, t_count, s_rec);
+  __syncthreads();
+  const int n_keep = cull_compact(records, [list](int s) { return list[s]; },
+                                  n_blocks * kBlock, 0,
+                                  cull::tile_corners(tx, ty, tile_w, tile_h), sh,
+                                  n_rects, s_rec, s_blk);
+  if (threadIdx.x == 0) {
+    s_blk[n_blocks] = n_keep;
+    if (kept != nullptr) kept[i] = n_keep;
+  }
+  if (n_keep == 0) return;                 // the tile keeps pass 1's depth
+  __syncthreads();
+  mark_warps<P>(s_rec, n_keep, tx, ty, tile_w, tile_h, sh, n_rects);
+  __syncthreads();
   const Pixels pix = tile_pixels(tx, ty, tile_w, tile_h);
   float depth[P];
 #pragma unroll
@@ -261,74 +420,13 @@ depth_grid_kernel(const float* __restrict__ records,
     const int y = ty * tile_h + pix.row0 + k * pix.rstep;
     depth[k] = depth_img[(size_t)y * w_pad + tx * tile_w + pix.col];
   }
-  __syncthreads();
-  merge_grid<P>(s_rec, 0, n_blocks, bound + (size_t)i * (cap / kBlock + 1), sh,
-                n_rects, pix, depth);
+  walk_grid<P, true>(s_rec, s_blk, n_blocks, n_keep,
+                     bound + (size_t)i * (cap / kBlock + 1), sh, n_rects, pix, depth);
   store<P>(depth_img, w_pad, tx, ty, tile_w, tile_h, pix, depth);
 }
 
-// Max-merge one surviving record into this thread's P pixels: merge_records'
-// per-pixel test without its empty-slot check (a survivor names a
-// triangle), and the two must stay in step (the tests hold both to the
-// plain versions bit for bit). Sharing one helper with merge_records
-// changed depth_super's and depth_grid's code (more registers, spills) and
-// slowed them by 6-10% on the card (PERF.md), so the copy stays.
-// kRect: the tile straddles the record's rect, so each pixel tests it;
-// otherwise the tile lies wholly inside and the test is dropped.
-template <int P, bool kRect>
-__device__ __forceinline__ void merge_survivor(const float* d, const Shared& sh,
-                                               int n_rects, const Pixels& pix,
-                                               float (&depth)[P]) {
-  float y_lo = 0.0f, y_hi = 0.0f;
-  if (kRect) {
-    float x0 = 0.0f, x1 = 0.0f;
-    for (int c = 0; c < n_rects; ++c) {
-      if (d[15] == (float)c) {
-        x0 = sh.rects[c][0];
-        x1 = sh.rects[c][1];
-        y_lo = sh.rects[c][2];
-        y_hi = sh.rects[c][3];
-      }
-    }
-    if (!(pix.px >= x0 && pix.px < x1)) return;      // this thread's column
-  }
-  const float ax0 = d[0] * pix.px, ax1 = d[1] * pix.px;
-  const float b0 = d[3], b1 = d[4], c0 = d[6], c1 = d[7];
-  const float sum = d[9], z2 = d[10], dz0 = d[11], dz1 = d[12];
-  const float inv_area = d[13];
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    const float py = pix.py0 + (float)(i * pix.rstep);
-    const float e0 = ax0 + b0 * py + c0;
-    const float e1 = ax1 + b1 * py + c1;
-    const float e2 = sum - e0 - e1;
-    const float z = z2 + e0 * inv_area * dz0 + e1 * inv_area * dz1;
-    bool cand = e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && z <= 1.0f && z > 0.0f;
-    if (kRect) cand = cand && py >= y_lo && py < y_hi;
-    depth[i] = fmaxf(depth[i], cand ? z : 0.0f);
-  }
-}
-
-// Max-merge the staged survivors [s0, s1); lane 14 holds 1 where the tile
-// lies wholly inside the record's rect.
 template <int P>
-__device__ __forceinline__ void merge_survivors(const float* s_rec, int s0, int s1,
-                                                const Shared& sh, int n_rects,
-                                                const Pixels& pix, float (&depth)[P]) {
-  for (int s = s0; s < s1; ++s) {
-    const float* d = s_rec + s * kEdge;
-    if (d[14] == 0.0f)                                // block-uniform
-      merge_survivor<P, true>(d, sh, n_rects, pix, depth);
-    else
-      merge_survivor<P, false>(d, sh, n_rects, pix, depth);
-  }
-}
-
-// Blocks of 256 threads resident per SM: four (at most 64 registers) up to
-// 16 pixels a thread, two at 32, one at 64 (128x128 tiles, whose depths
-// fill the registers).
-template <int P>
-__global__ void __launch_bounds__(kThreads, P <= 16 ? 4 : (P == 32 ? 2 : 1))
+__global__ void __launch_bounds__(kThreads, kDenseMinBlocks<P>)
 depth_dense_kernel(const float* __restrict__ records,
                    const int* __restrict__ tile_tris,
                    const int* __restrict__ counts,
@@ -340,7 +438,6 @@ depth_dense_kernel(const float* __restrict__ records,
   extern __shared__ float s_rec[];         // survivors [<= n_big + cap][16]
   __shared__ Shared sh;
   __shared__ int s_blk[kMaxSlots / kBlock + 1];  // survivors before grid block cb
-  __shared__ int s_warp[kWarps];
   const int tile = blockIdx.x;
   const int tx = tile % tiles_x;
   const int ty = tile / tiles_x;
@@ -352,37 +449,13 @@ depth_dense_kernel(const float* __restrict__ records,
   }
   const int n_bigs = blocks_of(big_count, n_big) * kBlock;
   const int n_blocks = blocks_of(counts[tile], cap);
-  const int n_scan = n_bigs + n_blocks * kBlock;
+  const int* list = tile_tris + (size_t)tile * cap;
   load_rects(sh, rects, n_rects);
   __syncthreads();
-
-  // the cull, one thread a slot; survivors compacted in list order, lane 14
-  // (the id) then holding 1 when the tile lies wholly inside the rect; and
-  // where each grid block's survivors start
-  const cull::Corners corners = cull::tile_corners(tx, ty, tile_w, tile_h);
-  int n_keep = 0;
-  for (int s0 = 0; s0 < n_scan; s0 += kThreads) {
-    const int s = s0 + threadIdx.x;
-    const int id = s >= n_scan ? -1
-                   : s < n_bigs ? big_list[s]
-                                : tile_tris[(size_t)tile * cap + (s - n_bigs)];
-    float d[16];
-    int flags = 0;
-    if (id >= 0) {
-      cull::load_record(records, id, d);
-      flags = cull::edge_flags(d, corners, &sh.rects[0][0], n_rects);
-    }
-    int total;
-    const int pos = n_keep + cull::block_prefix<kWarps>(flags != 0, s_warp, &total);
-    if (flags) {
-      d[14] = (flags & cull::kInside) ? 1.0f : 0.0f;
-#pragma unroll
-      for (int k = 0; k < kEdge; ++k) s_rec[pos * kEdge + k] = d[k];
-    }
-    if (s < n_scan && s >= n_bigs && (s - n_bigs) % kBlock == 0)
-      s_blk[(s - n_bigs) / kBlock] = pos;
-    n_keep += total;
-  }
+  const int n_keep = cull_compact(
+      records, [=](int s) { return s < n_bigs ? big_list[s] : list[s - n_bigs]; },
+      n_bigs + n_blocks * kBlock, n_bigs, cull::tile_corners(tx, ty, tile_w, tile_h),
+      sh, n_rects, s_rec, s_blk);
   if (threadIdx.x == 0) {
     s_blk[n_blocks] = n_keep;
     if (kept != nullptr) kept[tile] = n_keep;
@@ -393,26 +466,9 @@ depth_dense_kernel(const float* __restrict__ records,
   float depth[P];
 #pragma unroll
   for (int i = 0; i < P; ++i) depth[i] = 0.0f;
-  merge_survivors<P>(s_rec, 0, s_blk[0], sh, n_rects, pix, depth);
-  // the grid blocks with merge_grid's early exit, tested after every
-  // original 16-slot block; a block the cull emptied leaves the depths and
-  // so the tile minimum as they were
-  const float* bnd = bound + (size_t)tile * (cap / kBlock + 1);
-  bool have_min = false;
-  float t_min = 0.0f;
-  for (int cb = 0; cb < n_blocks; ++cb) {
-    const int lo = s_blk[cb], hi = s_blk[cb + 1];
-    if (lo == n_keep) break;                   // no survivor left to merge
-    if (hi > lo) {
-      merge_survivors<P>(s_rec, lo, hi, sh, n_rects, pix, depth);
-      have_min = false;
-    }
-    if (!have_min) {
-      t_min = tile_min<P>(depth, sh);
-      have_min = true;
-    }
-    if (t_min >= bnd[cb + 1]) break;
-  }
+  merge_survivors<P, false>(s_rec, 0, s_blk[0], sh, n_rects, pix, depth);
+  walk_grid<P, false>(s_rec, s_blk, n_blocks, n_keep,
+                      bound + (size_t)tile * (cap / kBlock + 1), sh, n_rects, pix, depth);
   store<P>(depth_img, tiles_x * tile_w, tx, ty, tile_w, tile_h, pix, depth);
 }
 
@@ -446,24 +502,26 @@ int pixels_per_thread(int tile_w, int tile_h) {
   }
 
 // C entry points (loaded with ctypes). Each returns a cudaError_t code; 0 = OK.
-// depth_dense: `kept` (one int a tile, or null) receives each tile's
-// surviving slots.
+// `kept` (one int a tile, depth_grid: an active row; or null) receives the
+// slots that survive the cull. smem: dynamic shared memory for the
+// survivors, at least (list slots) x 64 bytes.
 
 extern "C" int depth_super_launch(const float* records, const int* sup_tris,
-                                  const int* sup_counts, int cap, int t_count,
-                                  int n_tiles, int tiles_x, int tile_w,
-                                  int tile_h, int sup_x, int sup_y, int sups_x,
-                                  const float* rects, int n_rects,
-                                  float* depth, int smem, void* stream) {
-  if (n_rects > kMaxRects) return (int)cudaErrorInvalidValue;
+                                  const int* sup_counts, int cap, int n_tiles,
+                                  int tiles_x, int tile_w, int tile_h, int sup_x,
+                                  int sup_y, int sups_x, const float* rects,
+                                  int n_rects, float* depth, int* kept, int smem,
+                                  void* stream) {
+  if (n_rects > kMaxRects || cap % kBlock != 0 || smem < cap * kEdge * 4)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define GTT_SUPER(P)                                                         \
   {                                                                          \
     cudaError_t err = prepare(depth_super_kernel<P>, smem);                  \
     if (err != cudaSuccess) return (int)err;                                 \
     depth_super_kernel<P><<<n_tiles, kThreads, smem, st>>>(                  \
-        records, sup_tris, sup_counts, cap, t_count, tiles_x, tile_w, tile_h, \
-        sup_x, sup_y, sups_x, rects, n_rects, depth);                        \
+        records, sup_tris, sup_counts, cap, tiles_x, tile_w, tile_h, sup_x,  \
+        sup_y, sups_x, rects, n_rects, depth, kept);                         \
     return (int)cudaGetLastError();                                          \
   }
   GTT_DISPATCH(pixels_per_thread(tile_w, tile_h), GTT_SUPER)
@@ -472,11 +530,13 @@ extern "C" int depth_super_launch(const float* records, const int* sup_tris,
 
 extern "C" int depth_grid_launch(const float* records, const int* act_ids,
                                  const int* act_cnt, const int* tile_tris,
-                                 const float* bound, int cap, int t_count,
-                                 int rows, int tiles_x, int tile_w, int tile_h,
+                                 const float* bound, int cap, int rows,
+                                 int tiles_x, int tile_w, int tile_h,
                                  const float* rects, int n_rects, float* depth,
-                                 int smem, void* stream) {
-  if (n_rects > kMaxRects) return (int)cudaErrorInvalidValue;
+                                 int* kept, int smem, void* stream) {
+  if (n_rects > kMaxRects || cap > kMaxSlots || cap % kBlock != 0 ||
+      smem < cap * kEdge * 4)
+    return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define GTT_GRID(P)                                                          \
@@ -484,8 +544,8 @@ extern "C" int depth_grid_launch(const float* records, const int* act_ids,
     cudaError_t err = prepare(depth_grid_kernel<P>, smem);                   \
     if (err != cudaSuccess) return (int)err;                                 \
     depth_grid_kernel<P><<<rows, kThreads, smem, st>>>(                      \
-        records, act_ids, act_cnt, tile_tris, bound, cap, t_count, tiles_x,  \
-        tile_w, tile_h, rects, n_rects, depth);                              \
+        records, act_ids, act_cnt, tile_tris, bound, cap, tiles_x, tile_w,   \
+        tile_h, rects, n_rects, depth, kept);                                \
     return (int)cudaGetLastError();                                          \
   }
   GTT_DISPATCH(pixels_per_thread(tile_w, tile_h), GTT_GRID)

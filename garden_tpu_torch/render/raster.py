@@ -292,14 +292,13 @@ def bin_triangles_corner(setup: Dict[str, Tensor], width: int, height: int,
     return tile_tris, counts, big_list
 
 
-def bin_big_supertiles(setup: Dict[str, Tensor], big_list: Tensor, width: int,
-                       height: int, tile: int, tile_h: int, sup_x: int,
-                       sup_y: int, cap: int
-                       ) -> Tuple[Tensor, Tensor, Tuple[int, int, int]]:
-    """Per super-tile big lists: each big triangle of `big_list` is binned
-    onto a coarse grid of sup_x x sup_y tiles, into every super-tile its
-    bounds overlap (no footprint limit). Returns (sup_tris (n_sup, cap)
-    int32 padded with -1, sup_counts (n_sup,), (sup_x, sup_y, sups_x))."""
+def _supertile_runs(setup: Dict[str, Tensor], big_list: Tensor, width: int,
+                    height: int, tile: int, tile_h: int, sup_x: int, sup_y: int):
+    """Each big triangle of `big_list` binned onto a coarse grid of sup_x x
+    sup_y tiles, into every super-tile its bounds overlap (no footprint
+    limit) -> (triangle ids sorted by super-tile, then id; run starts
+    (n_sup,); run ends (n_sup,); sups_x). Run s holds super-tile s's
+    casters, uncapped."""
     th = tile_h or tile
     tiles_x, tiles_y, _ = _grid(width, height, tile, th)
     sups_x = -(-tiles_x // sup_x)
@@ -320,10 +319,32 @@ def bin_big_supertiles(setup: Dict[str, Tensor], big_list: Tensor, width: int,
     key = torch.where(hit, s[None, :], n_sup).reshape(-1)
     payload = safe[:, None].expand(-1, n_sup).reshape(-1)
     pay_sorted, edges = _sort_runs(key, payload, t, n_sup)
-    start, end = edges[:-1], edges[1:]
-    gather = start[:, None] + torch.arange(cap, device=dev)[None, :]
+    return pay_sorted, edges[:-1], edges[1:], sups_x
+
+
+def supertile_counts(setup: Dict[str, Tensor], big_list: Tensor, width: int,
+                     height: int, tile: int, tile_h: int, sup_x: int,
+                     sup_y: int) -> Tensor:
+    """(n_sup,) casters of each super-tile list of `bin_big_supertiles`
+    before its cap: where it exceeds the cap, the list drops the rest."""
+    _, start, end, _ = _supertile_runs(setup, big_list, width, height, tile, tile_h,
+                                       sup_x, sup_y)
+    return end - start
+
+
+def bin_big_supertiles(setup: Dict[str, Tensor], big_list: Tensor, width: int,
+                       height: int, tile: int, tile_h: int, sup_x: int,
+                       sup_y: int, cap: int
+                       ) -> Tuple[Tensor, Tensor, Tuple[int, int, int]]:
+    """Per super-tile big lists: each big triangle of `big_list` is binned
+    onto a coarse grid of sup_x x sup_y tiles, into every super-tile its
+    bounds overlap (no footprint limit). Returns (sup_tris (n_sup, cap)
+    int32 padded with -1, sup_counts (n_sup,), (sup_x, sup_y, sups_x))."""
+    pay_sorted, start, end, sups_x = _supertile_runs(
+        setup, big_list, width, height, tile, tile_h, sup_x, sup_y)
+    gather = start[:, None] + torch.arange(cap, device=big_list.device)[None, :]
     in_range = gather < end[:, None]
-    gather = torch.clamp(gather, 0, key.shape[0] - 1)
+    gather = torch.clamp(gather, 0, pay_sorted.shape[0] - 1)
     sup_tris = torch.where(in_range, pay_sorted[gather], -1).int()
     sup_counts = torch.clamp(end - start, max=cap).int()
     return sup_tris, sup_counts, (sup_x, sup_y, sups_x)
@@ -940,8 +961,9 @@ rasterize_sorted_blend.launches = 0
 # csrc/depth_raster.cu, which CUDA tensors launch.
 
 DEPTH_THREADS = 256
+DEPTH_WARPS = DEPTH_THREADS // 32
 MAX_ATLAS_RECTS = 8
-MAX_SLOTS = 1024       # big + cap list slots of one sorted_blend / depth_dense tile
+MAX_SLOTS = 1024       # list slots of one sorted_blend / depth_dense / depth_grid tile
 
 
 def _pad_slots(lists: Tensor) -> Tensor:
@@ -1001,46 +1023,63 @@ def _atlas_guard(idx: Tensor, px: Tensor, py: Tensor, atlas_bounds: tuple) -> Te
 
 
 def _depth_candidates(d: Tensor, px: Tensor, py: Tensor, atlas_bounds: tuple
-                      ) -> Tensor:
-    """Reverse-Z depth of each record d (rows, S, 16, 1) at pixel centres
-    (rows, 1, n_px) where the pixel is inside, 0 elsewhere."""
+                      ) -> Tuple[Tensor, Tensor]:
+    """(depth, inside) of each record d (rows, S, 16, 1) at pixel centres
+    (rows, 1, n_px): the reverse-Z depth where the pixel is a candidate, 0
+    elsewhere; inside, where its edges and rect hold the pixel."""
     e0 = d[:, :, 0] * px + d[:, :, 3] * py + d[:, :, 6]
     e1 = d[:, :, 1] * px + d[:, :, 4] * py + d[:, :, 7]
     e2 = d[:, :, 9] - e0 - e1
     inv_area = d[:, :, 13]
     z = d[:, :, 10] + e0 * inv_area * d[:, :, 11] + e1 * inv_area * d[:, :, 12]
-    cand = ((e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (z <= 1.0) & (z > 0.0)
-            & (d[:, :, 14] >= 0.0))
+    inside = (e0 >= 0) & (e1 >= 0) & (e2 >= 0)
     if atlas_bounds:
-        cand = cand & _atlas_guard(d[:, :, 15], px, py, atlas_bounds)
-    return torch.where(cand, z, torch.zeros_like(z))
+        inside = inside & _atlas_guard(d[:, :, 15], px, py, atlas_bounds)
+    cand = inside & (z <= 1.0) & (z > 0.0) & (d[:, :, 14] >= 0.0)
+    return torch.where(cand, z, torch.zeros_like(z)), inside
 
 
 def _depth_blocks(records: Tensor, lists: Tensor, n_blocks: Tensor,
                   depth: Tensor, px: Tensor, py: Tensor, atlas_bounds: tuple,
                   bound: Tensor = None, work: list = None,
-                  keep: Tensor = None) -> Tensor:
+                  keep: Tensor = None, warps: Tensor = None) -> Tensor:
     """Max-merge the 16-slot blocks 0 .. n_blocks - 1 of each row's list
     into depth (rows, n_px). With `bound`, a row stops after block cb once
     its smallest depth is >= bound[:, cb + 1] (the kernels' early exit).
     With `keep` (rows, slots) bool, the slots it does not mark count as
-    empty. With `work` (a one-element list), adds to work[0] the (slot,
-    pixel) pairs of the non-empty slots the kernels test: a measurement
-    for the kernels' bound in chip_smoke.py, which syncs with the host once
-    a block; the renderer passes neither."""
+    empty. With `work` (a list), adds to work[0] the (slot, pixel) pairs
+    of the non-empty slots the kernels test: a measurement for the
+    kernels' bound in chip_smoke.py, which syncs with the host once a
+    block; the renderer passes neither. With `warps` (rows, DEPTH_WARPS,
+    slots) bool, `warp_keep`'s mask, `work` has four counts, of those pairs
+    the ones that depth_super and depth_grid test after their warp cull:
+    work[1] those whose warp keeps the slot, work[2] those of them whose
+    tile straddles the slot's rect (the kernels test the rect per pixel
+    only there) and work[3] those whose pixel is inside."""
     t_count = records.shape[0] - 1
     n_blocks = torch.clamp(n_blocks.long(), max=lists.shape[1] // TRI_BLOCK)
     done = torch.zeros(lists.shape[0], dtype=torch.bool, device=lists.device)
     px, py = px[:, None, :], py[:, None, :]
     for cb in range(int(n_blocks.max()) if n_blocks.numel() else 0):
-        ids = lists[:, cb * TRI_BLOCK:(cb + 1) * TRI_BLOCK]
+        blk = slice(cb * TRI_BLOCK, (cb + 1) * TRI_BLOCK)
+        ids = lists[:, blk]
         if keep is not None:
-            ids = torch.where(keep[:, cb * TRI_BLOCK:(cb + 1) * TRI_BLOCK], ids, -1)
+            ids = torch.where(keep[:, blk], ids, -1)
         d = records[torch.where(ids >= 0, ids, t_count).long()][..., None]
-        zs = torch.amax(_depth_candidates(d, px, py, atlas_bounds), dim=1)
+        zs, inside = _depth_candidates(d, px, py, atlas_bounds)
+        zs = torch.amax(zs, dim=1)
         act = (cb < n_blocks) & ~done
         if work is not None:
-            work[0] += int(((ids >= 0) & act[:, None]).sum()) * px.shape[-1]
+            walked = (ids >= 0) & act[:, None]
+            work[0] += int(walked.sum()) * px.shape[-1]
+        if work is not None and warps is not None:
+            per_warp = px.shape[-1] // DEPTH_WARPS
+            on_warps = (warps[:, :, blk] & walked[:, None, :]).sum(1)     # (rows, 16)
+            straddle = (~_atlas_guard(d[:, :, 15], px, py, atlas_bounds).all(-1)
+                        if atlas_bounds else torch.zeros_like(walked))
+            work[1] += int(on_warps.sum()) * per_warp
+            work[2] += int(on_warps[straddle].sum()) * per_warp
+            work[3] += int((inside & walked[..., None]).sum())
         depth = torch.where(act[:, None], torch.maximum(depth, zs), depth)
         if bound is not None:
             done = done | (act & (torch.amin(depth, dim=1) >= bound[:, cb + 1]))
@@ -1051,28 +1090,47 @@ def _blocks_of(counts: Tensor) -> Tensor:
     return torch.div(counts.long() + TRI_BLOCK - 1, TRI_BLOCK, rounding_mode="floor")
 
 
+def super_lists(sup_tris: Tensor, sup_counts: Tensor, sup_grid: tuple, width: int,
+                height: int, tile: int, tile_h: int) -> Tuple[Tensor, Tensor]:
+    """The super-tile lists on the tile grid: row t is the list and count of
+    tile t's super-tile, as depth_super walks it -> (lists (tiles, cap),
+    counts (tiles,)). `tile_slot_keep(..., form="edge")` over them (no big
+    list) is depth_super's cull."""
+    sup_x, sup_y, sups_x = sup_grid
+    tiles_x, _, n_tiles = _grid(width, height, tile, tile_h)
+    t = torch.arange(n_tiles, device=sup_tris.device)
+    sup = (torch.div(t, tiles_x * sup_y, rounding_mode="floor") * sups_x
+           + torch.div(t % tiles_x, sup_x, rounding_mode="floor"))
+    return sup_tris[sup], sup_counts[sup]
+
+
 def depth_super_plain(records: Tensor, sup_tris: Tensor, sup_counts: Tensor,
                       sup_grid: tuple, width: int, height: int, tile: int,
                       tile_h: int, atlas_bounds: tuple = (),
-                      max_elems: int = 1 << 23, work: list = None) -> Tensor:
+                      max_elems: int = 1 << 23, work: list = None,
+                      keep: Tensor = None, warps: Tensor = None) -> Tensor:
     """Split pass 1, plain version of the depth_super kernel: every tile
     max-reduces its super-tile's big list. -> the padded depth image
     (tiles_y * tile_h, tiles_x * tile). Tiles run in chunks whose
     (tiles, 16, pixels) temporaries stay under `max_elems` elements;
-    `work` counts as in `_depth_blocks`."""
-    sup_x, sup_y, sups_x = sup_grid
+    `work` and `warps` count as in `_depth_blocks`. With `keep` (tiles,
+    cap) bool over `super_lists`, only the slots it marks are drawn
+    (`tile_slot_keep`'s mask gives the same result; the renderer never
+    passes it)."""
     tiles_x, tiles_y, n_tiles = _grid(width, height, tile, tile_h)
+    lists, counts = super_lists(sup_tris, sup_counts, sup_grid, width, height, tile,
+                                tile_h)
     n_px = tile * tile_h
     dev = records.device
     out = torch.zeros((n_tiles, n_px), device=dev)
     step = max(1, max_elems // (TRI_BLOCK * n_px))
     for t0 in range(0, n_tiles, step):
         tiles = torch.arange(t0, min(t0 + step, n_tiles), device=dev)
-        sup = (torch.div(tiles, tiles_x * sup_y, rounding_mode="floor") * sups_x
-               + torch.div(tiles % tiles_x, sup_x, rounding_mode="floor"))
         px, py = _tile_coords(tiles, tiles_x, tile, tile_h)
-        out[tiles] = _depth_blocks(records, sup_tris[sup], _blocks_of(sup_counts[sup]),
-                                   out[tiles], px, py, atlas_bounds, work=work)
+        out[tiles] = _depth_blocks(records, lists[tiles], _blocks_of(counts[tiles]),
+                                   out[tiles], px, py, atlas_bounds, work=work,
+                                   keep=None if keep is None else keep[tiles],
+                                   warps=None if warps is None else warps[tiles])
     return _tiles_to_image(out, tiles_y, tiles_x, tile_h, tile, tiles_y * tile_h,
                            tiles_x * tile)
 
@@ -1081,12 +1139,15 @@ def depth_grid_plain(depth: Tensor, records: Tensor, act_ids: Tensor,
                      act_cnt: Tensor, tile_tris: Tensor, bound: Tensor,
                      width: int, height: int, tile: int, tile_h: int,
                      atlas_bounds: tuple = (), max_elems: int = 1 << 23,
-                     work: list = None) -> Tensor:
+                     work: list = None, keep: Tensor = None,
+                     warps: Tensor = None) -> Tensor:
     """Split pass 2, plain version of the depth_grid kernel: row i of the
     compacted lists belongs to tile act_ids[i], whose pixels of the padded
     `depth` image it max-merges its list onto, with the early exit. Updates
     `depth` in place and returns it; other tiles keep their values. `work`
-    counts as in `_depth_blocks`."""
+    and `warps` count as in `_depth_blocks`. With `keep` (rows, cap) bool, only the
+    slots it marks are drawn (`tile_slot_keep(..., tiles=act_ids)` gives
+    the same result; the renderer never passes it)."""
     tiles_x, _, _ = _grid(width, height, tile, tile_h)
     n_px = tile * tile_h
     img = _image_tiles(depth, tiles_x, tile, tile_h).clone()
@@ -1097,7 +1158,9 @@ def depth_grid_plain(depth: Tensor, records: Tensor, act_ids: Tensor,
         tiles = act_ids[r].long()
         px, py = _tile_coords(tiles, tiles_x, tile, tile_h)
         img[tiles] = _depth_blocks(records, tile_tris[r], _blocks_of(act_cnt[r]),
-                                   img[tiles], px, py, atlas_bounds, bound[r], work)
+                                   img[tiles], px, py, atlas_bounds, bound[r], work,
+                                   None if keep is None else keep[r],
+                                   None if warps is None else warps[r])
     depth.copy_(_tiles_to_image(img, depth.shape[0] // tile_h, tiles_x, tile_h,
                                 tile, depth.shape[0], depth.shape[1]))
     return depth
@@ -1149,14 +1212,33 @@ def depth_dense_plain(records: Tensor, tile_tris: Tensor, counts: Tensor,
 # the slot.
 
 
-def _tile_corners(n_tiles: int, tiles_x: int, tile: int, tile_h: int, dev):
-    """(x_lo, x_hi, y_lo, y_hi), each (tiles, 1): the first and last pixel
-    centres of every tile, formed as `_tile_coords` forms them."""
-    tiles = torch.arange(n_tiles, device=dev)
+def _tile_corners(tiles: Tensor, tiles_x: int, tile: int, tile_h: int):
+    """(x_lo, x_hi, y_lo, y_hi), each (rows, 1): the first and last pixel
+    centres of each of `tiles`, formed as `_tile_coords` forms them."""
     x = ((tiles % tiles_x) * tile).float()[:, None] + 0.5
     y = (torch.div(tiles, tiles_x, rounding_mode="floor") * tile_h).float()[:, None] \
         + 0.5
     return x, x + float(tile - 1), y, y + float(tile_h - 1)
+
+
+def _warp_corners(tiles: Tensor, tiles_x: int, tile: int, tile_h: int):
+    """(x_lo, x_hi, y_lo, y_hi), each (rows * DEPTH_WARPS, 1): the bounding
+    rect of the pixel centres of each warp of the depth kernels' 256-thread
+    block in each of `tiles`, a tile's warps consecutive, formed as the
+    kernels' `warp_corners` forms them (a thread holds one column and
+    every (256 / tile)-th row of it)."""
+    rstep = DEPTH_THREADS // tile
+    t0 = torch.arange(DEPTH_WARPS, device=tiles.device) * 32
+    t1 = t0 + 31
+    wide = tile >= 32                     # a warp's lanes share one first row
+    x0, x1 = (t0 % tile, t1 % tile) if wide else (t0 * 0, t0 * 0 + tile - 1)
+    y0 = torch.div(t0, tile, rounding_mode="floor")
+    y1 = (torch.div(t1, tile, rounding_mode="floor")
+          + (tile * tile_h // DEPTH_THREADS - 1) * rstep)
+    tx = ((tiles.long() % tiles_x) * tile)[:, None]
+    ty = (torch.div(tiles.long(), tiles_x, rounding_mode="floor") * tile_h)[:, None]
+    return tuple((o + c[None, :]).reshape(-1, 1).float() + 0.5
+                 for o, c in ((tx, x0), (tx, x1), (ty, y0), (ty, y1)))
 
 
 def _vertex_edge_max(xa, ya, xb, yb, x_lo, x_hi, y_lo, y_hi) -> Tensor:
@@ -1179,33 +1261,42 @@ def _edge_extreme(a, b, c, x_lo, x_hi, y_lo, y_hi, largest: bool) -> Tensor:
 
 def tile_slot_keep(records: Tensor, lists: Tensor, counts: Tensor, big_list: Tensor,
                    width: int, height: int, tile: int, tile_h: int,
-                   atlas_bounds: tuple = (), form: str = "vertex") -> Tensor:
-    """The cull of the sorted_blend and oit kernels (form "vertex",
-    `pack_blend_records`, `oit.pack_oit_records`; oit on its band grid,
-    `oit.band_keep`) and of depth_dense, raster_shade and visibility (form
-    "edge", `_pack_edge_records`; the last two on their band grid,
-    `band_args`): (tiles, big + cap) bool over each
-    tile's scanned slots (the big list's used 16-slot blocks, then the
-    tile's own blocks; raster_shade scans the whole big list, whose holes
-    are -1 and come last, so with a 16k-slot big list the named slots are
-    the same), True where the slot names a triangle that may reach a pixel
-    centre of the tile: no edge's largest value over the tile is < 0 (for
-    e2 of the edge form, S - min e0 - min e1 bounds it) and, with atlas
-    rects, the tile meets the record's rect. The kernels' `kept` output is
-    its row sums; their plain versions take it as `keep`."""
-    tiles_x, _, n_tiles = _grid(width, height, tile, tile_h)
+                   atlas_bounds: tuple = (), form: str = "vertex",
+                   tiles: Tensor = None, corners: tuple = None) -> Tensor:
+    """The kernels' exact slot cull: (rows, big + cap) bool over the scanned
+    slots of each row of `lists` (the big list's used 16-slot blocks, then
+    the row's own blocks), True where the slot names a triangle that may
+    reach a pixel centre of the row's tile: no edge's largest value over
+    the tile is < 0 (for e2 of the edge form, S - min e0 - min e1 bounds
+    it) and, with atlas rects, the tile meets the record's rect. Row i
+    belongs to tile tiles[i] of the tile x tile_h grid (default: tile i).
+    Form "vertex" (`pack_blend_records`, `oit.pack_oit_records`):
+    sorted_blend, and oit on its band grid (`oit.band_keep`). Form "edge"
+    (`_pack_edge_records`): depth_dense; depth_super over `super_lists`
+    with no big list; depth_grid over its active rows, tiles = act_ids;
+    raster_shade and visibility on their band grid (`band_args`;
+    raster_shade scans the whole big list, whose holes are -1 and come
+    last, so with a 16k-slot big list the named slots are the same). The
+    kernels' `kept` output is its row sums; their plain versions take it
+    as `keep`. With `corners` ((x_lo, x_hi, y_lo, y_hi), each (rows, 1)),
+    row i is culled against that rect of pixel centres instead of its
+    tile (`warp_keep`)."""
+    tiles_x, _, _ = _grid(width, height, tile, tile_h)
     dev = records.device
     t_count = records.shape[0] - 1
-    n_big, cap = big_list.shape[0], lists.shape[1]
-    ids = torch.cat([big_list[None, :].expand(n_tiles, -1), lists], dim=1)
+    rows, (n_big, cap) = lists.shape[0], (big_list.shape[0], lists.shape[1])
+    if tiles is None:
+        tiles = torch.arange(rows, device=dev)
+    ids = torch.cat([big_list[None, :].expand(rows, -1), lists], dim=1)
     slot = torch.arange(n_big + cap, device=dev)[None, :]
     big_end = torch.clamp(_blocks_of((big_list >= 0).sum()), max=n_big // TRI_BLOCK)
     grid_end = torch.clamp(_blocks_of(counts), max=cap // TRI_BLOCK)[:, None]
     scanned = torch.where(slot < n_big, slot < big_end * TRI_BLOCK,
                           slot - n_big < grid_end * TRI_BLOCK)
-    d = records[torch.where(ids >= 0, ids, t_count).long()]      # (tiles, S, 16)
+    d = records[torch.where(ids >= 0, ids, t_count).long()]      # (rows, S, 16)
     lane = lambda i: d[..., i]
-    corners = _tile_corners(n_tiles, tiles_x, tile, tile_h, dev)
+    if corners is None:
+        corners = _tile_corners(tiles.long(), tiles_x, tile, tile_h)
     if form == "vertex":
         x0, y0, x1, y1, x2, y2 = (lane(i) for i in range(6))
         e_max = [_vertex_edge_max(x1, y1, x2, y2, *corners),
@@ -1226,6 +1317,25 @@ def tile_slot_keep(records: Tensor, lists: Tensor, counts: Tensor, big_list: Ten
         rx0, rx1, ry0, ry1 = _rect_of(lane(15), atlas_bounds)
         keep = keep & (x_hi >= rx0) & (x_lo < rx1) & (y_hi >= ry0) & (y_lo < ry1)
     return keep
+
+
+def warp_keep(records: Tensor, lists: Tensor, counts: Tensor, width: int,
+              height: int, tile: int, tile_h: int, atlas_bounds: tuple = (),
+              tiles: Tensor = None) -> Tensor:
+    """The second cull of depth_super and depth_grid (their `mark_warps`):
+    (rows, DEPTH_WARPS, cap) bool, True where slot s of row i's list may
+    reach a pixel centre of warp w of its tile (tiles[i], default tile i),
+    by `tile_slot_keep`'s edge-form test over that warp's bounding rect
+    (`_warp_corners`). A warp inside its tile keeps at most what the tile
+    keeps; the kernels skip a survivor on every warp that does not."""
+    tiles_x, _, _ = _grid(width, height, tile, tile_h)
+    if tiles is None:
+        tiles = torch.arange(lists.shape[0], device=lists.device)
+    keep = tile_slot_keep(records, lists.repeat_interleave(DEPTH_WARPS, 0),
+                          counts.repeat_interleave(DEPTH_WARPS), lists[0, :0], width,
+                          height, tile, tile_h, atlas_bounds, "edge",
+                          corners=_warp_corners(tiles, tiles_x, tile, tile_h))
+    return keep.reshape(lists.shape[0], DEPTH_WARPS, -1)
 
 
 def _depth_kernel_setup(kernel: str, records: Tensor, tile: int, tile_h: int,
@@ -1271,9 +1381,12 @@ def _kept_ptr(kept: Tensor):
 
 def depth_super_cuda(records: Tensor, sup_tris: Tensor, sup_counts: Tensor,
                      sup_grid: tuple, width: int, height: int, tile: int,
-                     tile_h: int, atlas_bounds: tuple = ()) -> Tensor:
+                     tile_h: int, atlas_bounds: tuple = (),
+                     kept: Tensor = None) -> Tensor:
     """Launch the depth_super kernel (csrc/depth_raster.cu); same inputs and
-    output as `depth_super_plain`."""
+    output as `depth_super_plain`. With `kept` (tiles,) int32, the kernel
+    also writes each tile's number of slots that pass its cull (the row
+    sums of `tile_slot_keep(..., form="edge")` over `super_lists`)."""
     lib, rects, n_rects, stream = _depth_kernel_setup(
         "depth_super", records, tile, tile_h, atlas_bounds)
     sup_x, sup_y, sups_x = sup_grid
@@ -1284,14 +1397,14 @@ def depth_super_cuda(records: Tensor, sup_tris: Tensor, sup_counts: Tensor,
         raise ValueError("depth_super: sup_tris must be (n_sup, 16k)")
     _check("sup_tris", sup_tris, torch.int32, (n_sup, cap), dev, "depth_super")
     _check("sup_counts", sup_counts, torch.int32, (n_sup,), dev, "depth_super")
+    _check_kept(kept, n_tiles, dev, "depth_super")
     depth = torch.empty((tiles_y * tile_h, tiles_x * tile), device=dev)
-    _call(lib.depth_super_launch, [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
-          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p], "depth_super",
-          _ptr(records), _ptr(sup_tris), _ptr(sup_counts), cap,
-          records.shape[0] - 1, n_tiles, tiles_x, tile, tile_h, sup_x, sup_y,
-          sups_x, _ptr(rects), n_rects, _ptr(depth),
-          _smem_bytes("depth_super", cap), ctypes.c_void_p(stream))
+    _call(lib.depth_super_launch, [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_void_p], "depth_super",
+          _ptr(records), _ptr(sup_tris), _ptr(sup_counts), cap, n_tiles, tiles_x,
+          tile, tile_h, sup_x, sup_y, sups_x, _ptr(rects), n_rects, _ptr(depth),
+          _kept_ptr(kept), _smem_bytes("depth_super", cap), ctypes.c_void_p(stream))
     depth_super.launches += 1
     return depth
 
@@ -1299,9 +1412,12 @@ def depth_super_cuda(records: Tensor, sup_tris: Tensor, sup_counts: Tensor,
 def depth_grid_cuda(depth: Tensor, records: Tensor, act_ids: Tensor,
                     act_cnt: Tensor, tile_tris: Tensor, bound: Tensor,
                     width: int, height: int, tile: int, tile_h: int,
-                    atlas_bounds: tuple = ()) -> Tensor:
+                    atlas_bounds: tuple = (), kept: Tensor = None) -> Tensor:
     """Launch the depth_grid kernel (csrc/depth_raster.cu), which updates
-    `depth` in place; same inputs and result as `depth_grid_plain`."""
+    `depth` in place; same inputs and result as `depth_grid_plain`. With
+    `kept` (rows,) int32, the kernel also writes each active row's number
+    of slots that pass its cull (the row sums of `tile_slot_keep(...,
+    form="edge", tiles=act_ids)`)."""
     lib, rects, n_rects, stream = _depth_kernel_setup(
         "depth_grid", records, tile, tile_h, atlas_bounds)
     tiles_x, tiles_y, _ = _grid(width, height, tile, tile_h)
@@ -1309,6 +1425,8 @@ def depth_grid_cuda(depth: Tensor, records: Tensor, act_ids: Tensor,
     dev = records.device
     if cap % TRI_BLOCK:
         raise ValueError("depth_grid: tile_tris must have 16k columns")
+    if cap > MAX_SLOTS:
+        raise ValueError(f"depth_grid: {cap} list slots, at most {MAX_SLOTS}")
     _check("depth", depth, torch.float32, (tiles_y * tile_h, tiles_x * tile), dev,
            "depth_grid")
     _check("act_ids", act_ids, torch.int32, (rows,), dev, "depth_grid")
@@ -1316,13 +1434,13 @@ def depth_grid_cuda(depth: Tensor, records: Tensor, act_ids: Tensor,
     _check("tile_tris", tile_tris, torch.int32, (rows, cap), dev, "depth_grid")
     _check("bound", bound, torch.float32, (rows, cap // TRI_BLOCK + 1), dev,
            "depth_grid")
-    _call(lib.depth_grid_launch, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p], "depth_grid",
+    _check_kept(kept, rows, dev, "depth_grid")
+    _call(lib.depth_grid_launch, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_void_p], "depth_grid",
           _ptr(records), _ptr(act_ids), _ptr(act_cnt), _ptr(tile_tris), _ptr(bound),
-          cap, records.shape[0] - 1, rows, tiles_x, tile, tile_h,
-          _ptr(rects), n_rects, _ptr(depth), _smem_bytes("depth_grid", cap),
-          ctypes.c_void_p(stream))
+          cap, rows, tiles_x, tile, tile_h, _ptr(rects), n_rects, _ptr(depth),
+          _kept_ptr(kept), _smem_bytes("depth_grid", cap), ctypes.c_void_p(stream))
     depth_grid.launches += 1
     return depth
 

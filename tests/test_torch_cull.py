@@ -1,6 +1,6 @@
 """The exact per-tile slot cull of the sorted_blend (K6), depth_dense
-(K4), raster_shade (K1), visibility (K5) and OIT (K7, per row band)
-kernels, on the CPU.
+(K4), depth_super (K2), depth_grid (K3), raster_shade (K1), visibility
+(K5) and OIT (K7, per row band) kernels, on the CPU.
 
 `raster.tile_slot_keep` marks the scanned slots whose triangle may reach a
 pixel centre of the tile, from the kernels' own float expressions at one
@@ -23,7 +23,11 @@ scans are those tile_slot_keep scans. Their kernels cull per row band
 (`raster.band_args`): the plain rasters on that band grid, masked, equal
 the unmasked ones on the tiles. K7's cull works on the OIT kernel's
 band grid (`oit.band_keep`): its tests add big-list holes and big triangles
-that each lie in a few rows, so most of a tile's bands cull them.
+that each lie in a few rows, so most of a tile's bands cull them. K2 culls
+each tile's super-tile list (`raster.super_lists`), K3 each active row's
+list against the tile that `act_ids` names (`tile_slot_keep(...,
+tiles=)`): their tests draw the active rows out of tile order, and add an
+early exit after a block that the cull emptied for that row's tile only.
 """
 
 import numpy as np
@@ -256,6 +260,166 @@ def test_early_exit_after_a_culled_block():
         works[name] = w_keep[0]
     # the exit skipped block 2's 16 kept slots on tile 0's 128x16 pixels
     assert works["never"] - works["exit"] == 16 * 128 * 16
+
+
+# -- K2 and K3: the split atlas raster, super-tile lists and active rows -----
+
+def _split_args(case, seed, rects, n_act=10):
+    """depth_super's and depth_grid's arguments on a `case` scene: 2x2-tile
+    super-tiles whose lists name triangles at random, and `n_act` active
+    rows for tiles drawn out of tile order, each with a random list."""
+    setup, _, lists, counts, atlas, rng = _inputs(case, seed)
+    tiles_x, tiles_y, n_tiles = raster._grid(W, H, 128, 16)
+    sups_x = -(-tiles_x // 2)
+    n_sup = sups_x * -(-tiles_y // 2)
+    act = torch.from_numpy(rng.permutation(n_tiles)[:n_act].astype(np.int32))
+    bounds = BOUNDS if rects else ()
+    a = raster.depth_args(setup, lists[:n_act], counts[:n_act], lists[0, :0], W, H, 128,
+                          bounds, atlas if rects else None, 16,
+                          sup_bins=(lists[-n_sup:], counts[-n_sup:], (2, 2, sups_x)),
+                          act_ids=act)
+    return a["super"], a["grid"]
+
+
+@pytest.mark.parametrize("rects", [False, True], ids=["screen", "atlas_rects"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_split_depth_cull_is_exact(case, rects):
+    """K2's cull over each tile's super-tile list and K3's over its active
+    rows (corners of tile act_ids[i]): the masked plain versions equal the
+    unmasked ones bit for bit, K3's early exit included, and each mask
+    culls."""
+    sup, grid = _split_args(case, 6, rects)
+    ca2, ca3 = chip_smoke.cull_args(sup, "super"), chip_smoke.cull_args(grid, "grid")
+    keep2, keep3 = raster.tile_slot_keep(*ca2), raster.tile_slot_keep(*ca3)
+    ref2 = raster.depth_super_plain(*sup)
+    assert torch.equal(_bits(raster.depth_super_plain(*sup, keep=keep2)), _bits(ref2))
+    ref3 = raster.depth_grid_plain(ref2.clone(), *grid)
+    out3 = raster.depth_grid_plain(ref2.clone(), *grid, keep=keep3)
+    assert torch.equal(_bits(out3), _bits(ref3))
+    assert (ref3 > ref2).any()
+    for keep, ca in ((keep2, ca2), (keep3, ca3)):
+        assert 0 < int(keep.sum()) < _named(*ca[1:4])
+
+
+def test_grid_early_exit_after_a_culled_block():
+    """K3's early exit after a block that the cull emptied, on active rows
+    out of tile order: row 0 is tile 1, row 1 tile 0. Row 1's list is that
+    of test_early_exit_after_a_culled_block (block 1 holds only triangles
+    inside tile 1), so its mask culls block 1 with tile 0's corners, which
+    tile 1's would keep; the masked raster keeps the exit after block 1 and
+    equals the unmasked one."""
+    w, h = 256, 16
+    tris = [_flat(-300.0, -300.0, 900.0, 900.0, 0.9)]
+    tris += [_flat(140.0 + 6 * k, 2.0, 146.0 + 6 * k, 10.0, 0.95) for k in range(16)]
+    tris += [_flat(10.0 + 5 * k, 3.0, 14.0 + 5 * k, 9.0, 0.5) for k in range(16)]
+    sx, sy, z = (np.array([t[i] for t in tris]).T for i in range(3))
+    setup = _setup(sx, sy, z)
+    lists = torch.full((2, 48), -1, dtype=torch.int32)
+    lists[0, :16] = torch.arange(1, 17)
+    lists[1, 0] = 0
+    lists[1, 16:48] = torch.arange(1, 33)
+    counts = torch.tensor([16, 48], dtype=torch.int32)
+    act = torch.tensor([1, 0], dtype=torch.int32)
+    empty = torch.full((1, 16), -1, dtype=torch.int32)
+    a = raster.depth_args(setup, lists, counts, lists[0, :0], w, h, 128, (), None, 16,
+                          sup_bins=(empty, torch.zeros(1, dtype=torch.int32), (4, 1, 1)),
+                          act_ids=act)["grid"]
+    ca = chip_smoke.cull_args(a, "grid")
+    keep = raster.tile_slot_keep(*ca)
+    assert keep[0, :16].all() and keep[1, 0] and keep[1, 32:48].all()
+    assert not keep[1, 16:32].any()                     # block 1 culled for tile 0
+    assert raster.tile_slot_keep(*ca[:10])[1, 16:32].all()   # tile 1's corners keep it
+    never = torch.full_like(a[4], float("inf"))
+    works = {}
+    for name, bnd in (("exit", a[4]), ("never", never)):
+        args = a[:4] + (bnd,) + a[5:]
+        ref = raster.depth_grid_plain(torch.zeros(h, w), *args)
+        w_keep = [0]
+        out = raster.depth_grid_plain(torch.zeros(h, w), *args, work=w_keep, keep=keep)
+        assert torch.equal(_bits(out), _bits(ref)), name
+        works[name] = w_keep[0]
+    # the exit skipped block 2's 16 kept slots on tile 0's 128x16 pixels
+    assert works["never"] - works["exit"] == 16 * 128 * 16
+
+
+def _warp_of_pixels(tile, tile_h):
+    """The warp of the depth kernels' 256-thread block that holds each
+    pixel of a tile, row-major: a thread holds one column and every
+    (256 / tile)-th row of it."""
+    pix = torch.arange(tile * tile_h)
+    row, col = pix // tile, pix % tile
+    return ((row % (raster.DEPTH_THREADS // tile)) * tile + col) // 32
+
+
+@pytest.mark.parametrize("tile,tile_h", [(128, 16), (128, 32), (64, 64), (16, 64)])
+def test_warp_corners_bound_each_warps_pixels(tile, tile_h):
+    """_warp_corners, the twin of the kernels' warp_corners, is the bounding
+    rect of the pixel centres that each warp holds, for wide tiles (a
+    warp's lanes in one row) and narrow ones (16 columns: two rows)."""
+    tiles = torch.tensor([0, 5, 3])
+    px, py = raster._tile_coords(tiles, 4, tile, tile_h)
+    warp = _warp_of_pixels(tile, tile_h)
+    got = raster._warp_corners(tiles, 4, tile, tile_h)
+    for w in range(raster.DEPTH_WARPS):
+        x, y = px[:, warp == w], py[:, warp == w]
+        want = (x.amin(1), x.amax(1), y.amin(1), y.amax(1))
+        for g, v in zip(got, want):
+            assert torch.equal(g.reshape(3, -1)[:, w], v), w
+
+
+@pytest.mark.parametrize("rects", [False, True], ids=["screen", "atlas_rects"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_split_warp_cull_is_exact(case, rects):
+    """K2's and K3's second cull (raster.warp_keep, the twin of their
+    mark_warps): every (slot, warp) pair with a pixel inside the triangle
+    and its rect survives it, it keeps no more than the tile cull, and it
+    culls some of that; the plain versions' counts of the pairs the two
+    culls leave agree with it."""
+    sup, grid = _split_args(case, 6, rects)
+    warp = _warp_of_pixels(128, 16)
+    for args, kind, plain in ((sup, "super", raster.depth_super_plain),
+                              (grid, "grid", raster.depth_grid_plain)):
+        ca = chip_smoke.cull_args(args, kind)
+        keep, warps = raster.tile_slot_keep(*ca), chip_smoke.split_warps(ca)
+        assert not (warps & ~keep[:, None, :]).any()
+        assert 0 < int((warps & keep[:, None, :]).sum()) < raster.DEPTH_WARPS * int(keep.sum())
+        tiles = ca[10].long() if kind == "grid" else torch.arange(keep.shape[0])
+        px, py = raster._tile_coords(tiles, raster._grid(W, H, 128, 16)[0], 128, 16)
+        ids = ca[1].long()
+        d = args[0][torch.where(ids >= 0, ids, args[0].shape[0] - 1)][..., None]
+        _, inside = raster._depth_candidates(d, px[:, None, :], py[:, None, :], ca[8])
+        inside = inside & keep[..., None]                   # (rows, cap, pixels)
+        on_warp = torch.stack([inside[..., warp == w].any(-1)
+                               for w in range(raster.DEPTH_WARPS)], 1)
+        assert on_warp.any() and not (on_warp & ~warps).any()
+        tiles_x, tiles_y, _ = raster._grid(W, H, 128, 16)
+        image = lambda: torch.zeros(tiles_y * 16, tiles_x * 128)   # the padded atlas
+        work, prior = [0] * 4, ((image(),) if kind == "grid" else ())
+        plain(*prior, *args, work=work, keep=keep, warps=warps)
+        never = [0] * 4                                     # no early exit
+        if kind == "grid":
+            a = args[:4] + (torch.full_like(args[4], float("inf")),) + args[5:]
+            plain(image(), *a, work=never, keep=keep, warps=warps)
+        else:
+            never = work
+        assert never[1] == int((warps & keep[:, None, :]).sum()) * 16 * 128 // 8
+        assert never[3] == int(inside.sum())
+        assert work[3] <= work[1] <= work[0] and work[2] <= work[1]
+        assert (work[2] > 0) == bool(rects)
+
+
+def test_supertile_counts_are_the_lists_before_the_cap():
+    """raster.supertile_counts gives each super-tile's casters before the
+    cap: bin_big_supertiles' counts are them capped, and its lists are the
+    uncapped lists' first slots."""
+    setup, big, *_ = _inputs("slopes", 7, n_big=48)
+    args = (setup, big, W, H, 128, 16, 1, 2)
+    full = raster.supertile_counts(*args)
+    tris, counts, _ = raster.bin_big_supertiles(*args, cap=4)
+    wide, _, _ = raster.bin_big_supertiles(*args, cap=64)
+    assert torch.equal(counts.long(), full.clamp(max=4))
+    assert 4 < int(full.max()) <= 64
+    assert torch.equal(tris, wide[:, :4])
 
 
 @pytest.fixture(scope="module")

@@ -13,12 +13,13 @@ plain versions exactly, and the split pair the dense one. So must the
 visibility kernel (K5), the ordered blend (K6, with and without atlas
 rects) and the OIT accumulation (K7, whose 128x128 tiles run as sixteen
 128x8 row bands). Small combined steps on the card, the glass step's
-among them, match the CPU within the image bar. The kernels that cull their slots
-(K1, K4, K5, K6, K7) equal their plain versions in every bit, and their
-`kept` counts equal the row sums of the cull's plain twin
-(`raster.tile_slot_keep`; for the row bands of K1 and K5 over
-`raster.band_args`, of K7 `oit.band_keep`), at two tile shapes and at
-a frame size that is not a multiple of the tile.
+among them, match the CPU within the image bar. All seven cull their slots;
+they equal their plain versions in every bit, and their `kept` counts
+equal the row sums of the cull's plain twin (`raster.tile_slot_keep`; for
+the row bands of K1 and K5 over `raster.band_args`, of K7
+`oit.band_keep`, of K2 over `raster.super_lists`, of K3 with
+tiles=act_ids), at two tile shapes and at a frame size that is not a
+multiple of the tile.
 """
 
 import numpy as np
@@ -208,6 +209,14 @@ def test_depth_wrapper_launches_and_counts(cuda):
     bad[7] = 100                                    # not a kernel tile shape
     with pytest.raises(ValueError):
         raster.depth_dense_cuda(*bad)
+    s = raster.depth_args(gs, *[b.to(cuda) for b in bins], w, h, 128, tile_h=16,
+                          sup_bins=(sup[0].to(cuda), sup[1].to(cuda), sup[2]),
+                          max_active=12)
+    short = torch.zeros(3, dtype=torch.int32, device=cuda)   # kept: one int a tile
+    with pytest.raises(ValueError):
+        raster.depth_super_cuda(*s["super"], kept=short)
+    with pytest.raises(ValueError):
+        raster.depth_grid_cuda(torch.zeros(h, w, device=cuda), *s["grid"], kept=short)
 
 
 @pytest.mark.parametrize("shadow", ["split", "dense"])
@@ -447,6 +456,90 @@ def test_culled_depth_matches_plain_on_card(cuda, w, h, tile_h, covering, atlas)
     assert torch.equal(kept, keep.sum(1).int())
     _check_kept_share(kept, a[1], a[3], covering, atlas)
     assert (kd > 0).float().mean().item() > 0.05
+
+
+@pytest.mark.parametrize("w,h", [(264, 72), (262, 70)], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("tile_h", [16, 32])
+@pytest.mark.parametrize("atlas", [False, True], ids=["screen", "atlas_rects"])
+def test_culled_split_depth_matches_plain_on_card(cuda, w, h, tile_h, atlas):
+    """K2 over 2x2-tile super-tile lists and K3 over active rows out of tile
+    order, each with its cull and warp skip, equal depth_super_plain and
+    depth_grid_plain bit for bit; `kept` equals the row sums of
+    tile_slot_keep over their layouts (super_lists; tiles = act_ids); a
+    null `kept` changes nothing."""
+    setup, lists, counts, big, atl, *_ = _cull_scene(41 + tile_h, w, h, 128, tile_h,
+                                                     False)
+    tiles_x, tiles_y, n_tiles = raster._grid(w, h, 128, tile_h)
+    sups_x = -(-tiles_x // 2)
+    n_sup = sups_x * -(-tiles_y // 2)
+    act = np.random.default_rng(tile_h).permutation(n_tiles)[:max(n_tiles // 2, 1)]
+    act = torch.from_numpy(act.astype(np.int32))
+    bounds = _cull_bounds(w, h) if atlas else ()
+    a = raster.depth_args(setup, lists[act.long()], counts[act.long()], big[:0], w, h,
+                          128, bounds, atl if atlas else None, tile_h,
+                          sup_bins=(lists[:n_sup], counts[:n_sup], (2, 2, sups_x)),
+                          act_ids=act)
+    sup, grid = ([_to(x, cuda) for x in a[k]] for k in ("super", "grid"))
+    kept2 = torch.full((n_tiles,), -7, dtype=torch.int32, device=cuda)
+    kept3 = torch.full((act.numel(),), -7, dtype=torch.int32, device=cuda)
+    k2 = raster.depth_super_cuda(*sup, kept=kept2)
+    k2n = raster.depth_super_cuda(*sup)
+    k3 = raster.depth_grid_cuda(k2.clone(), *grid, kept=kept3)
+    k3n = raster.depth_grid_cuda(k2.clone(), *grid)
+    p2 = raster.depth_super_plain(*sup)
+    p3 = raster.depth_grid_plain(p2.clone(), *grid)
+    none = grid[3][0, :0]
+    keep2 = raster.tile_slot_keep(sup[0], *raster.super_lists(*sup[1:8]), none,
+                                  *sup[4:9], "edge")
+    keep3 = raster.tile_slot_keep(grid[0], grid[3], grid[2], none, *grid[5:10], "edge",
+                                  grid[1])
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(k2), _bits(p2)) and torch.equal(_bits(k2n), _bits(k2))
+    assert torch.equal(_bits(k3), _bits(p3)) and torch.equal(_bits(k3n), _bits(k3))
+    assert torch.equal(kept2, keep2.sum(1).int())
+    assert torch.equal(kept3, keep3.sum(1).int())
+    assert 0 < int(kept2.sum()) < int((raster.super_lists(*sup[1:8])[0] >= 0).sum())
+    assert (k3 > k2).any() and (k2 > 0).any()
+
+
+def test_grid_early_exit_after_a_culled_block_on_card(cuda):
+    """K3 on active rows out of tile order (row 0 is tile 1, row 1 tile 0):
+    row 1's block 0 covers tile 0 at depth 0.9, its block 1 holds only
+    triangles inside tile 1 (zmax 0.95, culled for tile 0) and its block 2
+    triangles at depth 0.5, so the exit fires after the block that the
+    cull emptied. The kernel equals depth_grid_plain in every bit, with the
+    exit and with a bound that never exits; `kept` is 16 and 17."""
+    w, h = 256, 16
+    tris = [(-300.0, -300.0, 900.0, 900.0, 0.9)]
+    tris += [(140.0 + 6 * k, 2.0, 146.0 + 6 * k, 10.0, 0.95) for k in range(16)]
+    tris += [(10.0 + 5 * k, 3.0, 14.0 + 5 * k, 9.0, 0.5) for k in range(16)]
+    x0, y0, x1, y1, z = (np.array(c, np.float32) for c in zip(*tris))
+    sx, sy = np.stack([x0, x0, x1]), np.stack([y0, y1, y0])
+    area = np.abs((x1 - x0) * (y1 - y0))
+    setup = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in {
+        "sx": sx, "sy": sy, "z": np.stack([z, z, z]), "inv_area": 1.0 / area,
+        "xmin": sx.min(0), "xmax": sx.max(0), "ymin": sy.min(0),
+        "ymax": sy.max(0)}.items()}
+    setup["valid"] = torch.ones(len(tris), dtype=torch.bool)
+    lists = torch.full((2, 48), -1, dtype=torch.int32)
+    lists[0, :16] = torch.arange(1, 17)
+    lists[1, 0] = 0
+    lists[1, 16:48] = torch.arange(1, 33)
+    empty = torch.full((1, 16), -1, dtype=torch.int32)
+    a = raster.depth_args(setup, lists, torch.tensor([16, 48], dtype=torch.int32),
+                          lists[0, :0], w, h, 128, (), None, 16,
+                          sup_bins=(empty, torch.zeros(1, dtype=torch.int32), (4, 1, 1)),
+                          act_ids=torch.tensor([1, 0], dtype=torch.int32))["grid"]
+    a = [_to(x, cuda) for x in a]
+    for bnd in (a[4], torch.full_like(a[4], float("inf"))):
+        args = a[:4] + [bnd] + a[5:]
+        kept = torch.full((2,), -7, dtype=torch.int32, device=cuda)
+        k3 = raster.depth_grid_cuda(torch.zeros(h, w, device=cuda), *args, kept=kept)
+        p3 = raster.depth_grid_plain(torch.zeros(h, w, device=cuda), *args)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(k3), _bits(p3))
+        assert kept.tolist() == [16, 17]
+    assert (k3[:, :128] == 0.9).all()
 
 
 def _shade_records(seed, n):
