@@ -53,7 +53,26 @@ i. run 5 glass steps: K1, K2, K3, K5 and K7 launch once per step, K4 and
 j. a small glass step on the card against the same step on the CPU;
 k. time K1 at the glass step's shape, and K4, K5, K6 and K7 there against
    their plain versions, the non-opaque stages, the glass render and the
-   glass step.
+   glass step;
+then the rest of the physics world (plain PyTorch, no hand kernel):
+l. bench.py's world at full size (`physics.scenes.bench_world`: 10,240
+   bodies, a plane and alternating boxes and spheres): BENCH_SETTLE steps,
+   finite, the lower layers landed (contacts carry impulses); from there 3
+   steps on the card against the CPU, positions within TOL_BENCH_CPU and
+   normal impulses within TOL_BENCH_WARM;
+m. the seven golden scenes (`physics.golden`) on the card within their
+   analytic budgets; the pendulum (a point joint) twice, the same bits;
+n. a world of every shape type with a point joint and sleep on
+   (`physics.scenes.mixed_world`, on the compacted collide branch):
+   MIXED_STEPS steps on the card against the CPU within TOL_MIXED_CPU, a
+   body asleep, the first MIXED_REPEAT steps twice on the card the same
+   bits; cast_ray, cast_sphere and
+   cast_shape on the card against the CPU within TOL_QUERY;
+o. time the bench world's physics step and its stages (collide, broadphase,
+   narrowphase, solve_velocity, solve_position), one `simulate` tick and
+   the flagship's box-only physics step; profile the bench step for the
+   device's busy share and each stage's host and device time
+   (`tools/profile_torch_step.profile_physics`).
 
 Every kernel culls its slots exactly. Wherever one is checked (phases 4,
 b, c, d and h), it also writes its per-tile (K1, K5, K7: per row band;
@@ -87,6 +106,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 KERNELS = {   # name -> (route, source, the TPU kernel it replaces)
     "raster_shade": ("cuda", "garden_tpu_torch/csrc/raster_shade.cu",
@@ -106,6 +126,15 @@ KERNELS = {   # name -> (route, source, the TPU kernel it replaces)
 }
 SOURCES = ["raster_shade", "depth_raster", "blend_raster"]
 TOL_GBUF = 2e-5            # K1's G-buffer planes (rsqrt may differ by an ulp)
+# physics on the card against the CPU: positions after 3 steps of the bench
+# world from BENCH_SETTLE steps in (as phase 5b), and its normal impulses then
+# over the largest of them; after MIXED_STEPS of the mixed world (compounds, hulls,
+# meshes, a joint, sleep: a body at rest falls asleep after 31 steps), whose
+# first MIXED_REPEAT steps run twice on the card; the three casts' distance,
+# point and normal
+TOL_BENCH_CPU, TOL_BENCH_WARM, TOL_MIXED_CPU, TOL_QUERY = 1e-4, 1e-5, 1e-3, 1e-4
+BENCH_SETTLE = 20
+MIXED_STEPS, MIXED_REPEAT = 35, 10
 N_BODIES, WIDTH, HEIGHT = 10240, 1920, 1080
 
 # The bound of a kernel: the larger of its float32 operations over the
@@ -591,6 +620,147 @@ def small_step_vs_cpu(build, overrides, phase: str, box_materials=None) -> None:
           f"max|d| pos {pos_d:.3g}")
     check(tri_small >= 0.999 and img_ok >= 0.995 and pos_d <= 1e-4,
           f"phase {phase}: the small step on the card disagrees with the CPU")
+
+
+def physics_phases(card: str) -> None:
+    """Phases l-o: the rest of the physics world on the card."""
+    import numpy as np
+    import torch
+    from garden_tpu_torch.entry import flagship_world
+    from garden_tpu_torch.physics import (golden, narrowphase, queries, scenes, solver,
+                                          world as pw)
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from profile_torch_step import profile_physics
+
+    h = 1.0 / 60.0
+
+    def run(state, cfg, types, steps):
+        for _ in range(steps):
+            state = pw.step(state, cfg, h, types)
+        return state
+
+    # phase l: bench.py's world at full size (10,240 bodies, half spheres),
+    # BENCH_SETTLE steps on the card so that the lower layers rest on the
+    # plane and on each other; then 3 steps from there on the card and on the
+    # CPU, contacts binding
+    t0 = time.perf_counter()
+    bst, bcfg, btypes = scenes.bench_world("cuda")
+    check(btypes == frozenset((1, 2, 6)), f"bench world types {sorted(btypes)}")
+    bs = run(bst, bcfg, btypes, BENCH_SETTLE)
+    pos = bs["bodies"]["pos"]
+    check(bool(torch.isfinite(pos).all()), "phase l: bench world bodies are not finite")
+    n_contacts = int(pw.collide(bs, bcfg, btypes)["valid"].sum())
+    binding = int((bs["warm"]["n"] > 0).sum())
+    print(f"phase l: bench world 10240 bodies, {BENCH_SETTLE} steps in "
+          f"{time.perf_counter() - t0:.1f} s; finite; {n_contacts} contact points "
+          f"(speculative included), {binding} carry a normal impulse; mean drop "
+          f"{(bst['bodies']['pos'][1:, 1] - pos[1:, 1]).mean().item():.5f} m")
+    check(binding > 1000, "phase l: the bench world's contacts never bound")
+
+    def to(tree, dev):
+        return {k: to(v, dev) for k, v in tree.items()} if isinstance(tree, dict) \
+            else tree.to(dev)
+
+    after = {dev: run(to(bs, dev), bcfg, btypes, 3) for dev in ("cuda", "cpu")}
+    d_bench = max_diff(after["cuda"]["bodies"]["pos"].cpu(), after["cpu"]["bodies"]["pos"])
+    warm_cpu = after["cpu"]["warm"]["n"]
+    d_warm = max_diff(after["cuda"]["warm"]["n"].cpu(), warm_cpu) / float(warm_cpu.abs().max())
+    print(f"phase l: 3 steps from there cuda vs cpu: max|d| pos {d_bench:.3g} (bar "
+          f"{TOL_BENCH_CPU}), normal impulses max|d| {d_warm:.3g} of their largest "
+          f"{float(warm_cpu.abs().max()):.4g} (bar {TOL_BENCH_WARM})")
+    check(d_bench <= TOL_BENCH_CPU and d_warm <= TOL_BENCH_WARM,
+          "phase l: the bench world on the card disagrees with the CPU")
+
+    # phase m: the seven golden scenes on the card, held to their budgets
+    t0 = time.perf_counter()
+    for name in golden.SCENES:
+        curves = golden.simulate(name, "cuda")
+        golden.check(name, curves)
+        if name == "pendulum":
+            again = golden.simulate(name, "cuda")
+            check(all(np.array_equal(curves[k], again[k]) for k in curves),
+                  "phase m: the pendulum on the card is not deterministic")
+    print(f"phase m: the seven golden scenes pass their analytic budgets on the card; "
+          f"the pendulum twice gives the same bits ({time.perf_counter() - t0:.1f} s)")
+
+    # phase n: every shape type, a point joint and sleep, card against CPU
+    t0 = time.perf_counter()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st, mcfg, mtypes = scenes.mixed_world(dev)
+        st = run(st, mcfg, mtypes, MIXED_REPEAT)
+        if dev == "cuda":
+            first = st["bodies"]["pos"].clone()
+        out[dev] = run(st, mcfg, mtypes, MIXED_STEPS - MIXED_REPEAT)
+    again = run(*scenes.mixed_world("cuda"), MIXED_REPEAT)
+    check(torch.equal(first, again["bodies"]["pos"]),
+          "phase n: the mixed world on the card is not deterministic")
+    d_mixed = max_diff(out["cuda"]["bodies"]["pos"].cpu(), out["cpu"]["bodies"]["pos"])
+    mb = out["cuda"]["bodies"]
+    sleeping = int((mb["sleeping"] & (mb["motion"] == pw.DYNAMIC) & mb["has"]).sum())
+    print(f"phase n: mixed world {sorted(mtypes)} with a joint and sleep, {MIXED_STEPS} "
+          f"steps cuda vs cpu: max|d| pos {d_mixed:.3g} (bar {TOL_MIXED_CPU}); "
+          f"{sleeping} dynamic bodies asleep; the card's first {MIXED_REPEAT} steps twice "
+          f"give the same bits "
+          f"({time.perf_counter() - t0:.1f} s)")
+    check(d_mixed <= TOL_MIXED_CPU and sleeping >= 1,
+          "phase n: the mixed world on the card disagrees with the CPU or never slept")
+    hits = {}
+    for dev in ("cuda", "cpu"):
+        st = out[dev]
+        v = lambda *c: torch.tensor(c, dtype=torch.float32, device=dev)
+        down = v(0.0, -1.0, 0.0)
+        hits[dev] = [queries.cast_ray(st, v(-3.5, 5.0, 0.3), down),
+                     queries.cast_sphere(st, v(3.5, 5.0, -0.4), down, 0.2),
+                     queries.cast_shape(st, 5, v(0.2, 6.0, 0.1), v(0.0, 0.0, 0.0, 1.0), down,
+                                        max_distance=20.0, present_types=mtypes)]
+    for name, hc, hp in zip(("cast_ray", "cast_sphere", "cast_shape"), hits["cuda"],
+                            hits["cpu"]):
+        d = max(max_diff(getattr(hc, k).cpu(), getattr(hp, k))
+                for k in ("distance", "point", "normal"))
+        print(f"phase n: {name} on the card: hit {bool(hc.hit)} body {int(hc.body)} "
+              f"distance {float(hc.distance):.5f}; max|d| vs cpu {d:.3g}")
+        check(bool(hc.hit) and int(hc.body) == int(hp.body) and d <= TOL_QUERY,
+              f"phase n: {name} on the card disagrees with the CPU")
+
+    # phase o: timings (medians of CUDA events after a warm-up)
+    step = lambda s: pw.step(s, bcfg, h, btypes)
+    stype, params, margin, cand, cvalid = pw.candidates(bs, bcfg)
+    n, k = cand.shape
+    pair_i = torch.arange(n, dtype=torch.int32, device="cuda")[:, None].expand(n, k).reshape(-1)
+    contacts = pw.collide(bs, bcfg, btypes)
+    bodies = bs["bodies"]
+    warm = {key: torch.zeros_like(contacts["pen"]) for key in ("n", "t1", "t2")}
+    gravity = torch.tensor(bcfg.gravity, device="cuda")
+    fw, fcfg, _ = flagship_world(N_BODIES, 64, 2.0)
+    fstate, ftypes = fw.device_state("cuda"), fw.shapes.present_types()
+    times = {
+        "bench world physics step": cuda_ms(lambda: step(bs), reps=10, warmup=3),
+        "  collide (broadphase + narrowphase)": cuda_ms(
+            lambda: pw.collide(bs, bcfg, btypes), reps=10),
+        "    broadphase": cuda_ms(lambda: pw.candidates(bs, bcfg), reps=10),
+        "    narrowphase": cuda_ms(lambda: narrowphase.generate_contacts(
+            bodies["pos"], bodies["quat"], stype, params, pair_i, cand.reshape(-1),
+            cvalid.reshape(-1), margin=margin, present_types=btypes,
+            tables=bs["shapes"]), reps=10),
+        "  solve_velocity": cuda_ms(lambda: solver.solve_velocity(
+            bodies, contacts, h, iterations=bcfg.solver_iterations, baumgarte=0.0,
+            slop=bcfg.penetration_slop, warm=warm, gravity=gravity), reps=10),
+        "  solve_position": cuda_ms(lambda: solver.solve_position(
+            bodies["pos"], bodies, contacts, contacts["pen"],
+            iterations=bcfg.position_iterations, slop=bcfg.penetration_slop), reps=10),
+        "simulate tick (dt 1/60: 1 step kept of the 4 it runs)": cuda_ms(
+            lambda: pw.simulate(bs, bcfg, h, present_types=btypes), reps=5),
+        "flagship box-only physics step": cuda_ms(
+            lambda: pw.step(fstate, fcfg, h, ftypes), reps=10, warmup=3),
+    }
+    for name, ms in times.items():
+        print(f"phase o: {name} median {ms:.4f} ms  [{card}]")
+    wall, busy, stages = profile_physics(step, bs, 5)
+    print(f"phase o: bench world step under the profiler: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms ({100 * busy / wall:.1f}% of wall)  [{card}]")
+    for name, (host, dev) in stages.items():
+        print(f"phase o:   stage {name}: host {host:.3f} ms, device {dev:.3f} ms per step")
 
 
 def main() -> int:
@@ -1104,6 +1274,8 @@ def main() -> int:
           f"pass {b6[0]} (full {b6_full[0]}), atlas tint {b6[1]} (full {b6_full[1]}); "
           f"depth_dense translucent atlas {b4[0]} (full {b4_full[0]}), trans-depth "
           f"{b4[1]} (full {b4_full[1]})")
+
+    physics_phases(card)
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():

@@ -5,12 +5,15 @@ quaternions are (x, y, z, w) Hamilton products; points are transformed by
 `apply_mat4`; clip space is right-handed reverse-Z (1 near, 0 far).
 
 The reference's one-hot selects (`select_scalar`, `gather_rows`, ...) exist
-only because random gathers are slow on a TPU; the port indexes instead.
+only because random gathers are slow on a TPU; the port's `select_scalar`
+and `select_row` index instead, and where the reference calls `gather_rows`
+the port calls `torch.gather`.
 Functions that create tensors take an explicit `device`.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -47,6 +50,34 @@ def reflect(v: Tensor, n: Tensor) -> Tensor:
     return v - 2.0 * dot(v, n)[..., None] * n
 
 
+def constant(values, device, dtype=torch.float32) -> Tensor:
+    """A tensor of Python values (nested tuples) on `device`, built once per
+    device and reused: a copy from host memory at every call would hold the
+    host until the card has drained its queue. Callers must not write to it."""
+    return _constant(values, str(torch.device(device)), dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _constant(values, device: str, dtype) -> Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def onehot(idx: Tensor, k: int) -> Tensor:
+    """(..., k) float32 one-hot of integer indices."""
+    return (idx[..., None] == torch.arange(k, device=idx.device)).float()
+
+
+def select_scalar(x: Tensor, idx: Tensor) -> Tensor:
+    """x[..., idx] for per-row indices: (..., k), (...,) -> (...,)."""
+    return torch.gather(x, -1, idx[..., None].long())[..., 0]
+
+
+def select_row(x: Tensor, idx: Tensor) -> Tensor:
+    """x[..., idx, :] for per-row indices: (..., k, d), (...,) -> (..., d)."""
+    i = idx[..., None, None].long().expand(idx.shape + (1, x.shape[-1]))
+    return torch.gather(x, -2, i)[..., 0, :]
+
+
 # -- quaternions (x, y, z, w) ------------------------------------------------------
 
 
@@ -62,8 +93,33 @@ def quat_mul(a: Tensor, b: Tensor) -> Tensor:
     ], dim=-1)
 
 
+def quat_conj(q: Tensor) -> Tensor:
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
+
+
 def quat_normalize(q: Tensor, eps: float = 1e-12) -> Tensor:
     return q * torch.rsqrt(torch.clamp(torch.sum(q * q, dim=-1), min=eps))[..., None]
+
+
+def quat_from_axis_angle(axis: Tensor, angle) -> Tensor:
+    angle = torch.as_tensor(angle, dtype=axis.dtype, device=axis.device)
+    half = 0.5 * angle
+    return torch.cat([normalize(axis) * torch.sin(half)[..., None],
+                      torch.cos(half)[..., None]], dim=-1)
+
+
+def quat_slerp(a: Tensor, b: Tensor, t) -> Tensor:
+    """Spherical lerp with an nlerp fallback for nearly parallel quaternions."""
+    cos_half = torch.sum(a * b, dim=-1)
+    b = torch.where(cos_half[..., None] < 0.0, -b, b)
+    cos_half = torch.clamp(torch.abs(cos_half), -1.0, 1.0)
+    half = torch.arccos(cos_half)
+    sin_half = torch.sqrt(torch.clamp(1.0 - cos_half * cos_half, min=0.0))
+    near = sin_half < 1e-4
+    safe_sin = torch.where(near, torch.ones_like(sin_half), sin_half)
+    wa = torch.where(near, 1.0 - t, torch.sin((1.0 - t) * half) / safe_sin)
+    wb = torch.where(near, t, torch.sin(t * half) / safe_sin)
+    return quat_normalize(wa[..., None] * a + wb[..., None] * b)
 
 
 def quat_rotate(q: Tensor, v: Tensor) -> Tensor:
@@ -189,6 +245,10 @@ def mat4_inverse(m: Tensor) -> Tensor:
 
 
 # -- AABBs and frustums ---------------------------------------------------------
+
+
+def aabb_union(min_a: Tensor, max_a: Tensor, min_b: Tensor, max_b: Tensor):
+    return torch.minimum(min_a, min_b), torch.maximum(max_a, max_b)
 
 
 def aabb_transform(aabb_min: Tensor, aabb_max: Tensor, position: Tensor,

@@ -88,14 +88,10 @@ class CombinedStep:
         return {"physics": phys, "frame": out["frame_state"]}, out["image"]
 
 
-def build(n_bodies: int, width: int, height: int, grid_dim: int = 16,
-          cell_size: float = 2.0, tile_size: int = 128,
-          cfg_overrides: Optional[dict] = None, *, device,
-          box_materials: Optional[Tuple[rmesh.Material, ...]] = None
-          ) -> Tuple[CombinedStep, Dict[str, Any]]:
-    """The combined step and its initial state on `device`. Dynamic box k
-    takes box_materials[k % len(box_materials)] (default: the flagship's
-    one material)."""
+def flagship_world(n_bodies: int, grid_dim: int = 16, cell_size: float = 2.0
+                   ) -> Tuple[pw.PhysicsWorld, PhysicsConfig, int]:
+    """The combined step's physics world (a plane and n_bodies - 1 boxes of
+    0.45 m on a 1.05 m lattice), its config and the lattice's side."""
     pcfg = PhysicsConfig(max_bodies=n_bodies, grid_dim=grid_dim,
                          cell_size=cell_size, max_contacts_per_body=7,
                          solver_iterations=8, max_globals=1,
@@ -114,6 +110,19 @@ def build(n_bodies: int, width: int, height: int, grid_dim: int = 16,
                 w.add_body(box, position=(ix * 1.05 - side / 2, 0.5 + iy * 1.05,
                                           iz * 1.05 - side / 2), friction=0.5)
                 count += 1
+    return w, pcfg, side
+
+
+def build(n_bodies: int, width: int, height: int, grid_dim: int = 16,
+          cell_size: float = 2.0, tile_size: int = 128,
+          cfg_overrides: Optional[dict] = None, *, device,
+          box_materials: Optional[Tuple[rmesh.Material, ...]] = None
+          ) -> Tuple[CombinedStep, Dict[str, Any]]:
+    """The combined step and its initial state on `device`. Dynamic box k
+    takes box_materials[k % len(box_materials)] (default: the flagship's
+    one material)."""
+    w, pcfg, side = flagship_world(n_bodies, grid_dim, cell_size)
+    n_dyn = n_bodies - 1
 
     cube_mesh = rmesh.cube(0.45)
     ground = rmesh.plane_grid(max(side * 2.0, 20.0), 4)

@@ -20,7 +20,7 @@ here the sort runs on an int64 pack and the compaction is an index.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,9 +32,11 @@ Tensor = torch.Tensor
 
 
 def body_aabbs(pos: Tensor, quat: Tensor, stype: Tensor, params: Tensor,
-               margin: float = 0.0) -> Tuple[Tensor, Tensor]:
-    """World AABBs for all bodies, expanded by `margin`."""
-    lmin, lmax = sh.local_aabb(stype, params)
+               margin: float = 0.0, hull_ext: Optional[Tensor] = None,
+               comp_ext: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """World AABBs for all bodies, expanded by `margin`; hull_ext/comp_ext
+    are the per-body extents of hull and compound rows."""
+    lmin, lmax = sh.local_aabb(stype, params, hull_ext=hull_ext, comp_ext=comp_ext)
     wmin, wmax = m3.aabb_transform(lmin, lmax, pos, quat)
     return wmin - margin, wmax + margin
 
@@ -86,8 +88,8 @@ def find_candidates(
     sentinel = n_cells - 1
 
     # 1. 8 insertion keys per body; uncovered corners map to the sentinel
-    offs = torch.tensor([(ox, oy, oz) for ox in (0, 1) for oy in (0, 1)
-                         for oz in (0, 1)], dtype=torch.int32, device=dev)
+    offs = m3.constant(tuple((ox, oy, oz) for ox in (0, 1) for oy in (0, 1)
+                             for oz in (0, 1)), dev, torch.int32)
     cx8 = cmin[:, 0:1] + offs[None, :, 0]
     cy8 = cmin[:, 1:2] + offs[None, :, 1]
     cz8 = cmin[:, 2:3] + offs[None, :, 2]

@@ -26,8 +26,8 @@ Tensor = torch.Tensor
 def _orthonormal_tangents(n: Tensor) -> Tuple[Tensor, Tensor]:
     """Two unit tangents with t1(-n) = -t1(n) and t2(-n) = t2(n), so the
     mirrored rows of a pair get mirrored friction frames."""
-    ex = torch.tensor([1.0, 0.0, 0.0], device=n.device)
-    ey = torch.tensor([0.0, 1.0, 0.0], device=n.device)
+    ex = m3.constant((1.0, 0.0, 0.0), n.device)
+    ey = m3.constant((0.0, 1.0, 0.0), n.device)
     helper = torch.where((torch.abs(n[..., 0]) > 0.9)[..., None], ey, ex)
     t1 = m3.normalize(m3.cross(n, helper))
     t2 = m3.cross(n, t1)
@@ -44,8 +44,8 @@ def _expander(s_slots: int, k: int):
 
 
 def _matvec3(m: Tensor, v: Tensor) -> Tensor:
-    return torch.stack([m[..., i, 0] * v[..., 0] + m[..., i, 1] * v[..., 1]
-                        + m[..., i, 2] * v[..., 2] for i in range(3)], dim=-1)
+    p = m * v[..., None, :]
+    return p[..., 0] + p[..., 1] + p[..., 2]
 
 
 def solve_velocity(

@@ -28,6 +28,7 @@ import torch
 
 from garden_tpu_torch.entry import (GLASS_BOXES, GLASS_OVERRIDES, SLICE_OVERRIDES,
                                     build)
+from garden_tpu_torch.physics.shapes import SHAPE_NAMES
 from garden_tpu_torch.render import oit, raster
 
 pytestmark = pytest.mark.gpu
@@ -623,3 +624,92 @@ def test_culled_oit_matches_plain_on_card(cuda, w, h, tile):
     lists, counts = oit.band_lists(args[1], args[2], w, h, tile)
     assert 0 < int(kept.sum()) < int((lists >= 0).sum())
     assert (kr < 1).float().mean().item() > 0.2
+
+
+# -- physics on the card -----------------------------------------------------------
+#
+# The physics step is plain PyTorch. Each pair family's manifolds on the
+# card equal the CPU's to 1e-5 (reductions in another order), a normal
+# built from two nearly coincident points to ULP_POS / their distance; a
+# golden scene's curves to 1e-4 over its whole run, and the card repeats
+# itself bit for bit.
+
+_FAMILY_TYPES = [(1, 1), (1, 2), (1, 3), (1, 6), (2, 2), (2, 3), (2, 6), (3, 3), (3, 6),
+                 (1, 4), (2, 4), (3, 4), (4, 4), (4, 6), (1, 7), (2, 7), (3, 7), (4, 7),
+                 (1, 8), (2, 8), (3, 8), (4, 8), (1, 5), (2, 5), (3, 5), (4, 5), (5, 5),
+                 (5, 6), (5, 7), (5, 8)]
+_ULP_POS = 2.4e-7
+
+
+@pytest.fixture(scope="module")
+def contact_manifolds():
+    """Every ordered pair of `scenes.contact_scene`, all kernels present,
+    on the card and on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from garden_tpu_torch.physics import narrowphase as nph
+    from garden_tpu_torch.physics import scenes
+    from garden_tpu_torch.physics import shapes as tsh
+    sc = scenes.contact_scene(tsh.ShapeTable)
+    n = len(sc["stype"])
+    ii, jj = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    off = ii != jj
+    pi, pj = ii[off].astype(np.int32), jj[off].astype(np.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = lambda a: torch.as_tensor(a, device=dev)
+        out[dev] = nph.generate_contacts(
+            t(sc["pos"]), t(sc["q"]), t(sc["stype"]), t(sc["params"]), t(pi), t(pj),
+            torch.ones(len(pi), dtype=torch.bool, device=dev), margin=t(sc["margin"]),
+            present_types=sc["table"].present_types(),
+            tables=sc["table"].device_arrays(dev))
+    return sc, {d: {k: v.cpu() for k, v in m.items()} for d, m in out.items()}
+
+
+@pytest.mark.parametrize("family", _FAMILY_TYPES,
+                         ids=[f"{SHAPE_NAMES[a]}-{SHAPE_NAMES[b]}" for a, b in _FAMILY_TYPES])
+def test_pair_family_matches_cpu_on_card(contact_manifolds, family):
+    sc, out = contact_manifolds
+    g, c = out["cuda"], out["cpu"]
+    assert torch.equal(g["a"], c["a"])
+    st = torch.as_tensor(sc["stype"])
+    prm = torch.as_tensor(sc["params"])
+    a, b = c["a"].long(), c["b"].long()
+    rows = (st[a] == family[0]) & (st[b] == family[1])
+    v = c["valid"][rows]
+    assert torch.equal(g["valid"][rows], v) and bool(v.any()), family
+    for k in ("point", "pen"):
+        assert float((g[k][rows] - c[k][rows]).abs()[v].max()) <= 1e-5, k
+    rad = sum(torch.where((st[x] == 1) | (st[x] == 3), prm[x, 0], 0.0) for x in (a, b))
+    sep = rad[rows][:, None] - c["pen"][rows]
+    tol = torch.clamp(_ULP_POS / torch.clamp(sep, min=1e-9), min=1e-5)[..., None]
+    assert bool(((g["normal"][rows] - c["normal"][rows]).abs() <= tol)[v].all())
+
+
+def test_golden_pendulum_matches_cpu_on_card(cuda):
+    """The joint scene (dense one-hot impulse sums, a 3x3 inverse per
+    joint): the card's curves equal the CPU's to 1e-4 and repeat bit for
+    bit; the analytic budget holds."""
+    from garden_tpu_torch.physics import golden
+    card = golden.simulate("pendulum", cuda)
+    again = golden.simulate("pendulum", cuda)
+    host = golden.simulate("pendulum", "cpu")
+    golden.check("pendulum", card)
+    for k in card:
+        assert np.array_equal(card[k], again[k]), k
+        np.testing.assert_allclose(card[k], host[k], rtol=0, atol=1e-4, err_msg=k)
+
+
+def test_mixed_world_step_matches_cpu_on_card(cuda):
+    """Every shape type, a joint and sleep: 5 steps on the card against the
+    CPU within 1e-4, and the compacted branch with them."""
+    from garden_tpu_torch.physics import scenes
+    from garden_tpu_torch.physics import world as pw
+    out = {}
+    for dev in (cuda, "cpu"):
+        st, cfg, types = scenes.mixed_world(dev)
+        for _ in range(5):
+            st = pw.step(st, cfg, 1.0 / 60.0, types)
+        out[str(dev)] = st["bodies"]["pos"].cpu()
+    assert torch.isfinite(out["cuda"]).all()
+    assert float((out["cuda"] - out["cpu"]).abs().max()) <= 1e-4

@@ -33,6 +33,8 @@ SCALE = RNG.uniform(0.5, 2.0, (N, 3)).astype(np.float32)
 RGB = RNG.uniform(0.0, 4.0, (N, 3)).astype(np.float32)
 LO = RNG.uniform(-1, 0, (N, 3)).astype(np.float32)
 HI = LO + RNG.uniform(0.1, 2, (N, 3)).astype(np.float32)
+T = RNG.uniform(0.0, 1.0, N).astype(np.float32)
+IDX = RNG.integers(0, 3, N).astype(np.int32)
 VIEW = np.asarray(jm.look_at(jnp.array([3.0, 4.0, 9.0]), jnp.zeros(3),
                              jnp.array([0.0, 1.0, 0.0])))
 PROJ = np.asarray(jm.perspective_reverse_z(1.0, 16 / 9, 0.1))
@@ -65,6 +67,17 @@ CASES = {
         m.frustum_planes(VP), LO * 20.0, HI * 20.0 + 5.0),
     "linear_to_srgb": lambda m: m.linear_to_srgb(RGB - 0.5),
     "luminance": lambda m: m.luminance(RGB),
+    # the helpers the physics uses
+    "quat_conj": lambda m: m.quat_conj(Q),
+    "quat_slerp": lambda m: m.quat_slerp(Q, Q2, T),
+    "quat_slerp_scalar_t": lambda m: m.quat_slerp(Q, Q2, np.array(0.3, np.float32)),
+    "quat_slerp_near": lambda m: m.quat_slerp(Q, _unit(Q + 1e-5), T),
+    "quat_from_axis_angle": lambda m: m.quat_from_axis_angle(V3, T * 6.0 - 3.0),
+    "onehot": lambda m: m.onehot(IDX, 3),
+    "select_scalar": lambda m: m.select_scalar(V3, IDX),
+    "select_row": lambda m: m.select_row(MN[:, :3, :], IDX),
+    "aabb_union": lambda m: np.concatenate([np.asarray(x) for x in m.aabb_union(
+        LO, HI, LO + W3, HI + V3)], -1),
 }
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port's combined step on one CUDA card.
 
-    python3 tools/profile_torch_step.py [--steps 3] [--slice | --glass]
+    python3 tools/profile_torch_step.py [--steps 3] [--slice | --glass | --physics]
                                         [--trace trace.json]
 
 Builds the full-size combined step (10,240 bodies, 1920x1080) with the
@@ -18,7 +18,10 @@ main raster, csm_render, csm_resolve, hbao, sky_lighting, oit, refraction,
 sorted, trans_depth and post; device time counts the hand kernels, see
 `stage_times`) and the
 operators with the most device time; the profiler adds host overhead to
-every launch. `--trace` also writes a Chrome trace.
+every launch. `--trace` also writes a Chrome trace. `--physics` profiles
+the physics step alone on bench.py's world (10,240 bodies, half spheres;
+`physics.scenes.bench_world`): wall time, device busy share and the
+step's stages (`profile_physics`, which chip_smoke.py also runs).
 """
 
 import argparse
@@ -66,6 +69,31 @@ def stage_times(prof, names):
     return {n: out[n] for n in names if n in out}
 
 
+PHYSICS_STAGES = ("physics", "collide", "broadphase", "narrowphase", "contact_compact",
+                  "warm_match", "solve_velocity", "constraints", "integrate",
+                  "solve_position", "sleep_misc")
+
+
+def profile_physics(step, state, steps: int):
+    """Profile `steps` calls of step(state) -> state, each inside a
+    "physics" range; the port's physics step opens the other stage ranges
+    itself. Returns (wall ms per step, device busy ms per step, {stage:
+    (host ms, device ms) per step}); busy counts the kernels and copies
+    launched inside the "physics" ranges."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            with record_function("physics"):
+                state = step(state)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    stages = {n: (h / 1e6 / steps, d / 1e6 / steps)
+              for n, (h, d) in stage_times(prof, PHYSICS_STAGES).items()}
+    return wall, stages["physics"][1], stages
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -75,6 +103,8 @@ def main() -> int:
     which = ap.add_mutually_exclusive_group()
     which.add_argument("--slice", action="store_true",
                        help="profile the first slice's pass set (SLICE_OVERRIDES)")
+    which.add_argument("--physics", action="store_true",
+                       help="profile the physics step alone on bench.py's world")
     which.add_argument("--glass", action="store_true",
                        help="profile the glass step (GLASS_BOXES, GLASS_OVERRIDES)")
     ap.add_argument("--trace", help="write a Chrome trace to this file")
@@ -89,6 +119,20 @@ def main() -> int:
 
     from garden_tpu_torch.entry import (GLASS_BOXES, GLASS_OVERRIDES,
                                         SLICE_OVERRIDES, build)
+    if args.physics:
+        from garden_tpu_torch.physics import scenes
+        from garden_tpu_torch.physics import world as pw
+        state, cfg, types = scenes.bench_world("cuda")
+        step = lambda s: pw.step(s, cfg, 1.0 / 60.0, types)
+        for _ in range(3):
+            state = step(state)
+        torch.cuda.synchronize()
+        wall, busy, stages = profile_physics(step, state, args.steps)
+        print(f"bench world physics step: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+              f"({100 * busy / wall:.1f}% of wall)")
+        for name, (host, dev) in stages.items():
+            print(f"  stage {name}: host {host:.3f} ms, device {dev:.3f} ms per step")
+        return 0
     if args.slice:
         name, kw = "SLICE_OVERRIDES", dict(cfg_overrides=SLICE_OVERRIDES)
     elif args.glass:
