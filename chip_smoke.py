@@ -72,7 +72,31 @@ o. time the bench world's physics step and its stages (collide, broadphase,
    narrowphase, solve_velocity, solve_position), one `simulate` tick and
    the flagship's box-only physics step; profile the bench step for the
    device's busy share and each stage's host and device time
-   (`tools/profile_torch_step.profile_physics`).
+   (`tools/profile_torch_step.profile_physics`);
+then the ultra and temporal pass sets (plain PyTorch passes around K1-K4):
+p. the ultra preset (`ULTRA_OVERRIDES`: clouds, SSR, SSGI, the dense
+   3x2048 atlas with a 5x5 PCF) at full size for 3 steps: K1 and K4 once a
+   step, K2 and K3 never; from step 2 on SSR confidence above 0 on some
+   visible pixels, GI above 0, cloud alpha above 0 over the sky (the
+   frame's sky above the clouds' horizon, where it has any, and a dome of
+   sky rays: the flagship camera's top row looks just below the horizon)
+   and the cloud shadow below 1 somewhere (over a 20 km ground grid: the
+   frame's +-22 m ground samples one patch of the cloud layer); every
+   output finite; K4 on the ultra atlas equal to its plain version;
+q. the flagship with `TEMPORAL_OVERRIDES` (velocity and disocclusion,
+   Hi-Z, SMAA) at full size for 3 steps, the renderer given the previous
+   step's instance matrices: K1, K2 and K3 once a step; K1 against its
+   plain version as in phase 4, its velocity planes within TOL_GBUF;
+   velocity above 0 on the moving boxes; the Hi-Z's culled instances,
+   and the last frame rendered without Hi-Z drawing the same tri_id on
+   >= 99.9% of pixels (the cull is conservative); SMAA changes pixels
+   next to edges only, and the frame's image is SMAA's;
+r. small steps on the card against the CPU (the bars of phases e and j):
+   ultra and the temporal set (two steps each), potato, low, medium, high;
+s. timings: the ultra and temporal steps and renders, their ssr, ssgi,
+   clouds, hiz and aa stages, potato and low at full size, and the ultra
+   step under the profiler (device busy share, stage host and device
+   times); the run's time before phase p and after phase s.
 
 Every kernel culls its slots exactly. Wherever one is checked (phases 4,
 b, c, d and h), it also writes its per-tile (K1, K5, K7: per row band;
@@ -101,7 +125,9 @@ the last line is `{"ok": true, "device": {...}}`. Any failure exits
 non-zero before those lines are printed.
 """
 
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -598,17 +624,21 @@ def oit_bounds(args, out, keep, n_named: int, inside: int):
                   + nbytes(*out)))
 
 
-def small_step_vs_cpu(build, overrides, phase: str, box_materials=None) -> None:
-    """One 32-body 256x128 step on the card and on the CPU: tri_id on >=
-    99.9% of pixels, the image within 2 levels on >= 99.5%, bodies within
-    1e-4."""
+def small_step_vs_cpu(build, overrides, phase: str, box_materials=None,
+                      steps: int = 1) -> None:
+    """`steps` 32-body 256x128 steps on the card and on the CPU: tri_id on
+    >= 99.9% of pixels, the last image within 2 levels on >= 99.5%, bodies
+    within 1e-4."""
     small = {}
     for dev in ("cuda", "cpu"):
         s_step, s_state = build(32, 256, 128, grid_dim=8, cfg_overrides=overrides,
                                 device=dev, box_materials=box_materials)
-        s_next, s_img = s_step(s_state)
+        for _ in range(steps):
+            s_prev = s_state
+            s_state, s_img = s_step(s_state)
+        s_next = s_state
         s_out = s_step.render(s_step.instance_matrices(s_next["physics"]),
-                              s_state["frame"])
+                              s_prev["frame"])
         small[dev] = (s_img.cpu(), s_out["tri_id"].cpu(),
                       s_next["physics"]["bodies"]["pos"].cpu())
     tri_small = (small["cuda"][1] == small["cpu"][1]).float().mean().item()
@@ -763,7 +793,276 @@ def physics_phases(card: str) -> None:
         print(f"phase o:   stage {name}: host {host:.3f} ms, device {dev:.3f} ms per step")
 
 
+def all_finite(tree, where: str = "") -> list:
+    """Names of the floating-point tensors in a nested dict that hold a
+    non-finite value."""
+    import torch
+    bad = []
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            bad += all_finite(v, f"{where}/{k}")
+    elif isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        if not bool(torch.isfinite(tree).all()):
+            bad.append(where)
+    return bad
+
+
+def dome_rays(n: int, device):
+    """(n, n, 3) unit directions over the sky: azimuth all around,
+    elevation from 3 to 87 degrees."""
+    import torch
+    az = torch.linspace(0.0, 2.0 * math.pi, n, device=device)[None, :]
+    el = torch.linspace(math.radians(3.0), math.radians(87.0), n, device=device)[:, None]
+    return torch.stack([torch.cos(el) * torch.cos(az), torch.sin(el).expand(n, n),
+                        torch.cos(el) * torch.sin(az)], dim=-1)
+
+
+def ground_grid(n: int, half_km: float, device):
+    """(n, n, 3) ground points (y = 0) on a square of +-half_km km."""
+    import torch
+    xs = torch.linspace(-half_km * 1000.0, half_km * 1000.0, n, device=device)
+    gz, gx = torch.meshgrid(xs, xs, indexing="ij")
+    return torch.stack([gx, torch.zeros_like(gx), gz], dim=-1)
+
+
+def run_temporal(step, state, steps: int, prev_mats=None):
+    """`steps` combined steps, the renderer given the previous step's
+    instance matrices (the first step: those of `state`) -> (state, the
+    last step's render output, its instance matrices, the frame state and
+    previous instance matrices it was rendered from)."""
+    prev = step.instance_matrices(state["physics"]) if prev_mats is None else prev_mats
+    for _ in range(steps):
+        frame_in, prev_in = state["frame"], prev
+        phys = step.physics(state["physics"])
+        mats = step.instance_matrices(phys)
+        out = step.render(mats, frame_in, prev_in)
+        state, prev = {"physics": phys, "frame": out["frame_state"]}, mats
+    return state, out, mats, frame_in, prev_in
+
+
+def pass_set_phases(card: str, results: dict, t_start: float) -> None:
+    """Phases p-s: the ultra preset and the temporal pass set at full size,
+    every quality preset small against the CPU, and their timings. Prints
+    the run's time before them (phases 1-o, the earlier slices') and
+    after them, from `t_start`."""
+    import torch
+    print(f"chip_smoke: phases 1-o took {time.perf_counter() - t_start:.1f} s")
+    from garden_tpu_torch.core.config import QUALITY_PRESETS, ShadowConfig
+    from garden_tpu_torch.entry import TEMPORAL_OVERRIDES, ULTRA_OVERRIDES, build
+    from garden_tpu_torch.ops.blur import decimate2x
+    from garden_tpu_torch.render import clouds, fxaa, lighting, raster, smaa, tonemap
+    from garden_tpu_torch.render.deferred import DeferredRenderer
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from profile_torch_step import profile_step
+
+    kernels = {"raster_shade": raster.rasterize_visibility_shaded,
+               "depth_super": raster.depth_super, "depth_grid": raster.depth_grid,
+               "depth_dense": raster.depth_dense}
+
+    def zero_counts():
+        for fn in kernels.values():
+            fn.launches = 0
+
+    # phase p: the ultra preset at full size, 3 steps
+    t0 = time.perf_counter()
+    ustep, ustate = build(n_bodies=N_BODIES, width=WIDTH, height=HEIGHT, grid_dim=64,
+                          cfg_overrides=ULTRA_OVERRIDES, device="cuda")
+    urend, uc = ustep.renderer, ustep.constants
+    torch.cuda.synchronize()
+    print(f"phase p: built the ultra step in {time.perf_counter() - t0:.1f} s "
+          f"(shadow {urend.config.shadow})")
+    zero_counts()
+    ust = ustate
+    frames = []
+    for _ in range(3):
+        frame_in = ust["frame"]
+        phys = ustep.physics(ust["physics"])
+        umats = ustep.instance_matrices(phys)
+        uout = ustep.render(umats, frame_in)
+        ust = {"physics": phys, "frame": uout["frame_state"]}
+        frames.append((umats, frame_in, uout))
+    torch.cuda.synchronize()
+    ulaunch = {k: fn.launches for k, fn in kernels.items()}
+    print(f"phase p: 3 ultra steps, launches {ulaunch}")
+    check(ulaunch == {"raster_shade": 3, "depth_super": 0, "depth_grid": 0,
+                      "depth_dense": 3},
+          "phase p: the ultra step did not run K1 and K4 once per step (and K2, K3 never)")
+    to_light = -uc["light_dir"]
+    dome, ground = dome_rays(64, "cuda"), ground_grid(64, 10.0, "cuda")
+    for i, (umats, frame_in, uout) in enumerate(frames[1:], start=2):
+        geo, vis, g = urend.gbuffer_pass(ustep.scene, umats, uc, frame_in)
+        _, conf = urend.reflections(g, vis["depth"], frame_in, uc)
+        gi = urend.bounce(g, vis["depth"], frame_in, uc)
+        rays_h = decimate2x(lighting.view_rays(g, uc))
+        _, alpha = clouds.render_clouds(rays_h, to_light, time=uc["time"])
+        _, alpha_dome = clouds.render_clouds(dome, to_light, time=uc["time"])
+        sky = decimate2x((vis["tri_id"] < 0).float()) > 0.5
+        above = sky & (rays_h[..., 1] > 0.02)
+        cshadow = urend.cloud_shadow(g, uc, torch.ones_like(vis["depth"])[..., None])
+        cs_ground = clouds.cloud_shadow(ground, to_light, time=uc["time"])
+        visible = g["visible"]
+        bad = all_finite(uout, "out")
+        print(f"phase p: step {i}: SSR confidence > 0 on {(conf[visible] > 0).float().mean():.4f} "
+              f"of visible pixels (max {conf.max():.4f}); GI max {gi.max():.4f}, > 0 on "
+              f"{(gi.amax(-1)[visible] > 0).float().mean():.4f}; sky {sky.float().mean():.4f} "
+              f"of half-res rays, above the clouds' horizon (up > 0.02) {above.float().mean():.4f}, "
+              f"cloud alpha there max {alpha[above].max() if above.any() else 0.0:.4f}, over a "
+              f"dome of sky rays max {alpha_dome.max():.4f} (> 0 on "
+              f"{(alpha_dome > 0).float().mean():.4f}); cloud shadow min "
+              f"{cshadow[visible].min():.4f}, < 1 on {(cshadow[visible] < 1).float().mean():.4f} "
+              f"of visible pixels, over a 20 km ground grid min {cs_ground.min():.4f}, < 1 on "
+              f"{(cs_ground < 1).float().mean():.4f}; non-finite outputs {bad}")
+        check((conf[visible] > 0).any(), f"phase p: step {i}: SSR confidence is 0 everywhere")
+        check(gi.max() > 0, f"phase p: step {i}: the GI is 0 everywhere")
+        check(alpha_dome.max() > 0 and (not above.any() or alpha[above].max() > 0),
+              f"phase p: step {i}: the clouds have no alpha over the sky")
+        check(cs_ground.min() < 1, f"phase p: step {i}: the cloud shadow is 1 everywhere")
+        check(not bad, f"phase p: step {i}: non-finite outputs {bad}")
+    # K4 on the ultra atlas (3x2048, 5x5 PCF) against its plain version
+    umats = frames[-1][0]
+    uargs = raster.depth_args(**atlas_inputs(ustep, umats)[0])["dense"]
+    k4u, keep_u, _, _ = run_kept(raster.depth_dense_cuda, uargs, "depth",
+                                 "phase p: depth_dense (K4) on the ultra atlas")
+    p4u = raster.depth_dense_plain(*uargs)
+    p4uk = raster.depth_dense_plain(*uargs, keep=keep_u)
+    torch.cuda.synchronize()
+    err4u = max_diff(k4u, p4u)
+    print(f"phase p: ultra atlas {k4u.shape[1]}x{k4u.shape[0]}: depth_dense vs plain max|d| "
+          f"{err4u}, same bits {same_bits(k4u, p4u)}; masked plain == plain "
+          f"{same_bits(p4uk, p4u)}")
+    check(same_bits(k4u, p4u), "phase p: depth_dense differs from its plain version")
+    check(same_bits(p4uk, p4u), "phase p: the masked plain depth_dense differs")
+    results["depth_dense"]["max_abs_err"] = max(results["depth_dense"]["max_abs_err"], err4u)
+    del k4u, p4u, p4uk, uargs, frames
+
+    # phase q: the flagship with TEMPORAL_OVERRIDES at full size, 3 steps, the
+    # renderer given the previous step's instance matrices
+    t0 = time.perf_counter()
+    tstep, tstate = build(n_bodies=N_BODIES, width=WIDTH, height=HEIGHT, grid_dim=64,
+                          cfg_overrides=TEMPORAL_OVERRIDES, device="cuda")
+    trend, tc = tstep.renderer, tstep.constants
+    torch.cuda.synchronize()
+    print(f"phase q: built the temporal step in {time.perf_counter() - t0:.1f} s")
+    zero_counts()
+    tst, tout, tmats, tframe, tprev = run_temporal(tstep, tstate, 3)
+    torch.cuda.synchronize()
+    tlaunch = {k: fn.launches for k, fn in kernels.items()}
+    print(f"phase q: 3 temporal steps, launches {tlaunch}")
+    check(tlaunch == {"raster_shade": 3, "depth_super": 3, "depth_grid": 3,
+                      "depth_dense": 0},
+          "phase q: the temporal step did not run K1, K2 and K3 once per step")
+    # K1 on the last step's inputs, the velocity planes (16, 17) live
+    targs = raster.kernel_args(**trend.raster_inputs(
+        tstep.scene, tmats, tc, frame_state=tframe, prev_inst_matrices=tprev))
+    vis_q, gp_q, _, _, err_q = check_raster_shade(targs, "phase q")
+    _, gp_qp = raster.raster_shade_plain(*targs)
+    torch.cuda.synchronize()
+    err_vel = max_diff(gp_q[16:18], gp_qp[16:18])
+    vel = tout["velocity"]
+    boxes = tout["gbuffer"]["visible"] & (tout["gbuffer"]["instance"] >= 1)
+    speed = torch.linalg.vector_norm(vel, dim=-1)[boxes]
+    culled = trend.occluded_instances(tstep.scene, tmats, tc, tframe["prev_depth"])
+    print(f"phase q: K1 velocity planes vs plain max|d| {err_vel:.3g} (<= {TOL_GBUF}), "
+          f"largest |velocity| {gp_q[16:18].abs().max():.4f} px; on visible box pixels "
+          f"|velocity| > 1e-3 px on {(speed > 1e-3).float().mean():.4f}, max {speed.max():.4f} "
+          f"px; Hi-Z culled {int(culled.sum())} of {culled.numel()} instances; "
+          f"disoccluded {tout['disocclusion'].mean():.4f} of pixels")
+    check(err_vel <= TOL_GBUF, "phase q: K1's velocity planes disagree with the plain version")
+    # the Hi-Z cull is conservative: the last frame without it draws the
+    # same triangles
+    nohiz = DeferredRenderer(dataclasses.replace(trend.config, use_occlusion_culling=False),
+                             trend.scene_host, "cuda")
+    same_hiz = (nohiz.render(tstep.scene, tmats, tc, tframe, tprev)["tri_id"]
+                == tout["tri_id"]).float().mean().item()
+    print(f"phase q: the frame without Hi-Z has the same tri_id on {same_hiz:.5f} of pixels")
+    check(same_hiz >= 0.999, "phase q: the Hi-Z cull removed visible triangles")
+    del nohiz
+    check(speed.max() > 1e-3, "phase q: the velocity is 0 on the moving boxes")
+    results["raster_shade"]["max_abs_err"] = max(results["raster_shade"]["max_abs_err"], err_q)
+    # SMAA against no AA on the same frame: the frame's image is the SMAA'd
+    # LDR, which differs from the LDR on edge pixels only
+    seen = {}
+    post = trend.post
+
+    def spy(hdr, *a):
+        seen["hdr"] = hdr
+        return post(hdr, *a)
+    trend.post = spy
+    qout = tstep.render(tmats, tframe, tprev)
+    del trend.post
+    ldr, _, _ = trend.tone(seen["hdr"], tc, tframe)
+    aa = trend.antialias(ldr)
+    changed = (tonemap.to_uint8(aa) != tonemap.to_uint8(ldr)).any(-1)
+    edges = smaa.detect_edges(ldr).any(-1)
+    near = torch.nn.functional.max_pool2d(edges[None, None].float(), 3, 1, 1)[0, 0] > 0
+    print(f"phase q: SMAA changes {int(changed.sum())} pixels ({changed.float().mean():.4f}), "
+          f"{int((changed & ~near).sum())} of them away from an edge; the frame's image is "
+          f"SMAA's: {torch.equal(qout['image'], tonemap.to_uint8(aa))}")
+    check(changed.any(), "phase q: SMAA changed no pixel")
+    check(not (changed & ~near).any(), "phase q: SMAA changed a pixel away from the edges")
+    check(torch.equal(qout["image"], tonemap.to_uint8(aa)),
+          "phase q: the frame's image is not the SMAA'd LDR")
+    check(not all_finite(tout, "out"), "phase q: non-finite outputs")
+    del gp_q, gp_qp, vis_q, targs, qout, seen, aa
+
+    # phase r: small steps on the card against the CPU, each preset
+    cut = dict(cascade_sizes=(256, 128, 128))
+    split = ShadowConfig(resolve_step=2, atlas_tile_h=16, atlas_foot_y=2,
+                         max_active_tiles=24, **cut)
+    small = {
+        "ultra": (dict(ULTRA_OVERRIDES, shadow=ShadowConfig(map_size=2048, pcf_radius=2,
+                                                            **cut)), 2),
+        "temporal": (dict(TEMPORAL_OVERRIDES, shadow=split), 2),
+        "potato": (dict(QUALITY_PRESETS["potato"]), 1),
+        "low": (dict(QUALITY_PRESETS["low"]), 1),
+        "medium": (dict(QUALITY_PRESETS["medium"],
+                        shadow=ShadowConfig(map_size=1024, resolve_step=2, **cut)), 1),
+        "high": (dict(QUALITY_PRESETS["high"], shadow=ShadowConfig(map_size=2048, **cut)), 1),
+    }
+    for name, (over, steps) in small.items():
+        small_step_vs_cpu(build, over, f"r ({name})", steps=steps)
+
+    # phase s: timings (medians of CUDA events)
+    umats, uframe = ustep.instance_matrices(ust["physics"]), ust["frame"]
+    geo, vis, g = urend.gbuffer_pass(ustep.scene, umats, uc, uframe)
+    rays_h = decimate2x(lighting.view_rays(g, uc))
+    ones = torch.ones_like(vis["depth"])[..., None]
+    st = {
+        "ultra combined step": cuda_ms(lambda: ustep(ust), reps=5),
+        "ultra render": cuda_ms(lambda: ustep.render(umats, uframe), reps=5),
+        "ultra ssr": cuda_ms(lambda: urend.reflections(g, vis["depth"], uframe, uc), reps=10),
+        "ultra ssgi": cuda_ms(lambda: urend.bounce(g, vis["depth"], uframe, uc), reps=10),
+        "ultra clouds (half-res march)": cuda_ms(
+            lambda: clouds.render_clouds(rays_h, to_light, time=uc["time"]), reps=5),
+        "ultra clouds (cloud shadow)": cuda_ms(lambda: urend.cloud_shadow(g, uc, ones),
+                                               reps=5),
+        "temporal combined step": cuda_ms(lambda: run_temporal(tstep, tst, 1, tmats), reps=5),
+        "temporal render": cuda_ms(lambda: tstep.render(tmats, tframe, tprev), reps=5),
+        "temporal hiz": cuda_ms(lambda: trend.occluded_instances(
+            tstep.scene, tmats, tc, tframe["prev_depth"]), reps=10),
+        "temporal aa (SMAA)": cuda_ms(lambda: trend.antialias(ldr), reps=10),
+        "FXAA on the same image": cuda_ms(lambda: fxaa.apply_fxaa(ldr), reps=10),
+    }
+    del geo, vis, g, ldr
+    for name in ("potato", "low"):
+        pstep, pstate = build(n_bodies=N_BODIES, width=WIDTH, height=HEIGHT, grid_dim=64,
+                              cfg_overrides=dict(QUALITY_PRESETS[name]), device="cuda")
+        pst, _ = pstep(pstate)
+        st[f"{name} combined step"] = cuda_ms(lambda: pstep(pst), reps=5)
+        print(f"phase s: {name} renders {pstep.renderer.width}x{pstep.renderer.height}")
+        del pstep, pstate, pst
+    for name, ms in st.items():
+        print(f"phase s: {name} median {ms:.4f} ms  [{card}]")
+    wall, busy, stages, _ = profile_step(ustep, ust, 3)
+    print(f"phase s: ultra step under the profiler: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms ({100 * busy / wall:.1f}% of wall)  [{card}]")
+    for name, (host, dev) in stages.items():
+        print(f"phase s:   stage {name}: host {host:.3f} ms, device {dev:.3f} ms per step")
+    print(f"chip_smoke: phases 1-s took {time.perf_counter() - t_start:.1f} s")
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1276,6 +1575,7 @@ def main() -> int:
           f"{b4[1]} (full {b4_full[1]})")
 
     physics_phases(card)
+    pass_set_phases(card, results, t_start)
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():

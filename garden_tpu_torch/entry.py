@@ -17,6 +17,13 @@ glass step: the flagship frame whose boxes take, in rotation, opaque,
 weighted-blended OIT, sorted (back-to-front) and refractive materials, with
 the trans-depth pass on, so one frame runs every non-opaque pass and the
 translucent shadow map.
+
+`cfg_overrides=ULTRA_OVERRIDES` is the `ultra` quality preset: volumetric
+clouds with their shadow, SSR and SSGI, and the dense 3x2048 shadow atlas
+with a 5x5 PCF. `cfg_overrides=TEMPORAL_OVERRIDES` adds the temporal pass
+set to the flagship: per-pixel velocity and the disocclusion mask, Hi-Z
+occlusion culling against the previous frame's depth, and SMAA in place
+of FXAA. Any other `QUALITY_PRESETS` entry applies the same way.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from garden_tpu_torch.core import math3d as m3
-from garden_tpu_torch.core.config import (PhysicsConfig, RenderConfig,
+from garden_tpu_torch.core.config import (QUALITY_PRESETS, PhysicsConfig, RenderConfig,
                                           SLICE_OVERRIDES, ShadowConfig)
 from garden_tpu_torch.physics import world as pw
 from garden_tpu_torch.render import mesh as rmesh
@@ -34,7 +41,8 @@ from garden_tpu_torch.render.deferred import DeferredRenderer
 from garden_tpu_torch.systems.camera import common_constants
 
 __all__ = ["CombinedStep", "DENSE_SHADOW_OVERRIDES", "GLASS_BOXES",
-           "GLASS_OVERRIDES", "SLICE_OVERRIDES", "build"]
+           "GLASS_OVERRIDES", "SLICE_OVERRIDES", "TEMPORAL_OVERRIDES",
+           "ULTRA_OVERRIDES", "build"]
 
 # the reference-parity shadow preset: the dense depth raster over a
 # 6144x2048 atlas of 128x128 tiles
@@ -51,6 +59,9 @@ _REFRACT = rmesh.Material(base_color=(0.9, 1.0, 0.9), roughness=0.1,
 GLASS_BOXES = (BOX_MATERIAL, _OIT, BOX_MATERIAL, _SORTED, BOX_MATERIAL, _REFRACT,
                BOX_MATERIAL, BOX_MATERIAL)
 GLASS_OVERRIDES = dict(use_trans_depth=True)
+
+ULTRA_OVERRIDES = dict(QUALITY_PRESETS["ultra"])
+TEMPORAL_OVERRIDES = dict(use_velocity=True, use_occlusion_culling=True, aa_mode="smaa")
 
 
 class CombinedStep:
@@ -78,9 +89,10 @@ class CombinedStep:
         mats[0] = torch.eye(4, device=mats.device)
         return mats
 
-    def render(self, inst_mats: torch.Tensor, frame: Dict[str, torch.Tensor]
-               ) -> Dict[str, Any]:
-        return self.renderer.render(self.scene, inst_mats, self.constants, frame)
+    def render(self, inst_mats: torch.Tensor, frame: Dict[str, torch.Tensor],
+               prev_inst_matrices: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+        return self.renderer.render(self.scene, inst_mats, self.constants, frame,
+                                    prev_inst_matrices)
 
     def __call__(self, state: Dict[str, Any]) -> Tuple[Dict[str, Any], torch.Tensor]:
         phys = self.physics(state["physics"])

@@ -1,21 +1,28 @@
 """Deferred renderer: the pass schedule of one frame.
 
-Port of `garden_tpu.render.deferred.DeferredRenderer`: triangle transform
-and frustum cull, the main-view raster of the opaque triangles with the
-fused G-buffer kernel, the G-buffer, cascaded shadows (the atlas depth
-raster, the translucent casters' tint map and the resolve), half-res
-HBAO, the atmosphere's sky, SH ambient and specular ambient, the lighting
-resolve, aerial perspective, then the non-opaque passes (weighted-blended
-OIT, refraction, the sorted back-to-front blend, trans-depth), bloom, auto
-exposure, tone mapping and FXAA. A config that needs any other pass
+Port of `garden_tpu.render.deferred.DeferredRenderer`: triangle transform,
+frustum cull and Hi-Z occlusion cull against the previous frame's depth,
+the main-view raster of the opaque triangles with the fused G-buffer kernel
+(with per-pixel velocity from the previous frame's screen positions), the
+G-buffer and the disocclusion mask, cascaded shadows (the atlas depth
+raster, the translucent casters' tint map and the resolve), half-res HBAO,
+SSR and SSGI from the previous frame's HDR, the atmosphere's sky with the
+volumetric clouds and their shadow, SH ambient and specular ambient, the
+lighting resolve, aerial perspective, then the non-opaque passes
+(weighted-blended OIT, refraction, the sorted back-to-front blend,
+trans-depth), bloom, auto exposure, tone mapping, the upscale to display
+size (`render_scale`) and FXAA or SMAA. The 3D passes run at the scaled
+size `render_size(config)`. A config that needs a pass the port lacks
 raises NotImplementedError naming the ROADMAP item that ports it; nothing
 is skipped silently.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -23,39 +30,52 @@ from garden_tpu_torch.core import math3d as m3
 from garden_tpu_torch.core.config import RenderConfig
 from garden_tpu_torch.ops import blur
 from garden_tpu_torch.ops.blur import decimate2x, upsample2x_to
-from garden_tpu_torch.render import (atmosphere, bloom, csm, fxaa, gbuffer, hbao,
-                                     lighting, mesh, oit, raster, tonemap)
+from garden_tpu_torch.render import (atmosphere, bloom, clouds, csm, fxaa, gbuffer,
+                                     hbao, hiz, lighting, mesh, oit, raster, smaa,
+                                     ssgi, ssr, tonemap)
 
 Tensor = torch.Tensor
 
-# (config flag, the ROADMAP Queue 1 item that ports its pass)
-_UNPORTED_FLAGS = (
-    ("use_ssr", "item 13 (SSR)"),
-    ("use_ssgi", "item 13 (SSGI)"),
-    ("use_clouds", "item 13 (clouds)"),
-    ("use_velocity", "item 13 (velocity and disocclusion)"),
-    ("use_occlusion_culling", "item 13 (Hi-Z)"),
-)
-
 SHADOW_NEAR = 0.1   # the camera near plane the cascades are fitted with
 REFRACT_STRENGTH = 48.0   # screen offset of the refracted sample, px per unit normal
+DISOCCLUSION_STEP = 2     # the disocclusion mask is resolved on every 2nd row and column
 
 
 def check_ported(config: RenderConfig) -> None:
-    """Raise NotImplementedError for any pass the port cannot run yet."""
-    for flag, item in _UNPORTED_FLAGS:
-        if getattr(config, flag):
-            raise NotImplementedError(
-                f"RenderConfig.{flag}=True: the pass is not ported yet "
-                f"(ROADMAP Queue 1 {item})")
-    if config.render_scale != 1.0:
-        raise NotImplementedError(
-            "render_scale != 1 is not ported yet (ROADMAP Queue 1 item 13)")
-    if config.use_fxaa and config.aa_mode == "smaa":
-        raise NotImplementedError(
-            "aa_mode='smaa' is not ported yet (ROADMAP Queue 1 item 13)")
+    """Raise NotImplementedError for any pass the port cannot run yet: the
+    slot-binned cascade atlas (csm.atlas_tiling)."""
     if config.use_shadows:
         csm.atlas_tiling(config.shadow)
+
+
+def render_size(config: RenderConfig) -> Tuple[int, int]:
+    """(width, height) of the 3D passes: the display size, or under
+    render_scale != 1 the scaled size cut down to whole tiles (at least
+    one)."""
+    scale = config.render_scale
+    if scale == 1.0:
+        return config.width, config.height
+    t = config.tile_size
+    return (max(int(config.width * scale) // t, 1) * t,
+            max(int(config.height * scale) // t, 1) * t)
+
+
+def nearest_rows(n_in: int, n_out: int, device) -> Tensor:
+    """(n_out,) source indices of a nearest resize from n_in to n_out, as
+    the reference's jitted `jax.image.resize(..., "nearest")` computes
+    them: floor((i + 0.5) * c) in float32 with the constant c = n_in *
+    (1 / n_out), the form XLA folds (i + 0.5) * n_in / n_out into; it
+    differs from the exact quotient where that is an integer.
+    F.interpolate's "nearest" and "nearest-exact" pick other rows at some
+    ratios. Built once per device."""
+    return _nearest_rows(n_in, n_out, str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=16)
+def _nearest_rows(n_in: int, n_out: int, device: str) -> Tensor:
+    c = np.float32(n_in) * (np.float32(1.0) / np.float32(n_out))
+    idx = np.floor((np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * c)
+    return torch.from_numpy(idx.astype(np.int64)).to(device)
 
 
 class DeferredRenderer:
@@ -72,29 +92,66 @@ class DeferredRenderer:
         self.any_sorted = bool(scene.tri_sorted_mask().any())
         self.any_refract = bool(scene.tri_refract_mask().any())
         self.any_nonopaque = self.any_translucent or self.any_sorted or self.any_refract
+        self.width, self.height = render_size(config)
 
     def device_scene(self) -> Dict[str, Tensor]:
         return self.scene_host.device_arrays(self.device)
 
     def initial_frame_state(self) -> Dict[str, Tensor]:
-        return {"avg_luminance": torch.tensor(0.18, device=self.device)}
+        """The frame state before the first frame, under the reference's
+        keys: the adapted luminance; the previous depth (Hi-Z, disocclusion;
+        empty: nothing occludes), camera and HDR (SSR, SSGI; black: no
+        reflections or bounce on frame 0) where a pass reads them."""
+        cfg, dev = self.config, self.device
+        w, h = self.width, self.height
+        state = {"avg_luminance": torch.tensor(0.18, device=dev)}
+        if cfg.use_occlusion_culling or cfg.use_velocity:
+            state["prev_depth"] = torch.zeros((h, w), device=dev)
+        if cfg.use_velocity or cfg.use_ssr or cfg.use_ssgi:
+            state["prev_view_proj"] = torch.eye(4, device=dev)
+        if cfg.use_ssr or cfg.use_ssgi:
+            state["prev_hdr"] = torch.zeros((h, w, 3), device=dev)
+        return state
+
+    @staticmethod
+    def instance_bounds(scene: Dict[str, Tensor], inst_matrices: Tensor
+                        ) -> Tuple[Tensor, Tensor]:
+        """(min, max) (I, 3) world AABBs of the instances' local AABBs."""
+        corners = hiz.box_corners(scene["inst_aabb_min"], scene["inst_aabb_max"])
+        wc = (torch.einsum("iab,ikb->ika", inst_matrices[:, :3, :3], corners)
+              + inst_matrices[:, None, :3, 3])
+        return torch.amin(wc, dim=1), torch.amax(wc, dim=1)
 
     def cull_instances(self, scene: Dict[str, Tensor], inst_matrices: Tensor,
                        constants: Dict[str, Tensor]) -> Tensor:
         """Frustum-cull instance AABBs -> per-triangle validity mask."""
-        lo, hi = scene["inst_aabb_min"], scene["inst_aabb_max"]
-        corners = torch.stack([
-            torch.stack([(hi if (k >> i) & 1 else lo)[:, i] for i in range(3)], -1)
-            for k in range(8)], dim=-2)                        # (I, 8, 3)
-        wc = (torch.einsum("iab,ikb->ika", inst_matrices[:, :3, :3], corners)
-              + inst_matrices[:, None, :3, 3])
         planes = m3.frustum_planes(constants["view_proj"])
-        outside = m3.aabb_outside_frustum(planes, torch.amin(wc, dim=1),
-                                          torch.amax(wc, dim=1))
+        outside = m3.aabb_outside_frustum(planes, *self.instance_bounds(scene, inst_matrices))
         visible = scene["inst_valid"] & ~outside
         ti = scene["tri_instance"]
         vis_t = visible[torch.clamp(ti, min=0).long()] & (ti >= 0)
         return scene["tri_valid"] & vis_t
+
+    def occluded_instances(self, scene: Dict[str, Tensor], inst_matrices: Tensor,
+                           constants: Dict[str, Tensor], prev_depth: Tensor) -> Tensor:
+        """(I,) bool: instances hidden behind the Hi-Z pyramid of the
+        previous frame's depth (one frame stale, not reprojected)."""
+        return hiz.occlusion_cull(*self.instance_bounds(scene, inst_matrices),
+                                  constants["view_proj"], hiz.build_pyramid(prev_depth),
+                                  self.width, self.height)
+
+    def visible_triangles(self, scene: Dict[str, Tensor], inst_matrices: Tensor,
+                          constants: Dict[str, Tensor],
+                          frame_state: Optional[Dict[str, Tensor]] = None) -> Tensor:
+        """(T,) triangles that pass the frustum cull and, with occlusion
+        culling on, the Hi-Z cull against frame_state["prev_depth"]."""
+        tri_valid = self.cull_instances(scene, inst_matrices, constants)
+        if not self.config.use_occlusion_culling:
+            return tri_valid
+        with record_function("hiz"):
+            occluded = self.occluded_instances(scene, inst_matrices, constants,
+                                               frame_state["prev_depth"])
+            return tri_valid & ~occluded[torch.clamp(scene["tri_instance"], min=0).long()]
 
     @staticmethod
     def nonopaque(scene: Dict[str, Tensor]) -> Tensor:
@@ -125,22 +182,40 @@ class DeferredRenderer:
         m = constants["view_proj"]
         comps = [m[i, 0] * px + m[i, 1] * py + m[i, 2] * pz + m[i, 3]
                  for i in range(4)]
-        return raster.setup_triangles_planes(*comps, mask, self.config.width,
-                                             self.config.height)
+        return raster.setup_triangles_planes(*comps, mask, self.width, self.height)
+
+    def prev_screen(self, prev_planes, prev_view_proj: Tensor) -> Tensor:
+        """(T, 3, 2) screen positions (pixels of the render size) of the
+        triangles' corners under the previous frame's world corner planes
+        and camera: the velocity inputs of the shading records."""
+        px, py, pz = prev_planes
+        m = prev_view_proj
+        cx, cy, cw = [m[i, 0] * px + m[i, 1] * py + m[i, 2] * pz + m[i, 3]
+                      for i in (0, 1, 3)]
+        cw = torch.clamp(cw, min=1e-6)
+        sx = (cx / cw * 0.5 + 0.5) * self.width
+        sy = (0.5 - cy / cw * 0.5) * self.height
+        return torch.stack([sx.T, sy.T], dim=-1)
 
     def raster_inputs(self, scene: Dict[str, Tensor], inst_matrices: Tensor,
                       constants: Dict[str, Tensor], planes: Tuple[tuple, tuple] = None,
-                      tri_valid: Tensor = None) -> Dict[str, Any]:
+                      tri_valid: Tensor = None,
+                      frame_state: Optional[Dict[str, Tensor]] = None,
+                      prev_inst_matrices: Optional[Tensor] = None) -> Dict[str, Any]:
         """Everything up to the fused raster of the opaque triangles:
         transformed, set-up, binned triangles and their shading records, as
         the keyword arguments of raster.rasterize_visibility_shaded.
         `planes` (mesh.transform_triangle_planes) and `tri_valid`
-        (cull_instances) are computed unless given."""
+        (visible_triangles, with the frame state's Hi-Z) are computed
+        unless given. With velocity on, the records carry the corners'
+        previous screen positions under `prev_inst_matrices` (default: this
+        frame's) and frame_state["prev_view_proj"] (default: this camera)."""
         cfg = self.config
-        w, h = cfg.width, cfg.height
+        w, h = self.width, self.height
         pos_pl, nrm_pl = planes or mesh.transform_triangle_planes(scene, inst_matrices)
         if tri_valid is None:
-            tri_valid = self.cull_instances(scene, inst_matrices, constants)
+            tri_valid = self.visible_triangles(scene, inst_matrices, constants,
+                                               frame_state)
         setup = self.pass_setup(pos_pl, tri_valid & ~self.nonopaque(scene), constants)
         # front-to-back binning priority: when a tile overflows, its
         # farthest triangles drop (16 depth buckets over the visible range)
@@ -156,7 +231,13 @@ class DeferredRenderer:
         nx, ny, nz = nrm_pl
         t_cnt = nx.shape[1]
         tri_nrm = torch.stack([nx.T, ny.T, nz.T], dim=-1).reshape(t_cnt, 3, 3)
-        records = gbuffer.pack_triangle_records(scene, tri_nrm, setup["inv_w"])
+        prev = None
+        if cfg.use_velocity:
+            prev_pl = (pos_pl if prev_inst_matrices is None
+                       else mesh.transform_triangle_planes(scene, prev_inst_matrices)[0])
+            prev = self.prev_screen(prev_pl, (frame_state or {}).get(
+                "prev_view_proj", constants["view_proj"]))
+        records = gbuffer.pack_triangle_records(scene, tri_nrm, setup["inv_w"], prev)
         return dict(setup=setup, shade_records=records, tile_tris=tiles,
                     counts=counts, big_list=big, width=w, height=h,
                     tile=cfg.tile_size, tile_h=th)
@@ -185,18 +266,46 @@ class DeferredRenderer:
     # method of its own so that tools can time or inspect it.
 
     def gbuffer_pass(self, scene: Dict[str, Tensor], inst_matrices: Tensor,
-                     constants: Dict[str, Tensor]):
-        """Transform, cull, set up, bin, the fused raster of the opaque
-        triangles (kernel K1) and the G-buffer -> (geo, vis, G-buffer
-        dict); geo holds the world corner planes, the culled triangle mask
-        and the shading records, which the non-opaque passes reuse."""
+                     constants: Dict[str, Tensor],
+                     frame_state: Optional[Dict[str, Tensor]] = None,
+                     prev_inst_matrices: Optional[Tensor] = None):
+        """Transform, cull (frustum, and Hi-Z against the frame state's
+        previous depth), set up, bin, the fused raster of the opaque
+        triangles (kernel K1) and the G-buffer, with "velocity" when it is
+        on -> (geo, vis, G-buffer dict); geo holds the world corner planes,
+        the culled triangle mask and the shading records, which the
+        non-opaque passes reuse."""
         planes = mesh.transform_triangle_planes(scene, inst_matrices)
-        tri_valid = self.cull_instances(scene, inst_matrices, constants)
-        kin = self.raster_inputs(scene, inst_matrices, constants, planes, tri_valid)
+        tri_valid = self.visible_triangles(scene, inst_matrices, constants, frame_state)
+        kin = self.raster_inputs(scene, inst_matrices, constants, planes, tri_valid,
+                                 frame_state, prev_inst_matrices)
         vis, gplanes = raster.rasterize_visibility_shaded(**kin)
         geo = {"planes": planes[0], "tri_valid": tri_valid,
                "records": kin["shade_records"]}
-        return geo, vis, gbuffer.shade_gbuffer(vis, gplanes, constants=constants)
+        return geo, vis, gbuffer.shade_gbuffer(vis, gplanes, constants=constants,
+                                               with_velocity=self.config.use_velocity)
+
+    def disocclusion(self, velocity: Tensor, depth: Tensor, prev_depth: Tensor) -> Tensor:
+        """(H, W) 1 where the previous frame's depth, fetched at each pixel
+        moved back by its velocity, differs from this depth by more than 10%
+        (or lies off screen): newly revealed surfaces. Resolved on every
+        DISOCCLUSION_STEP-th row and column, then a nearest resize."""
+        s = DISOCCLUSION_STEP
+        vel_d = velocity[::s, ::s]
+        depth_d = depth[::s, ::s]
+        hd, wd = depth_d.shape
+        dev = depth.device
+        py = (torch.arange(hd, dtype=torch.float32, device=dev)[:, None] + 0.5) * s \
+            - vel_d[..., 1]
+        px = (torch.arange(wd, dtype=torch.float32, device=dev)[None, :] + 0.5) * s \
+            - vel_d[..., 0]
+        ph, pw = prev_depth.shape
+        iy = torch.clamp(py.int(), 0, ph - 1).long()
+        ix = torch.clamp(px.int(), 0, pw - 1).long()
+        rel = torch.abs(prev_depth[iy, ix] - depth_d) / torch.clamp(depth_d, min=1e-6)
+        dis = (rel > 0.1) | (px < 0) | (px >= pw) | (py < 0) | (py >= ph)
+        h, w = depth.shape
+        return dis.float()[nearest_rows(hd, h, dev)][:, nearest_rows(wd, w, dev)]
 
     def caster_tint(self, scene: Dict[str, Tensor]) -> Optional[Tensor]:
         """(T, 4) rgba tint of each triangle in the translucent shadow map
@@ -230,12 +339,45 @@ class DeferredRenderer:
         return hbao.compute_hbao(g["position"], g["normal"], g["visible"],
                                  constants["camera_pos"], half_res=True)
 
+    def reflections(self, g: Dict[str, Tensor], depth: Tensor,
+                    frame_state: Dict[str, Tensor], constants: Dict[str, Tensor]
+                    ) -> Tuple[Tensor, Tensor]:
+        """SSR against the previous frame's HDR -> (rgb (H, W, 3),
+        confidence (H, W), 0 where no geometry)."""
+        rgb, conf = ssr.trace(g, depth, frame_state["prev_hdr"],
+                              frame_state.get("prev_view_proj", constants["view_proj"]),
+                              constants, self.config.ssr)
+        return rgb, torch.where(g["visible"], conf, 0.0)
+
+    def bounce(self, g: Dict[str, Tensor], depth: Tensor, frame_state: Dict[str, Tensor],
+               constants: Dict[str, Tensor]) -> Tensor:
+        """SSGI: one-bounce diffuse irradiance (H, W, 3), gathered at half
+        res from the previous frame's HDR."""
+        return ssgi.compute_ssgi(g["position"], g["normal"], g["visible"], depth,
+                                 frame_state["prev_hdr"],
+                                 frame_state.get("prev_view_proj", constants["view_proj"]),
+                                 intensity=self.config.ssgi_intensity)
+
+    def cloud_shadow(self, g: Dict[str, Tensor], constants: Dict[str, Tensor],
+                     shadow: Tensor) -> Tensor:
+        """The shadow factor times the clouds' sun transmittance on the
+        visible pixels, evaluated at half res and tent-upsampled."""
+        cs = clouds.cloud_shadow(decimate2x(g["position"]), -constants["light_dir"],
+                                 time=constants["time"])
+        cs = upsample2x_to(cs[..., None], self.height, self.width)[..., 0]
+        return shadow * torch.where(g["visible"], cs, 1.0)[..., None]
+
     def shade(self, g: Dict[str, Tensor], constants: Dict[str, Tensor],
-              shadow, ao) -> Tensor:
-        """The sky and the lighting resolve -> HDR (H, W, 3) float32."""
+              shadow, ao, reflection: Optional[Tensor] = None,
+              reflection_conf: Optional[Tensor] = None,
+              gi: Optional[Tensor] = None) -> Tensor:
+        """The sky (under the atmosphere with the clouds when they are on)
+        and the lighting resolve with the SSR and SSGI inputs -> HDR
+        (H, W, 3) float32."""
+        extra = dict(reflection=reflection, reflection_conf=reflection_conf, gi=gi)
         if self.config.use_atmosphere:
-            return self._atmosphere_lighting(g, constants, shadow, ao)
-        return lighting.resolve(g, constants, shadow=shadow, ao=ao)
+            return self._atmosphere_lighting(g, constants, shadow, ao, extra)
+        return lighting.resolve(g, constants, shadow=shadow, ao=ao, **extra)
 
     def _pass_colors(self, scene: Dict[str, Tensor]) -> Tensor:
         """(T, 4) rgba of the OIT and sorted passes: the simple translucent
@@ -250,7 +392,7 @@ class DeferredRenderer:
         triangles set up and binned on square tiles, the big list merged
         in front of every tile's list."""
         cfg = self.config
-        w, h = cfg.width, cfg.height
+        w, h = self.width, self.height
         tsetup = self.pass_setup(geo["planes"], geo["tri_valid"] & scene["tri_translucent"],
                                  constants)
         tiles, counts = raster.merge_big_list(*raster.bin_triangles(
@@ -273,7 +415,7 @@ class DeferredRenderer:
         """The keyword arguments of raster.rasterize_visibility for the
         refractive triangles."""
         cfg = self.config
-        w, h = cfg.width, cfg.height
+        w, h = self.width, self.height
         th, _, cap_half, fy = self.tiling()
         rsetup = self.pass_setup(geo["planes"], geo["tri_valid"] & scene["tri_refract"],
                                  constants)
@@ -289,8 +431,7 @@ class DeferredRenderer:
         against the opaque depth, as the reference) sample a GGX-blurred
         copy of the HDR at a normal-driven offset, tinted by their base
         colour -> (HDR, the refraction pass's tri_id)."""
-        cfg = self.config
-        w, h = cfg.width, cfg.height
+        w, h = self.width, self.height
         rvis = raster.rasterize_visibility(**self.refraction_inputs(scene, geo, constants))
         rg = gbuffer.shade_gbuffer(rvis, constants=constants, records=geo["records"])
         chain = blur.ggx_blur_chain(hdr, levels=3)
@@ -319,7 +460,7 @@ class DeferredRenderer:
         sorted triangles binned back to front (the centroid reverse-Z, a
         stable argsort, its inverse as the binning priority)."""
         cfg = self.config
-        w, h = cfg.width, cfg.height
+        w, h = self.width, self.height
         th, _, cap_half, fy = self.tiling()
         ssetup = self.pass_setup(geo["planes"], geo["tri_valid"] & scene["tri_sorted"],
                                  constants)
@@ -347,7 +488,7 @@ class DeferredRenderer:
         """The keyword arguments of raster.rasterize_depth for the
         non-opaque triangles at screen tiles."""
         cfg = self.config
-        w, h = cfg.width, cfg.height
+        w, h = self.width, self.height
         th, _, cap_half, fy = self.tiling()
         dsetup = self.pass_setup(geo["planes"], geo["tri_valid"] & self.nonopaque(scene),
                                  constants)
@@ -362,9 +503,10 @@ class DeferredRenderer:
         screen tiles), 0 where there is none."""
         return raster.rasterize_depth(**self.trans_depth_inputs(scene, geo, constants))
 
-    def post(self, hdr: Tensor, constants: Dict[str, Tensor],
+    def tone(self, hdr: Tensor, constants: Dict[str, Tensor],
              frame_state: Dict[str, Tensor]):
-        """Bloom, auto exposure, tone mapping and FXAA -> (uint8 image,
+        """Bloom, auto exposure, tone mapping and, under render_scale != 1,
+        the linear upscale to the display size -> (float sRGB LDR image,
         the post chain's HDR, the adapted average luminance)."""
         cfg = self.config
         if cfg.post_bf16:
@@ -381,22 +523,43 @@ class DeferredRenderer:
         exposure = tonemap.exposure_from_luminance(
             avg_lum, compensation=cfg.exposure_compensation)
         ldr = tonemap.tone_map(hdr, exposure, mode=cfg.tone_mapper)
-        if cfg.use_fxaa:
-            ldr = fxaa.apply_fxaa(ldr)
+        if (self.height, self.width) != (cfg.height, cfg.width):
+            ldr = blur.upsample_linear(ldr, cfg.height, cfg.width)
+        return ldr, hdr, avg_lum
+
+    def antialias(self, ldr: Tensor) -> Tensor:
+        """SMAA (aa_mode "smaa") or FXAA on the display-size LDR image."""
+        return smaa.apply_smaa(ldr) if self.config.aa_mode == "smaa" else fxaa.apply_fxaa(ldr)
+
+    def post(self, hdr: Tensor, constants: Dict[str, Tensor],
+             frame_state: Dict[str, Tensor]):
+        """`tone`, then `antialias` when use_fxaa is on -> (uint8 image,
+        the post chain's HDR, the adapted average luminance)."""
+        ldr, hdr, avg_lum = self.tone(hdr, constants, frame_state)
+        if self.config.use_fxaa:
+            with record_function("aa"):
+                ldr = self.antialias(ldr)
         return tonemap.to_uint8(ldr), hdr, avg_lum
 
     def render(self, scene: Dict[str, Tensor], inst_matrices: Tensor,
-               constants: Dict[str, Tensor], frame_state: Dict[str, Tensor]
-               ) -> Dict[str, Any]:
+               constants: Dict[str, Tensor], frame_state: Dict[str, Tensor],
+               prev_inst_matrices: Optional[Tensor] = None) -> Dict[str, Any]:
         """One frame. The output holds the image, the post chain's HDR, the
         opaque depth and tri_id, the G-buffer, the shadow and AO factors,
-        trans_depth, the next frame state and, under "translucent", what
+        the velocity (pixels, from `prev_inst_matrices`, default this
+        frame's, and the frame state's camera) and the disocclusion mask,
+        trans-depth, the next frame state and, under "translucent", what
         the non-opaque passes drew: the OIT reveal, the refraction pass's
         tri_id and the translucent shadow atlas (each None when its pass
         did not run)."""
         cfg = self.config
+        disocclusion = None
         with record_function("raster"):
-            geo, vis, g = self.gbuffer_pass(scene, inst_matrices, constants)
+            geo, vis, g = self.gbuffer_pass(scene, inst_matrices, constants, frame_state,
+                                            prev_inst_matrices)
+            if cfg.use_velocity and "prev_depth" in frame_state:
+                disocclusion = self.disocclusion(g["velocity"], vis["depth"],
+                                                 frame_state["prev_depth"])
         shadow = trans_atlas = None
         if cfg.use_shadows:
             with record_function("csm_render"):
@@ -409,8 +572,18 @@ class DeferredRenderer:
         if cfg.use_hbao:
             with record_function("hbao"):
                 ao = self.ambient_occlusion(g, constants)
+        ssr_rgb = ssr_conf = gi = None
+        if cfg.use_ssr and "prev_hdr" in frame_state:
+            with record_function("ssr"):
+                ssr_rgb, ssr_conf = self.reflections(g, vis["depth"], frame_state, constants)
+        if cfg.use_ssgi and "prev_hdr" in frame_state:
+            with record_function("ssgi"):
+                gi = self.bounce(g, vis["depth"], frame_state, constants)
         with record_function("sky_lighting"):
-            hdr = self.shade(g, constants, shadow, ao)
+            if cfg.use_atmosphere and cfg.use_clouds and shadow is not None:
+                with record_function("clouds"):
+                    shadow = self.cloud_shadow(g, constants, shadow)
+            hdr = self.shade(g, constants, shadow, ao, ssr_rgb, ssr_conf, gi)
         reveal = refract_id = trans_depth = None
         if cfg.use_oit and self.any_translucent:
             with record_function("oit"):
@@ -424,8 +597,16 @@ class DeferredRenderer:
         if cfg.use_trans_depth and self.any_nonopaque:
             with record_function("trans_depth"):
                 trans_depth = self.trans_depth_pass(scene, geo, constants)
+        lit = hdr          # float32, before bloom: next frame's SSR and SSGI read it
         with record_function("post"):
             image, hdr, avg_lum = self.post(hdr, constants, frame_state)
+        state = {"avg_luminance": avg_lum}
+        if cfg.use_occlusion_culling or cfg.use_velocity:
+            state["prev_depth"] = vis["depth"]
+        if cfg.use_velocity or cfg.use_ssr or cfg.use_ssgi:
+            state["prev_view_proj"] = constants["view_proj"]
+        if cfg.use_ssr or cfg.use_ssgi:
+            state["prev_hdr"] = lit
         return {
             "image": image,
             "hdr": hdr,
@@ -434,23 +615,33 @@ class DeferredRenderer:
             "gbuffer": g,
             "shadow": shadow,
             "ao": ao,
+            "velocity": g.get("velocity"),
+            "disocclusion": disocclusion,
             "trans_depth": trans_depth,
             "translucent": {"reveal": reveal, "refract_tri_id": refract_id,
                             "trans_atlas": trans_atlas},
-            "frame_state": {"avg_luminance": avg_lum},
+            "frame_state": state,
         }
 
-    def _atmosphere_lighting(self, g: Dict[str, Tensor],
-                             constants: Dict[str, Tensor], shadow, ao) -> Tensor:
-        """Lighting under the atmosphere: the sky raymarched at half res and
-        tent-upsampled, SH ambient, a specular ambient that blends the sharp
-        sky in the reflection direction with the SH irradiance by
-        roughness (also at half res), then aerial perspective."""
+    def _atmosphere_lighting(self, g: Dict[str, Tensor], constants: Dict[str, Tensor],
+                             shadow, ao, extra: Dict[str, Optional[Tensor]]) -> Tensor:
+        """Lighting under the atmosphere: the sky raymarched at half res,
+        the clouds composited over it there when they are on, and
+        tent-upsampled; SH ambient, a specular ambient that blends the sharp
+        sky in the reflection direction with the SH irradiance by roughness
+        (also at half res), the resolve with `extra` (its SSR and SSGI
+        inputs), then aerial perspective."""
         cfg = self.config
-        w, h = cfg.width, cfg.height
+        w, h = self.width, self.height
         to_light = -constants["light_dir"]
         rays = lighting.view_rays(g, constants)
-        sky = upsample2x_to(atmosphere.sky_radiance(decimate2x(rays), to_light), h, w)
+        rays_h = decimate2x(rays)
+        sky_h = atmosphere.sky_radiance(rays_h, to_light)
+        if cfg.use_clouds:
+            with record_function("clouds"):
+                crgb, calpha = clouds.render_clouds(rays_h, to_light, time=constants["time"])
+                sky_h = clouds.composite_clouds(sky_h, crgb, calpha)
+        sky = upsample2x_to(sky_h, h, w)
         sh = atmosphere.sky_sh(to_light)
         view = m3.normalize(constants["camera_pos"] - g["position"])
         refl_h = decimate2x(m3.reflect(-view.expand(g["normal"].shape), g["normal"]))
@@ -459,7 +650,7 @@ class DeferredRenderer:
         r_h = torch.clamp(decimate2x(g["roughness"]), 0.0, 1.0)[..., None]
         spec_amb = upsample2x_to(spec_sharp * (1.0 - r_h) + spec_rough * r_h, h, w)
         hdr = lighting.resolve(g, constants, shadow=shadow, ao=ao, ambient_sh=sh,
-                               sky=sky, specular_ambient=spec_amb)
+                               sky=sky, specular_ambient=spec_amb, **extra)
         if cfg.use_aerial_perspective:
             vd_km = m3.length(g["position"] - constants["camera_pos"]) \
                 * cfg.aerial_km_per_unit

@@ -64,13 +64,16 @@ def reconstruct_position(depth: Tensor, constants: Dict[str, Tensor]) -> Tensor:
 
 def shade_gbuffer(vis: Dict[str, Tensor], gplanes: Optional[Tensor] = None,
                   constants: Optional[Dict[str, Tensor]] = None,
-                  records: Optional[Tensor] = None) -> Dict[str, Tensor]:
+                  records: Optional[Tensor] = None,
+                  with_velocity: bool = False) -> Dict[str, Tensor]:
     """G-buffer dict (H, W, C planes), from the raster's (18, H, W) finished
     planes [normal3 | uv2 | base3 metallic roughness emissive3 reflectance |
     texture | instance | velocity2], or with `records` (T, 36) from one
     per-pixel gather of the winning triangle's shading record (the
-    visibility raster's path). Texture sampling and the velocity plane
-    belong to passes not ported yet."""
+    visibility raster's path). `with_velocity` adds "velocity" (H, W, 2),
+    the planes' screen motion in pixels since the previous frame, 0 where
+    no triangle covers the pixel. Texture sampling belongs to a pass not
+    ported yet."""
     if records is not None:
         return _gbuffer_from_records(vis, records, constants)
     visible = vis["tri_id"] >= 0
@@ -89,6 +92,8 @@ def shade_gbuffer(vis: Dict[str, Tensor], gplanes: Optional[Tensor] = None,
         "reflectance": gplanes[13],
         "instance": torch.where(visible, gplanes[15].int(), -1),
     }
+    if with_velocity:
+        g["velocity"] = torch.where(visible[..., None], gp(16, 18), 0.0)
     return g
 
 

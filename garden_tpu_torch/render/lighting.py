@@ -2,7 +2,8 @@
 
 Port of `garden_tpu.render.lighting`: direct GGX lighting scaled by the
 shadow factor, diffuse ambient from the sky's SH irradiance (or a
-hemisphere ambient without atmosphere), the split-sum specular ambient,
+hemisphere ambient without atmosphere) plus the SSGI bounce, the split-sum
+specular ambient with the SSR reflections mixed in by their confidence,
 AO on the ambient, emissive, and the sky where no geometry was drawn.
 """
 
@@ -53,6 +54,8 @@ def view_rays(g: Dict[str, Tensor], constants: Dict[str, Tensor]) -> Tensor:
 
 SUN_INTENSITY = 4.0
 AMBIENT_INTENSITY = 0.35
+SKY_UP = (0.45, 0.55, 0.70)       # the hemisphere ambient's sky and ground
+GROUND_DN = (0.12, 0.10, 0.08)
 
 
 def resolve(g: Dict[str, Tensor], constants: Dict[str, Tensor],
@@ -68,16 +71,12 @@ def resolve(g: Dict[str, Tensor], constants: Dict[str, Tensor],
 
     shadow (H, W[, 1 or 3]) scales the direct light and ao (H, W) the
     ambient. With `ambient_sh` (9, 3) the diffuse ambient is the SH
-    irradiance, otherwise a hemisphere ambient; `specular_ambient` adds the
-    split-sum environment specular; `sky` (H, W, 3) fills the pixels with
-    no geometry, otherwise the analytic `sky_color` does. The SSR and SSGI
-    inputs are not ported."""
-    for name, x in (("reflection", reflection), ("reflection_conf", reflection_conf),
-                    ("gi", gi)):
-        if x is not None:
-            raise NotImplementedError(
-                f"lighting.resolve({name}=...): SSR and SSGI are not ported yet "
-                "(ROADMAP Queue 1 item 13)")
+    irradiance, otherwise a hemisphere ambient; `gi` (H, W, 3), the SSGI
+    irradiance, adds to either. `specular_ambient` is the environment's
+    radiance for the split-sum specular; `reflection` (H, W, 3), the SSR
+    radiance, replaces it by `reflection_conf` (H, W; 1 without it). `sky`
+    (H, W, 3) fills the pixels with no geometry, otherwise the analytic
+    `sky_color` does."""
     dev = g["normal"].device
     l = -constants["light_dir"]
     v = m3.normalize(constants["camera_pos"] - g["position"])
@@ -88,16 +87,25 @@ def resolve(g: Dict[str, Tensor], constants: Dict[str, Tensor],
         direct = direct * (shadow[..., None] if shadow.ndim == 2 else shadow)
     if ambient_sh is not None:
         irradiance = atmosphere.sh_irradiance(g["normal"], ambient_sh)
+        if gi is not None:
+            irradiance = irradiance + gi
         amb = g["base_color"] * (1.0 - g["metallic"][..., None]) * irradiance
     else:
-        sky_up = torch.tensor([0.45, 0.55, 0.70], device=dev) * ambient_intensity
-        ground_dn = torch.tensor([0.12, 0.10, 0.08], device=dev) * ambient_intensity
+        sky_up = m3.constant(SKY_UP, dev) * ambient_intensity
+        ground_dn = m3.constant(GROUND_DN, dev) * ambient_intensity
         amb = brdf.ambient(g["normal"], g["base_color"], g["metallic"], sky_up,
                            ground_dn)
-    if specular_ambient is not None:
+        if gi is not None:
+            amb = amb + g["base_color"] * (1.0 - g["metallic"][..., None]) * gi
+    if specular_ambient is not None or reflection is not None:
         nov = torch.clamp(m3.dot(g["normal"], v), min=1e-4)
         f0 = brdf.f0_from_material(g["base_color"], g["metallic"], g["reflectance"])
-        amb = amb + specular_ambient * ibl.specular_env_brdf(f0, nov, g["roughness"])
+        env = specular_ambient
+        if reflection is not None:
+            conf = reflection_conf[..., None] if reflection_conf is not None else 1.0
+            env = (reflection * conf if env is None
+                   else env * (1.0 - conf) + reflection * conf)
+        amb = amb + env * ibl.specular_env_brdf(f0, nov, g["roughness"])
     if ao is not None:
         amb = amb * ao[..., None]
     radiance = direct + amb + g["emissive"]

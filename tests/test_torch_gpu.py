@@ -713,3 +713,150 @@ def test_mixed_world_step_matches_cpu_on_card(cuda):
         out[str(dev)] = st["bodies"]["pos"].cpu()
     assert torch.isfinite(out["cuda"]).all()
     assert float((out["cuda"] - out["cpu"]).abs().max()) <= 1e-4
+
+
+# The ultra and temporal passes (plain PyTorch, no hand kernel) on the card
+# against the CPU. The card's division by a constant multiplies by the
+# reciprocal, and its exp, sqrt and rsqrt may round another way by an ulp,
+# so floor, hit and threshold decisions flip on a few samples: each is held
+# to 1e-4 on >= 99% of its samples (SMAA, the pyramid and the hash: exact).
+
+def _pass_frame(dev, w=128, h=96):
+    """The G-buffer and depth of a glossy floor with five boxes, rendered
+    on the CPU, moved to `dev`, with a seeded previous HDR and the camera."""
+    from garden_tpu_torch.core import math3d as m3
+    from garden_tpu_torch.core.config import RenderConfig
+    from garden_tpu_torch.render import deferred, mesh
+    from garden_tpu_torch.systems.camera import common_constants
+    scene = mesh.SceneBuffers(2000, 2000, 8)
+    floor = scene.add_material(mesh.Material(base_color=(0.6, 0.6, 0.6), roughness=0.05))
+    box = scene.add_material(mesh.Material(base_color=(0.9, 0.2, 0.1), roughness=0.3))
+    scene.add_instance(mesh.plane_grid(20.0, 4), material=floor)
+    mats = torch.eye(4).repeat(8, 1, 1)
+    for i, (x, z) in enumerate([(-2.0, 0.0), (0.0, -1.0), (2.0, 0.5), (-0.8, 1.5),
+                                (1.2, -2.5)], start=1):
+        scene.add_instance(mesh.cube(0.5), material=box)
+        mats[i, :3, 3] = torch.tensor([x, 0.5, z])
+    vec = lambda *c: torch.tensor(c)
+    eye = vec(0.0, 3.0, 8.0)
+    c = common_constants(eye, m3.look_at(eye, vec(0.0, 0.5, 0.0), vec(0.0, 1.0, 0.0)),
+                         m3.perspective_reverse_z(1.0, w / h, 0.1, device="cpu"),
+                         vec(0.4, -0.7, -0.5), (w, h), 0.0, 1.0 / 60.0)
+    ren = deferred.DeferredRenderer(RenderConfig(width=w, height=h, max_triangles=2000,
+                                                 max_vertices=2000, max_instances=8,
+                                                 **SLICE_OVERRIDES), scene, "cpu")
+    out = ren.render(ren.device_scene(), mats, c, ren.initial_frame_state())
+    prev = torch.from_numpy(np.random.default_rng(3).uniform(0, 3, (h, w, 3))
+                            .astype(np.float32))
+    return {k: (v.to(dev) if isinstance(v, torch.Tensor) else v) for k, v in
+            {"g": {k: v.to(dev) for k, v in out["gbuffer"].items()},
+             "depth": out["depth"], "prev": prev,
+             "c": {k: v.to(dev) for k, v in c.items()}}.items()}
+
+
+def _close_share(card, host, tol=1e-4, share=0.99):
+    d = (card.cpu().float() - host.float()).abs()
+    assert bool(torch.isfinite(card).all())
+    ok = (d <= tol).float().mean().item()
+    assert ok >= share, (ok, d.max().item())
+
+
+@pytest.mark.parametrize("trace_step", [1, 4])
+def test_ssr_matches_cpu_on_card(cuda, trace_step):
+    from garden_tpu_torch.core.config import SSRConfig
+    from garden_tpu_torch.render import ssr
+    out = {}
+    for dev in (cuda, "cpu"):
+        f = _pass_frame(dev)
+        out[str(dev)] = ssr.trace(f["g"], f["depth"], f["prev"], f["c"]["view_proj"],
+                                  f["c"], SSRConfig(trace_step=trace_step))
+    for a, b in zip(out["cuda"], out["cpu"]):
+        _close_share(a, b)
+    assert float(out["cuda"][1].max()) > 0.5
+
+
+@pytest.mark.parametrize("half_res", [True, False], ids=["half", "full"])
+def test_ssgi_matches_cpu_on_card(cuda, half_res):
+    from garden_tpu_torch.render import ssgi
+    out = {}
+    for dev in (cuda, "cpu"):
+        f = _pass_frame(dev)
+        g = f["g"]
+        out[str(dev)] = ssgi.compute_ssgi(g["position"], g["normal"], g["visible"],
+                                          f["depth"], f["prev"], f["c"]["view_proj"],
+                                          half_res=half_res)
+    _close_share(out["cuda"], out["cpu"])
+    assert float(out["cuda"].max()) > 0.01
+
+
+def test_noise_and_clouds_match_cpu_on_card(cuda):
+    """The hash in every bit; Perlin-Worley, the cloud march over sky rays
+    (10 steps) and the cloud shadow over a 20 km ground grid."""
+    from garden_tpu_torch.ops import noise
+    from garden_tpu_torch.render import clouds
+    rng = np.random.default_rng(5)
+    ij = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (3, 4096)).astype(np.int32))
+    assert torch.equal(noise._hash(*ij.to(cuda), seed=9).cpu(), noise._hash(*ij, seed=9))
+    xyz = torch.from_numpy(rng.uniform(-30, 30, (3, 64, 64)).astype(np.float32))
+    _close_share(noise.perlin_worley3(*xyz.to(cuda), seed=2), noise.perlin_worley3(*xyz, seed=2))
+    rays = torch.from_numpy(rng.normal(size=(32, 32, 3)).astype(np.float32))
+    rays[..., 1] = rays[..., 1].abs() + 0.05
+    ground = torch.from_numpy(rng.uniform(-1e4, 1e4, (32, 32, 3)).astype(np.float32))
+    ground[..., 1] = 0.0
+    sun, t = torch.tensor([0.4, 0.7, 0.5]), torch.tensor(2.0)
+    out = {}
+    for dev in (cuda, "cpu"):
+        rgb, alpha = clouds.render_clouds(rays.to(dev), sun.to(dev), time=t.to(dev))
+        out[str(dev)] = (rgb, alpha, clouds.cloud_shadow(ground.to(dev), sun.to(dev),
+                                                         time=t.to(dev)))
+    for a, b in zip(out["cuda"], out["cpu"]):
+        _close_share(a, b)
+    assert float(out["cuda"][1].max()) > 0.05 and float(out["cuda"][2].min()) < 1.0
+
+
+def test_hiz_matches_cpu_on_card(cuda):
+    from garden_tpu_torch.render import hiz
+    f = _pass_frame("cpu")
+    pyr = {str(dev): hiz.build_pyramid(f["depth"][:95].to(dev)) for dev in (cuda, "cpu")}
+    for a, b in zip(pyr["cuda"], pyr["cpu"]):
+        assert torch.equal(a.cpu(), b)
+    rng = np.random.default_rng(6)
+    c = torch.from_numpy(rng.uniform(-4, 4, (300, 3)).astype(np.float32))
+    half = torch.from_numpy(rng.uniform(0.05, 1, (300, 3)).astype(np.float32))
+    vp = f["c"]["view_proj"]
+    occ = {str(dev): hiz.occlusion_cull((c - half).to(dev), (c + half).to(dev), vp.to(dev),
+                                        pyr[str(dev)], 128, 95) for dev in (cuda, "cpu")}
+    assert (occ["cuda"].cpu() == occ["cpu"]).float().mean().item() >= 0.99
+
+
+def test_smaa_matches_cpu_on_card(cuda):
+    from garden_tpu_torch.render import smaa
+    img = torch.zeros(48, 48, 3)
+    for y in range(48):
+        img[y, : min(2 + y // 2, 48)] = 1.0
+    rnd = torch.from_numpy(np.random.default_rng(7).uniform(0, 1, (40, 56, 3))
+                           .astype(np.float32))
+    for x in (img, rnd):
+        assert float((smaa.apply_smaa(x.to(cuda)).cpu() - smaa.apply_smaa(x)).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("pass_set", ["ultra", "temporal"])
+def test_small_pass_set_steps_match_cpu(cuda, pass_set):
+    """Two 32-body 256x128 steps (SSR, SSGI and Hi-Z read a real previous
+    frame) on the card against the CPU: the image bar of the flagship."""
+    from garden_tpu_torch.core.config import ShadowConfig
+    from garden_tpu_torch.entry import TEMPORAL_OVERRIDES, ULTRA_OVERRIDES
+    cut = dict(cascade_sizes=(256, 128, 128))
+    over = (dict(ULTRA_OVERRIDES, shadow=ShadowConfig(map_size=2048, pcf_radius=2, **cut))
+            if pass_set == "ultra" else
+            dict(TEMPORAL_OVERRIDES, shadow=ShadowConfig(
+                resolve_step=2, atlas_tile_h=16, atlas_foot_y=2, max_active_tiles=24, **cut)))
+    out = {}
+    for dev in ("cpu", cuda):
+        step, state = build(32, 256, 128, grid_dim=8, cfg_overrides=over, device=dev)
+        for _ in range(2):
+            state, img = step(state)
+        out[str(dev)] = (img.cpu(), state["physics"]["bodies"]["pos"].cpu())
+    d = (out["cpu"][0].int() - out["cuda"][0].int()).abs().amax(-1)
+    assert (d <= 2).float().mean().item() >= 0.995
+    assert (out["cpu"][1] - out["cuda"][1]).abs().max().item() <= 1e-4

@@ -212,17 +212,17 @@ def test_tonemap_matches(dtype):
         assert d.max() <= 1
 
 
-@pytest.mark.parametrize("flag", [f for f, _ in tdef._UNPORTED_FLAGS]
-                         + ["render_scale", "smaa", "slot_binning"])
+@pytest.mark.parametrize("flag", ["use_ssr", "use_ssgi", "use_clouds", "use_velocity",
+                                  "use_occlusion_culling", "render_scale", "smaa",
+                                  "slot_binning"])
 def test_unported_pass_raises(flag):
-    """The flagship passes build; each pass or option that is not ported
-    raises, naming its ROADMAP item."""
+    """Every render flag builds on the port; the one option that is not
+    ported, the slot-binned cascade atlas, raises, naming its ROADMAP item."""
     from garden_tpu_torch.core.config import ShadowConfig
     cfg = dict(width=W, height=H, max_triangles=2000, max_vertices=2000,
                max_instances=16)
-    cfg.update({f: False for f, _ in tdef._UNPORTED_FLAGS})
     scene = _scene(tmesh)
-    tdef.DeferredRenderer(RenderConfig(**cfg), scene, "cpu")      # ported set
+    tdef.DeferredRenderer(RenderConfig(**cfg), scene, "cpu")      # the flagship set
     if flag == "render_scale":
         cfg["render_scale"] = 0.5
     elif flag == "smaa":
@@ -231,5 +231,8 @@ def test_unported_pass_raises(flag):
         cfg["shadow"] = ShadowConfig(atlas_tile_h=32, atlas_foot_y=4)
     else:
         cfg[flag] = True
+    if flag != "slot_binning":
+        tdef.DeferredRenderer(RenderConfig(**cfg), scene, "cpu")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdef.DeferredRenderer(RenderConfig(**cfg), scene, "cpu")

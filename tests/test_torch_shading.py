@@ -179,8 +179,18 @@ def test_lighting_resolve_with_all_inputs_matches():
     j2 = _j_resolve(jg, jc, shadow=jnp.asarray(shadow[..., 0]))
     t2 = tlt.resolve(tg, tc, shadow=_t(shadow[..., 0]))
     _close(j2, t2, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlt.resolve(tg, tc, gi=_t(sky))
+    # the SSR and SSGI inputs (their other combinations are in
+    # tests/test_torch_screen_space.py)
+    refl = RNG.uniform(0, 2, (h, w, 3)).astype(np.float32)
+    conf = RNG.uniform(0, 1, (h, w)).astype(np.float32)
+    j3 = _j_resolve(jg, jc, shadow=jnp.asarray(shadow), ao=jnp.asarray(ao),
+                    ambient_sh=jsh, sky=jnp.asarray(sky), specular_ambient=jnp.asarray(spec),
+                    reflection=jnp.asarray(refl), reflection_conf=jnp.asarray(conf),
+                    gi=jnp.asarray(spec))
+    t3 = tlt.resolve(tg, tc, shadow=_t(shadow), ao=_t(ao), ambient_sh=_t(np.asarray(jsh)),
+                     sky=_t(sky), specular_ambient=_t(spec), reflection=_t(refl),
+                     reflection_conf=_t(conf), gi=_t(spec))
+    _close(j3, t3, atol=1e-4)
 
 
 @pytest.mark.parametrize("shape", [(67, 90, 3), (64, 96, 3)], ids=["odd", "even"])

@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port's combined step on one CUDA card.
 
-    python3 tools/profile_torch_step.py [--steps 3] [--slice | --glass | --physics]
-                                        [--trace trace.json]
+    python3 tools/profile_torch_step.py [--steps 3]
+        [--slice | --glass | --ultra | --temporal | --physics] [--trace trace.json]
 
 Builds the full-size combined step (10,240 bodies, 1920x1080) with the
 flagship's passes (`--slice`: the first slice's pass set, SLICE_OVERRIDES;
 `--glass`: the glass step, box_materials=GLASS_BOXES with GLASS_OVERRIDES,
 whose frame adds the OIT, refraction, sorted and trans-depth passes and
-the translucent shadow map) and warms it up. First, without the profiler, it prints the median wall
+the translucent shadow map; `--ultra`: the ultra preset, ULTRA_OVERRIDES:
+clouds, SSR, SSGI and the dense atlas; `--temporal`: TEMPORAL_OVERRIDES,
+velocity, Hi-Z and SMAA, the renderer given the previous step's instance
+matrices) and warms it up. First, without the profiler, it prints the median wall
 time (host clock, synchronized) of the physics step, the render and the
 whole step over 10 runs each. Then it profiles `--steps` steps with
 torch.profiler and prints the wall time per step, the device's busy time
 (kernel and copy time, and its share of the wall time), the host and
 device time of each stage (physics, instance matrices, and the render's
-main raster, csm_render, csm_resolve, hbao, sky_lighting, oit, refraction,
-sorted, trans_depth and post; device time counts the hand kernels, see
-`stage_times`) and the
+main raster with its hiz, csm_render, csm_resolve, hbao, ssr, ssgi,
+sky_lighting with its clouds, oit, refraction, sorted, trans_depth and
+post with its aa; nested ranges count inside their parent too; device
+time counts the hand kernels, see `stage_times`) and the
 operators with the most device time; the profiler adds host overhead to
 every launch. `--trace` also writes a Chrome trace. `--physics` profiles
 the physics step alone on bench.py's world (10,240 bodies, half spheres;
@@ -69,6 +73,9 @@ def stage_times(prof, names):
     return {n: out[n] for n in names if n in out}
 
 
+RENDER_STAGES = ("raster", "hiz", "csm_render", "csm_resolve", "hbao", "ssr", "ssgi",
+                 "sky_lighting", "clouds", "oit", "refraction", "sorted", "trans_depth",
+                 "post", "aa")
 PHYSICS_STAGES = ("physics", "collide", "broadphase", "narrowphase", "contact_compact",
                   "warm_match", "solve_velocity", "constraints", "integrate",
                   "solve_position", "sleep_misc")
@@ -94,9 +101,38 @@ def profile_physics(step, state, steps: int):
     return wall, stages["physics"][1], stages
 
 
-def main() -> int:
+def profile_step(step, state, steps: int, temporal: bool = False):
+    """Profile `steps` combined steps from `state`: the physics, the
+    instance matrices and the render, each in a range of its own (with
+    `temporal` the renderer also gets the previous step's instance
+    matrices). Returns (wall ms per step, device busy ms per step, {stage:
+    (host ms, device ms) per step}, the profiler); busy counts the kernels
+    and copies launched inside the three top-level ranges."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
+    prev = step.instance_matrices(state["physics"])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            with record_function("physics"):
+                phys = step.physics(state["physics"])
+            with record_function("instances"):
+                mats = step.instance_matrices(phys)
+            with record_function("render"):
+                out = step.render(mats, state["frame"], prev if temporal else None)
+            state, prev = {"physics": phys, "frame": out["frame_state"]}, mats
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    # device time of each stage: the kernels and copies launched inside the
+    # stage's range; the rest of the wall time the device sits idle
+    stages = {n: (h / 1e6 / steps, d / 1e6 / steps) for n, (h, d) in stage_times(
+        prof, ("physics", "instances", "render") + RENDER_STAGES).items()}
+    busy = sum(stages[n][1] for n in ("physics", "instances", "render") if n in stages)
+    return wall, busy, stages, prof
+
+
+def main() -> int:
+    import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
@@ -107,6 +143,10 @@ def main() -> int:
                        help="profile the physics step alone on bench.py's world")
     which.add_argument("--glass", action="store_true",
                        help="profile the glass step (GLASS_BOXES, GLASS_OVERRIDES)")
+    which.add_argument("--ultra", action="store_true",
+                       help="profile the ultra preset (ULTRA_OVERRIDES)")
+    which.add_argument("--temporal", action="store_true",
+                       help="profile the temporal pass set (TEMPORAL_OVERRIDES)")
     ap.add_argument("--trace", help="write a Chrome trace to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -117,8 +157,8 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {card.splitlines()[0]}")
 
-    from garden_tpu_torch.entry import (GLASS_BOXES, GLASS_OVERRIDES,
-                                        SLICE_OVERRIDES, build)
+    from garden_tpu_torch.entry import (GLASS_BOXES, GLASS_OVERRIDES, SLICE_OVERRIDES,
+                                        TEMPORAL_OVERRIDES, ULTRA_OVERRIDES, build)
     if args.physics:
         from garden_tpu_torch.physics import scenes
         from garden_tpu_torch.physics import world as pw
@@ -137,6 +177,10 @@ def main() -> int:
         name, kw = "SLICE_OVERRIDES", dict(cfg_overrides=SLICE_OVERRIDES)
     elif args.glass:
         name, kw = "glass", dict(cfg_overrides=GLASS_OVERRIDES, box_materials=GLASS_BOXES)
+    elif args.ultra:
+        name, kw = "ultra", dict(cfg_overrides=ULTRA_OVERRIDES)
+    elif args.temporal:
+        name, kw = "temporal", dict(cfg_overrides=TEMPORAL_OVERRIDES)
     else:
         name, kw = "flagship", {}
     step, state = build(n_bodies=10240, width=1920, height=1080, grid_dim=64,
@@ -161,37 +205,12 @@ def main() -> int:
     print(f"no profiler, median of 10: physics {phys_ms:.3f} ms, render "
           f"{render_ms:.3f} ms, combined step {step_ms:.3f} ms")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            with record_function("physics"):
-                phys = step.physics(state["physics"])
-            with record_function("instances"):
-                mats = step.instance_matrices(phys)
-            with record_function("render"):
-                out = step.render(mats, state["frame"])
-            state = {"physics": phys, "frame": out["frame_state"]}
-        torch.cuda.synchronize()
-        prof_ms = (time.perf_counter() - t0) * 1e3 / args.steps
-
-    # device time of each stage: the kernels and copies launched inside the
-    # stage's range; the rest of the wall time the device sits idle
-    stages = stage_times(prof, ("physics", "instances", "render", "raster",
-                                "csm_render", "csm_resolve", "hbao", "sky_lighting",
-                                "oit", "refraction", "sorted", "trans_depth", "post"))
-    busy_ms = 0.0
-    lines = []
-    # the render's own ranges (deferred.DeferredRenderer.render) nest in it
-    for name, (host_ns, dev_ns) in stages.items():
-        ms, host = dev_ns / 1e6 / args.steps, host_ns / 1e6 / args.steps
-        if name in ("physics", "instances", "render"):
-            busy_ms += ms
-        indent = "  " if name not in ("physics", "instances", "render") else ""
-        lines.append(f"{indent}stage {name}: host {host:.3f} ms, device {ms:.3f} ms "
-                     "per step")
+    prof_ms, busy_ms, stages, prof = profile_step(step, state, args.steps, args.temporal)
     print(f"profiled: wall per step {prof_ms:.3f} ms; device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / prof_ms:.1f}% of wall, idle the rest)")
-    print("\n".join(lines))
+    for name, (host, dev) in stages.items():
+        indent = "" if name in ("physics", "instances", "render") else "  "
+        print(f"{indent}stage {name}: host {host:.3f} ms, device {dev:.3f} ms per step")
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25,
                                     max_name_column_width=60))
     if args.trace:
