@@ -96,7 +96,34 @@ r. small steps on the card against the CPU (the bars of phases e and j):
 s. timings: the ultra and temporal steps and renders, their ssr, ssgi,
    clouds, hiz and aa stages, potato and low at full size, and the ultra
    step under the profiler (device busy share, stage host and device
-   times); the run's time before phase p and after phase s.
+   times); the run's time before phase p and after phase s;
+then the rest of render (plain PyTorch around K1-K5):
+t. the forward renderer (`entry.build_forward`: the flagship scene and
+   camera, `raster.render_pass` on 128x128 tiles) for one frame: K5 once
+   and nothing else, equal in every bit to its plain version on the same
+   inputs, its kept counts to tile_slot_keep over band_args; the frame's
+   tri_id is K5's and covers the pile; what the 512-slot cap drops;
+u. the feature frame (`entry.build_feature_frame`: slot-binned cascades
+   with a y-footprint of 8 tiles, textures on every other box, a 512x1024
+   environment map of the sky, a HUD of 48 sprites) for 3 steps: K1, K2,
+   K3 once a step; on the last step's inputs K1 (its texture ids live) as
+   in phase 4, K2 and K3 on the slot lists in every bit against their
+   plain versions, kept as in phase b; textured pixels change the base
+   colour; the sky equals the environment's sharpest mip; the image equals
+   the post chain's LDR with composite_sprites run alone; the atmosphere
+   LUTs and equi_to_cube of the environment at face 512, card against CPU;
+v. the bench frame (`entry.build_bench_frame`: bench.py's world, 0.98 M
+   resident triangles, spheres as a two-level LOD chain) for 3 steps: K1,
+   K2, K3 once a step; visible pixels of both LOD levels; every output
+   finite; peak device memory; on the last step's inputs K1 as in phase 4
+   and K2, K3 on the corner-binned cascade lists as in phase u;
+w. a small feature frame and a small bench frame on the card against the
+   CPU (the bars of phases e and j); timings: the forward frame and K5 at
+   its shape, the feature step and render with its ui, environment and
+   cascade stages, the bench-frame step and render with its binnings; the
+   feature step under the profiler.
+Kernels launched on the paths of phases t-v join each kernel's
+`launches_by_path` in the kernels line (`launches` sums them).
 
 Every kernel culls its slots exactly. Wherever one is checked (phases 4,
 b, c, d and h), it also writes its per-tile (K1, K5, K7: per row band;
@@ -581,6 +608,38 @@ def check_raster_shade(args, name: str):
     return vis_k, gp_k, keep, n_named, err_gbuf
 
 
+def check_split(din, name: str, lists: str, results: dict):
+    """K2 then K3 on the atlas inputs `din` (raster.depth_args) against
+    their plain versions in every bit, their kept counts against
+    tile_slot_keep (run_kept), the plain versions masked by that mask equal
+    to the unmasked ones; each kernel's max |d| joins results. -> the
+    atlas."""
+    import torch
+    from garden_tpu_torch.render import raster
+    split = raster.depth_args(**din)
+    sup, grid = split["super"], split["grid"]
+    k2, keep2, kept2, named2 = run_kept(raster.depth_super_cuda, sup, "super",
+                                        f"{name}: depth_super (K2) on {lists}")
+    k3, keep3, kept3, named3 = run_kept(
+        lambda *a, kept: raster.depth_grid_cuda(k2.clone(), *a, kept=kept), grid, "grid",
+        f"{name}: depth_grid (K3) on {lists}")
+    p2 = raster.depth_super_plain(*sup)
+    p3 = raster.depth_grid_plain(k2.clone(), *grid)
+    p2k = raster.depth_super_plain(*sup, keep=keep2)
+    p3k = raster.depth_grid_plain(k2.clone(), *grid, keep=keep3)
+    torch.cuda.synchronize()
+    bits = {"depth_super": same_bits(k2, p2), "depth_grid": same_bits(k3, p3),
+            "masked": same_bits(p2k, p2) and same_bits(p3k, p3)}
+    print(f"{name}: atlas {k3.shape[1]}x{k3.shape[0]} on {lists}: same bits {bits}; "
+          f"covered {(k3 > 0).float().mean():.4f}")
+    check(all(bits.values()), f"{name}: K2/K3 on {lists} differ from their plain versions")
+    check(kept2 < named2 and kept3 < named3, f"{name}: the split raster's cull keeps "
+                                             "every named slot")
+    for k, err in (("depth_super", max_diff(k2, p2)), ("depth_grid", max_diff(k3, p3))):
+        results[k]["max_abs_err"] = max(results[k]["max_abs_err"], err)
+    return k3
+
+
 def raster_shade_bounds(args, vis, planes, keep, n_named):
     """(bound, bound_full) of raster_shade on `args` with outputs vis and
     planes: the operations of the (slot, pixel) pairs that tile_slot_keep
@@ -972,7 +1031,7 @@ def pass_set_phases(card: str, results: dict, t_start: float) -> None:
     # same triangles
     nohiz = DeferredRenderer(dataclasses.replace(trend.config, use_occlusion_culling=False),
                              trend.scene_host, "cuda")
-    same_hiz = (nohiz.render(tstep.scene, tmats, tc, tframe, tprev)["tri_id"]
+    same_hiz = (nohiz.render(tstep.scene, tmats, tc, tframe, prev_inst_matrices=tprev)["tri_id"]
                 == tout["tri_id"]).float().mean().item()
     print(f"phase q: the frame without Hi-Z has the same tri_id on {same_hiz:.5f} of pixels")
     check(same_hiz >= 0.999, "phase q: the Hi-Z cull removed visible triangles")
@@ -1059,6 +1118,318 @@ def pass_set_phases(card: str, results: dict, t_start: float) -> None:
     for name, (host, dev) in stages.items():
         print(f"phase s:   stage {name}: host {host:.3f} ms, device {dev:.3f} ms per step")
     print(f"chip_smoke: phases 1-s took {time.perf_counter() - t_start:.1f} s")
+
+
+def rel_diff(a, b) -> float:
+    """Largest |a - b| / (|b| + 1e-6)."""
+    return ((a - b).abs() / (b.abs() + 1e-6)).max().item()
+
+
+def small_frame_vs_cpu(make, phase: str) -> None:
+    """One step of make(device) -> (step, state), a small frame, on the card
+    and on the CPU: tri_id on >= 99.9% of pixels, the image within 2 levels
+    on >= 99.5%, bodies within 1e-4 (the bars of phases e and j)."""
+    small = {}
+    for dev in ("cuda", "cpu"):
+        s_step, s_state = make(dev)
+        s_next, s_img = s_step(s_state)
+        s_out = s_step.render(s_step.instance_matrices(s_next["physics"]), s_state["frame"])
+        small[dev] = (s_img.cpu(), s_out["tri_id"].cpu(),
+                      s_next["physics"]["bodies"]["pos"].cpu())
+    tri_small = (small["cuda"][1] == small["cpu"][1]).float().mean().item()
+    img_d = (small["cuda"][0].int() - small["cpu"][0].int()).abs().amax(-1)
+    img_ok = (img_d <= 2).float().mean().item()
+    pos_d = max_diff(small["cuda"][2], small["cpu"][2])
+    print(f"phase {phase}: 256x128 step cuda vs cpu: tri_id agreement {tri_small:.5f}, "
+          f"image within 2 levels {img_ok:.5f}, max|d| pos {pos_d:.3g}")
+    check(tri_small >= 0.999 and img_ok >= 0.995 and pos_d <= 1e-4,
+          f"phase {phase}: the small step on the card disagrees with the CPU")
+
+
+def feature_phases(card: str, results: dict, t_start: float) -> None:
+    """Phases t-w: the forward renderer, the feature frame and the bench
+    frame at full size, small frames card vs CPU, and their timings. Each
+    kernel's launches on these paths join its `launches_by_path`."""
+    import torch
+    from garden_tpu_torch.entry import build_bench_frame, build_feature_frame, build_forward
+    from garden_tpu_torch.ops import cubemap
+    from garden_tpu_torch.core import math3d as m3
+    from garden_tpu_torch.core.config import ShadowConfig
+    from garden_tpu_torch.render import (atmosphere, csm, ibl, lighting, mesh, raster,
+                                         sprites, tonemap)
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from profile_torch_step import profile_step
+
+    kernels = {"raster_shade": raster.rasterize_visibility_shaded,
+               "depth_super": raster.depth_super, "depth_grid": raster.depth_grid,
+               "depth_dense": raster.depth_dense, "visibility": raster.rasterize_visibility}
+
+    def zero_counts():
+        for fn in kernels.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {k: fn.launches for k, fn in kernels.items()}
+
+    def add_path(name: str, path: str, n: int):
+        by = results[name].setdefault("launches_by_path", {})
+        by[path] = n
+        results[name]["launches"] = sum(by.values())
+
+    t_phase = time.perf_counter()
+    # phase t: the forward renderer over the flagship scene, one frame
+    fwd, fscene, fmats, fconst = build_forward(N_BODIES, WIDTH, HEIGHT, grid_dim=64,
+                                               device="cuda", use_hdr=True)
+    zero_counts()
+    fout = fwd.render(fscene, fmats, fconst)
+    torch.cuda.synchronize()
+    flaunch = read_counts()
+    print(f"phase t: one forward frame, launches {flaunch}")
+    check(flaunch == {"raster_shade": 0, "depth_super": 0, "depth_grid": 0,
+                      "depth_dense": 0, "visibility": 1},
+          "phase t: the forward frame did not launch K5 once (and nothing else)")
+    cfg = fwd.config
+    wpos, _ = mesh.transform_vertices(fscene, fmats)
+    clip = m3.apply_mat4_h(fconst["view_proj"], wpos)
+    setup = raster.setup_triangles(clip, fscene["indices"], fscene["tri_valid"], WIDTH,
+                                   HEIGHT)
+    bins = raster.bin_triangles(setup, WIDTH, HEIGHT, cfg.tile_size, cfg.max_tris_per_tile)
+    vargs = raster.visibility_args(setup, *bins, WIDTH, HEIGHT, cfg.tile_size)
+    kv, keep5, kept5, named5 = run_kept(raster.visibility_cuda, vargs, "visibility",
+                                        "phase t: visibility (K5) on 128x128 tiles")
+    pv = raster.visibility_plain(*vargs)
+    pvk = raster.visibility_plain(*raster.band_args(vargs), keep=keep5)
+    torch.cuda.synchronize()
+    bits5 = {k: same_bits(kv[k], pv[k]) for k in ("tri_id", "depth", "b0", "b1")}
+    masked5 = all(same_bits(pvk[k], pv[k]) for k in pv)
+    # what the 512-slot cap drops: every tile's entries before the cap
+    uncapped = raster.bin_triangles(setup, WIDTH, HEIGHT, cfg.tile_size, 8192)[1]
+    dropped = int((uncapped - cfg.max_tris_per_tile).clamp(min=0).sum())
+    full = int((uncapped > cfg.max_tris_per_tile).sum())
+    cover = (fout["tri_id"] >= 0).float().mean().item()
+    boxes = int(torch.unique(fscene["tri_instance"][fout["tri_id"][fout["tri_id"] >= 0]
+                                                    .long()]).numel())
+    print(f"phase t: K5 vs plain at {WIDTH}x{HEIGHT} on {cfg.tile_size}x{cfg.tile_size} "
+          f"tiles, {vargs[1].shape[1]} list slots + {vargs[3].numel()} big: same bits "
+          f"{bits5}; masked plain == plain {masked5}; the frame's tri_id is K5's: "
+          f"{torch.equal(fout['tri_id'], kv['tri_id'])}")
+    print(f"phase t: {full} of {uncapped.numel()} tiles over the {cfg.max_tris_per_tile}-slot "
+          f"cap drop {dropped} of {int(uncapped.sum())} (tile, triangle) entries; big list "
+          f"{int((bins[2] >= 0).sum())} of {bins[2].numel()}; covered {cover:.4f}, "
+          f"{boxes} instances visible; hdr finite {bool(torch.isfinite(fout['hdr']).all())}")
+    check(all(bits5.values()) and masked5, "phase t: K5 differs from its plain version")
+    check(torch.equal(fout["tri_id"], kv["tri_id"]), "phase t: the frame's tri_id is not K5's")
+    check(cover > 0.05 and boxes >= 50, "phase t: the forward frame misses the pile")
+    check(bool(torch.isfinite(fout["hdr"]).all()), "phase t: non-finite HDR")
+    add_path("visibility", "forward frame", flaunch["visibility"])
+    fwd_args = vargs
+    del pv, pvk, kv, uncapped
+
+    # phase u: the feature frame at full size, 3 steps
+    t0 = time.perf_counter()
+    ustep, ustate = build_feature_frame(N_BODIES, WIDTH, HEIGHT, grid_dim=64, device="cuda")
+    urend, uc = ustep.renderer, ustep.constants
+    torch.cuda.synchronize()
+    print(f"phase u: built the feature frame in {time.perf_counter() - t0:.1f} s (shadow "
+          f"{urend.config.shadow}; {int(ustep.ui_sprites['count'])} HUD sprites; "
+          f"environment {tuple(ustep.environment.shape)})")
+    zero_counts()
+    ust = ustate
+    for _ in range(3):
+        ust, uimage = ustep(ust)
+    torch.cuda.synchronize()
+    ulaunch = read_counts()
+    print(f"phase u: 3 feature steps, launches {ulaunch}")
+    check(ulaunch == {"raster_shade": 3, "depth_super": 3, "depth_grid": 3,
+                      "depth_dense": 0, "visibility": 0},
+          "phase u: the feature step did not run K1, K2 and K3 once per step")
+    for k in ("raster_shade", "depth_super", "depth_grid"):
+        add_path(k, "feature frame (3 steps)", ulaunch[k])
+    umats = ustep.instance_matrices(ust["physics"])
+    # K1 on the last step's inputs, the texture ids (plane 14) live
+    uargs = raster.kernel_args(**urend.raster_inputs(ustep.scene, umats, uc))
+    *_, err_u = check_raster_shade(uargs, "phase u")
+    din, _ = atlas_inputs(ustep, umats)
+    k3 = check_split(din, "phase u", "slot lists", results)
+    slots = used_slots(din["tile_tris"], din["counts"])
+    print(f"phase u: slot-binned atlas {k3.shape[1]}x{k3.shape[0]} (foot 2 x "
+          f"{csm.atlas_tiling(urend.config.shadow)[2]}, {din['tile_tris'].shape[1]} slots): "
+          f"active rows' slots used {int(slots.sum())} of {slots.numel()} "
+          f"(p50/max per row {int(slots.sum(1).median())}/{int(slots.sum(1).max())}); "
+          f"full rows {int((din['counts'] >= din['tile_tris'].shape[1]).sum())}")
+    results["raster_shade"]["max_abs_err"] = max(results["raster_shade"]["max_abs_err"], err_u)
+    del uargs, din, k3
+    # the textures, the environment and the HUD on the last step's frame
+    seen = {}
+    post = urend.post
+
+    def spy(hdr, *a):
+        seen["hdr"] = hdr
+        return post(hdr, *a)
+    urend.post = spy
+    uout = ustep.render(umats, ust["frame"])
+    del urend.post
+    g = uout["gbuffer"]
+    inst = g["instance"].clamp(min=0).long()
+    mat = ustep.scene["materials"][ustep.scene["inst_material"][inst].long()]
+    textured = g["visible"] & (mat[..., 10] >= 0)
+    tex_changed = (g["base_color"] != mat[..., 0:3]).any(-1) & textured
+    rays = lighting.view_rays(g, uc)
+    env = ustep.environment
+    sky = ibl.sample_prefiltered(ibl.prefilter_latlong(env)[:1], rays,
+                                 torch.zeros_like(rays[..., 0]))
+    hdr_env = urend.shade(g, uc, uout["shadow"], uout["ao"], environment=env)
+    bg = ~g["visible"]
+    sky_equal = torch.equal(hdr_env[bg], sky[bg])
+    ldr, _, _ = urend.tone(seen["hdr"], uc, ust["frame"])
+    ldr = urend.antialias(ldr)
+    hud_alone = tonemap.to_uint8(sprites.composite_sprites(ldr, ustep.ui_atlas,
+                                                            ustep.ui_sprites))
+    hud_equal = torch.equal(uout["image"], hud_alone)
+    hud_px = (hud_alone != tonemap.to_uint8(ldr)).any(-1).float().mean().item()
+    print(f"phase u: textured box pixels {int(textured.sum())}, base colour changed by "
+          f"the texture on {tex_changed.float().sum() / max(int(textured.sum()), 1):.4f}; "
+          f"sky pixels {bg.float().mean():.4f}, equal to the environment's sharpest mip "
+          f"{sky_equal}; the HUD changes {hud_px:.4f} of pixels and the image equals "
+          f"composite_sprites alone {hud_equal}")
+    check(tex_changed.any(), "phase u: the textures change no pixel")
+    check(bool(bg.any()) and sky_equal, "phase u: the sky is not the environment map")
+    check(hud_equal and hud_px > 0, "phase u: the HUD differs from composite_sprites alone")
+    bad = all_finite(uout, "out")
+    check(not bad, f"phase u: non-finite outputs {bad}")
+    # the LUTs in float32 are ill-conditioned below the horizon (the Chapman
+    # lower branch cancels exp(x - x sin) at x ~ 800): there the CPU's float32
+    # transmittance is itself ~7e-4 off float64, so the card is held to
+    # float64 as closely as the CPU is (within twice the CPU's largest error,
+    # and at least the CPU tests' rtol 2e-4, above an absolute floor of 1e-6
+    # of the LUT's scale); equi_to_cube card vs CPU at rtol 1e-5
+    for name, fn in (("transmittance_lut", atmosphere.transmittance_lut),
+                     ("multi_scatter_lut", atmosphere.multi_scatter_lut)):
+        on_card, on_cpu = fn(device="cuda").cpu(), fn()
+        default = torch.get_default_dtype()
+        torch.set_default_dtype(torch.float64)
+        try:
+            exact = fn()
+        finally:
+            torch.set_default_dtype(default)
+        floor = 1e-6 * exact.abs().max().item()      # absolute floor: 1e-6 of the scale
+        rel = lambda x: ((x.double() - exact).abs() - floor).clamp(min=0) / exact.abs().clamp(
+            min=1e-30)
+        bar = max(2e-4, 2 * rel(on_cpu).max().item())
+        card_rel = rel(on_card).max().item()
+        print(f"phase u: {name} {tuple(on_card.shape)}: max rel error against float64, "
+              f"card {card_rel:.3g}, cpu {rel(on_cpu).max().item():.3g} (bar {bar:.3g}); card "
+              f"vs cpu max rel {rel_diff(on_card, on_cpu):.3g}")
+        check(card_rel <= bar, f"phase u: {name} on the card is less accurate than on the CPU")
+    # equi_to_cube is bilinear in coordinates from atan2 and asin, which may
+    # differ by an ulp between the card and the CPU: the value then moves by
+    # that ulp times the map's gradient, which is steep only at the sun's
+    # disk. So: rtol 1e-5 on >= 99.9% of texels, and nowhere more than the
+    # largest difference between two adjacent texels of the map
+    cube_card, cube_cpu = cubemap.equi_to_cube(env, 512).cpu(), cubemap.equi_to_cube(
+        env.cpu(), 512)
+    near = torch.isclose(cube_card, cube_cpu, rtol=1e-5, atol=1e-6).all(-1).float().mean()
+    env_c = env.cpu()
+    step_max = max((env_c[1:] - env_c[:-1]).abs().max().item(),
+                   (env_c[:, 1:] - env_c[:, :-1]).abs().max().item())
+    worst = max_diff(cube_card, cube_cpu)
+    print(f"phase u: equi_to_cube(environment, 512) {tuple(cube_card.shape)} card vs cpu: "
+          f"within rtol 1e-5 on {near:.6f} of texels, max|d| {worst:.4g} (the map's largest "
+          f"adjacent-texel step {step_max:.4g}), max rel {rel_diff(cube_card, cube_cpu):.3g}")
+    check(near >= 0.999 and worst <= step_max,
+          "phase u: equi_to_cube on the card disagrees with the CPU")
+    del seen, hdr_env, uout, cube_card, cube_cpu
+
+    # phase v: the bench frame at full size, 3 steps
+    t0 = time.perf_counter()
+    bstep, bstate = build_bench_frame(N_BODIES, WIDTH, HEIGHT, device="cuda")
+    torch.cuda.synchronize()
+    n_tri = int(bstep.scene["tri_valid"].sum())
+    print(f"phase v: built the bench frame in {time.perf_counter() - t0:.1f} s: {n_tri} "
+          f"resident triangles, LOD switch at "
+          f"{bstep.renderer.scene_host.inst_lod_dist[2, 0]:.3f} m")
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    bst = bstate
+    for _ in range(3):
+        bst, bimage = bstep(bst)
+    torch.cuda.synchronize()
+    blaunch = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase v: 3 bench-frame steps, launches {blaunch}; peak device memory "
+          f"{peak:.2f} GiB")
+    check(blaunch == {"raster_shade": 3, "depth_super": 3, "depth_grid": 3,
+                      "depth_dense": 0, "visibility": 0},
+          "phase v: the bench frame did not run K1, K2 and K3 once per step")
+    for k in ("raster_shade", "depth_super", "depth_grid"):
+        add_path(k, "bench frame (3 steps)", blaunch[k])
+    bmats = bstep.instance_matrices(bst["physics"])
+    bout = bstep.render(bmats, bst["frame"])
+    tri = bout["tri_id"]
+    lod = bstep.scene["tri_lod"][tri[tri >= 0].long()]
+    levels = sorted(torch.unique(lod).tolist())
+    bad = all_finite(bout, "out")
+    kept_tris = int(bstep.renderer.cull_instances(bstep.scene, bmats, bstep.constants).sum())
+    print(f"phase v: visible pixels by LOD level {[(l, int((lod == l).sum())) for l in levels]}; "
+          f"the cull keeps {kept_tris} of {n_tri} triangles; covered "
+          f"{(tri >= 0).float().mean():.4f}; non-finite outputs {bad}")
+    check(levels == [0, 1], "phase v: the bench frame does not draw both LOD levels")
+    check(not bad and bool(torch.isfinite(bst["physics"]["bodies"]["pos"]).all()),
+          f"phase v: non-finite outputs {bad}")
+    del bout
+    # K1, K2 and K3 on the last step's inputs against their plain versions
+    bargs = raster.kernel_args(**bstep.renderer.raster_inputs(bstep.scene, bmats,
+                                                              bstep.constants))
+    *_, err_v = check_raster_shade(bargs, "phase v")
+    bdin, _ = atlas_inputs(bstep, bmats)
+    check_split(bdin, "phase v", "corner lists", results)
+    results["raster_shade"]["max_abs_err"] = max(results["raster_shade"]["max_abs_err"], err_v)
+    del bargs, bdin
+
+    # phase w: small frames card vs CPU, then timings
+    cut = ShadowConfig(resolve_step=2, cascade_sizes=(256, 128, 128), atlas_tile_h=16,
+                       atlas_foot_y=None, max_active_tiles=24)
+    small_frame_vs_cpu(lambda dev: build_feature_frame(
+        32, 256, 128, grid_dim=8, cfg_overrides=dict(shadow=cut), device=dev,
+        env_height=16), "w (feature frame)")
+    small_frame_vs_cpu(lambda dev: build_bench_frame(
+        64, 256, 128, cfg_overrides=dict(shadow=dataclasses.replace(cut, atlas_foot_y=2)),
+        device=dev), "w (bench frame)")
+    geo, vis, g = urend.gbuffer_pass(ustep.scene, umats, uc, ust["frame"])
+    ldr, _, _ = urend.tone(g["base_color"], uc, ust["frame"])
+    bren = bstep.renderer
+    bgeo, _, _ = bren.gbuffer_pass(bstep.scene, bmats, bstep.constants)
+    blight, _ = bren.shadow_light(bstep.constants)
+    tt = {
+        "forward frame": cuda_ms(lambda: fwd.render(fscene, fmats, fconst), reps=10),
+        "visibility (K5) on the forward frame: kernel, device": kernel_ms(
+            lambda: raster.visibility_cuda(*fwd_args)),
+        "visibility (K5) on the forward frame: plain": cuda_ms(
+            lambda: raster.visibility_plain(*fwd_args), reps=3),
+        "feature combined step": cuda_ms(lambda: ustep(ust), reps=5),
+        "feature render": cuda_ms(lambda: ustep.render(umats, ust["frame"]), reps=5),
+        "feature ui (composite_sprites)": cuda_ms(lambda: sprites.composite_sprites(
+            ldr, ustep.ui_atlas, ustep.ui_sprites), reps=10),
+        "feature environment (prefilter, sky, SH, specular, resolve)": cuda_ms(
+            lambda: urend.shade(g, uc, None, None, environment=ustep.environment), reps=10),
+        "feature render_cascades (slot-binned)": cuda_ms(lambda: urend.shadow_atlas(
+            ustep.scene, geo["planes"], urend.shadow_light(uc)[0]), reps=10),
+        "bench-frame combined step": cuda_ms(lambda: bstep(bst), reps=5),
+        "bench-frame render": cuda_ms(lambda: bstep.render(bmats, bst["frame"]), reps=5),
+        "bench-frame main raster inputs (setup, binning, records)": cuda_ms(
+            lambda: bren.raster_inputs(bstep.scene, bmats, bstep.constants), reps=5),
+        "bench-frame cascade inputs (setup, corner binning)": cuda_ms(
+            lambda: bren.cascade_inputs(bstep.scene, bgeo["planes"], blight), reps=5),
+    }
+    for name, ms in tt.items():
+        print(f"phase w: {name} median {ms:.4f} ms  [{card}]")
+    wall, busy, stages, _ = profile_step(ustep, ust, 3)
+    print(f"phase w: feature step under the profiler: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms ({100 * busy / wall:.1f}% of wall)  [{card}]")
+    for name, (host, dev) in stages.items():
+        print(f"phase w:   stage {name}: host {host:.3f} ms, device {dev:.3f} ms per step")
+    print(f"chip_smoke: phases t-w took {time.perf_counter() - t_phase:.1f} s; phases 1-w "
+          f"{time.perf_counter() - t_start:.1f} s")
 
 
 def main() -> int:
@@ -1574,8 +1945,14 @@ def main() -> int:
           f"depth_dense translucent atlas {b4[0]} (full {b4_full[0]}), trans-depth "
           f"{b4[1]} (full {b4_full[1]})")
 
+    results["visibility"]["launches_by_path"] = {"glass (5 steps)": glaunch["visibility"]}
+    for k, path, n in (("raster_shade", "slice (5 steps)", launches),
+                       ("depth_super", "flagship (5 steps)", counts["depth_super"]),
+                       ("depth_grid", "flagship (5 steps)", counts["depth_grid"])):
+        results[k]["launches_by_path"] = {path: n}
     physics_phases(card)
     pass_set_phases(card, results, t_start)
+    feature_phases(card, results, t_start)
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():

@@ -24,25 +24,45 @@ with a 5x5 PCF. `cfg_overrides=TEMPORAL_OVERRIDES` adds the temporal pass
 set to the flagship: per-pixel velocity and the disocclusion mask, Hi-Z
 occlusion culling against the previous frame's depth, and SMAA in place
 of FXAA. Any other `QUALITY_PRESETS` entry applies the same way.
+
+`build_forward` puts the flagship scene and camera through the forward
+renderer (`render.forward.ForwardRenderer`: one visibility pass on square
+128x128 tiles, no shadows or post). `build_feature_frame` is the flagship with every scene feature the
+reference's renderer takes: shadows with a y-footprint of 8 atlas tiles
+(`FEATURE_OVERRIDES`: slot-binned cascades, then the split depth raster),
+base-colour textures on every other box (`FEATURE_BOXES`, 8 seeded
+textures), a lat-long environment map of the procedural sky in place of
+the atmosphere, and a HUD of nine-slice panels and sprites composited
+after AA. `build_bench_frame` draws bench.py's world (boxes and spheres,
+`physics.scenes.bench_world`) with the flagship's camera and passes, each
+sphere a two-level LOD chain switching at the 0.1 quantile of the
+spheres' camera distances (BENCH_LOD_QUANTILE).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from garden_tpu_torch.core import math3d as m3
 from garden_tpu_torch.core.config import (QUALITY_PRESETS, PhysicsConfig, RenderConfig,
                                           SLICE_OVERRIDES, ShadowConfig)
+from garden_tpu_torch.physics import scenes
+from garden_tpu_torch.physics import shapes as psh
 from garden_tpu_torch.physics import world as pw
+from garden_tpu_torch.render import atmosphere, ibl
 from garden_tpu_torch.render import mesh as rmesh
+from garden_tpu_torch.render import sprites as rsprites
 from garden_tpu_torch.render.deferred import DeferredRenderer
+from garden_tpu_torch.render.forward import ForwardRenderer
 from garden_tpu_torch.systems.camera import common_constants
 
-__all__ = ["CombinedStep", "DENSE_SHADOW_OVERRIDES", "GLASS_BOXES",
-           "GLASS_OVERRIDES", "SLICE_OVERRIDES", "TEMPORAL_OVERRIDES",
-           "ULTRA_OVERRIDES", "build"]
+__all__ = ["CombinedStep", "DENSE_SHADOW_OVERRIDES", "FEATURE_BOXES",
+           "FEATURE_OVERRIDES", "GLASS_BOXES", "GLASS_OVERRIDES", "SLICE_OVERRIDES",
+           "TEMPORAL_OVERRIDES", "ULTRA_OVERRIDES", "build", "build_bench_frame",
+           "build_feature_frame", "build_forward"]
 
 # the reference-parity shadow preset: the dense depth raster over a
 # 6144x2048 atlas of 128x128 tiles
@@ -63,6 +83,25 @@ GLASS_OVERRIDES = dict(use_trans_depth=True)
 ULTRA_OVERRIDES = dict(QUALITY_PRESETS["ultra"])
 TEMPORAL_OVERRIDES = dict(use_velocity=True, use_occlusion_culling=True, aa_mode="smaa")
 
+# the flagship's shadows with the default y-footprint of 16-row atlas tiles,
+# 256 // 16 = 8: slot-binned cascades
+FEATURE_OVERRIDES = dict(shadow=ShadowConfig(
+    resolve_step=2, cascade_sizes=(2048, 1024, 1024), atlas_tile_h=16,
+    atlas_foot_y=None, max_active_tiles=768))
+N_FEATURE_TEXTURES = 8
+# dynamic box k takes FEATURE_BOXES[k % 16]: every other box textured, box
+# 2j + 1 with texture j % 8 over a light tint
+FEATURE_BOXES = tuple(
+    BOX_MATERIAL if k % 2 == 0 else
+    rmesh.Material(base_color=(0.9, 0.85, 0.8), roughness=0.6, base_texture=k // 2)
+    for k in range(2 * N_FEATURE_TEXTURES))
+BENCH_SPHERE_LODS = ((6, 12), (3, 6))   # uv_sphere (rings, segments) per level
+# the LOD switch: this quantile of the sphere centres' camera distances. At
+# full size the camera sees mostly the pile's front face, 32-49 m away: the
+# median of all centres (45.8 m) leaves 1 of 618 visible instances beyond
+# it, the 0.1 quantile (36.8 m) 36% of them
+BENCH_LOD_QUANTILE = 0.1
+
 
 class CombinedStep:
     """One physics step, instance matrices from the body poses, one frame.
@@ -77,6 +116,11 @@ class CombinedStep:
         self.scene = scene
         self.constants = constants
         self.n_instances = n_instances
+        # the frame's optional inputs: a lat-long environment map, a UI atlas
+        # and its sprites (SpriteBatch.device_arrays)
+        self.environment: Optional[torch.Tensor] = None
+        self.ui_atlas: Optional[torch.Tensor] = None
+        self.ui_sprites: Optional[Dict[str, Any]] = None
 
     def physics(self, phys: Dict[str, Any]) -> Dict[str, Any]:
         return pw.step(phys, self.pcfg, 1.0 / 60.0, self.present_types)
@@ -92,7 +136,9 @@ class CombinedStep:
     def render(self, inst_mats: torch.Tensor, frame: Dict[str, torch.Tensor],
                prev_inst_matrices: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         return self.renderer.render(self.scene, inst_mats, self.constants, frame,
-                                    prev_inst_matrices)
+                                    ui_atlas=self.ui_atlas, ui_sprites=self.ui_sprites,
+                                    prev_inst_matrices=prev_inst_matrices,
+                                    environment=self.environment)
 
     def __call__(self, state: Dict[str, Any]) -> Tuple[Dict[str, Any], torch.Tensor]:
         phys = self.physics(state["physics"])
@@ -125,33 +171,69 @@ def flagship_world(n_bodies: int, grid_dim: int = 16, cell_size: float = 2.0
     return w, pcfg, side
 
 
-def build(n_bodies: int, width: int, height: int, grid_dim: int = 16,
-          cell_size: float = 2.0, tile_size: int = 128,
-          cfg_overrides: Optional[dict] = None, *, device,
-          box_materials: Optional[Tuple[rmesh.Material, ...]] = None
-          ) -> Tuple[CombinedStep, Dict[str, Any]]:
-    """The combined step and its initial state on `device`. Dynamic box k
-    takes box_materials[k % len(box_materials)] (default: the flagship's
-    one material)."""
-    w, pcfg, side = flagship_world(n_bodies, grid_dim, cell_size)
-    n_dyn = n_bodies - 1
-
-    cube_mesh = rmesh.cube(0.45)
-    ground = rmesh.plane_grid(max(side * 2.0, 20.0), 4)
+def _render_config(width: int, height: int, tile_size: int, max_vertices: int,
+                   max_triangles: int, max_instances: int,
+                   cfg_overrides: Optional[dict]) -> RenderConfig:
+    """The flagship's RenderConfig at these capacities, with overrides."""
     rkwargs = dict(
         width=width, height=height, tile_size=tile_size,
-        max_vertices=n_dyn * cube_mesh.vertex_count + ground.vertex_count,
-        max_triangles=n_dyn * cube_mesh.triangle_count + ground.triangle_count,
-        max_tris_per_tile=512, max_instances=n_dyn + 1,
+        max_vertices=max_vertices, max_triangles=max_triangles,
+        max_tris_per_tile=512, max_instances=max_instances,
         shadow=ShadowConfig(resolve_step=2, cascade_sizes=(2048, 1024, 1024),
                             atlas_tile_h=16, atlas_foot_y=2,
                             max_active_tiles=768),
         tile_h=32, foot_y=2,
     )
     rkwargs.update(cfg_overrides or {})
-    rcfg = RenderConfig(**rkwargs)
+    return RenderConfig(**rkwargs)
+
+
+def _flagship_camera(side: int, width: int, height: int, device) -> Dict[str, torch.Tensor]:
+    """The flagship's constants: a camera above and in front of a pile
+    `side` bodies wide, looking at the origin, and its sun."""
+    vec = lambda *c: torch.tensor(c, dtype=torch.float32, device=device)
+    eye = vec(0.0, side * 0.9 + 4.0, side * 1.6 + 8.0)
+    view = m3.look_at(eye, vec(0.0, 0.0, 0.0), vec(0.0, 1.0, 0.0))
+    proj = m3.perspective_reverse_z(1.0, width / height, 0.1, device=device)
+    return common_constants(eye, view, proj, vec(0.4, -0.7, -0.5),
+                            (width, height), 0.0, 1.0 / 60.0)
+
+
+def _combined_step(phys_state, pcfg: PhysicsConfig, present_types: frozenset,
+                   rcfg: RenderConfig, scene: rmesh.SceneBuffers,
+                   constants: Dict[str, torch.Tensor], device
+                   ) -> Tuple[CombinedStep, Dict[str, Any]]:
+    renderer = DeferredRenderer(rcfg, scene, device)
+    state = {"physics": phys_state, "frame": renderer.initial_frame_state()}
+    return CombinedStep(pcfg, present_types, renderer, renderer.device_scene(), constants,
+                        pcfg.max_bodies), state
+
+
+def build(n_bodies: int, width: int, height: int, grid_dim: int = 16,
+          cell_size: float = 2.0, tile_size: int = 128,
+          cfg_overrides: Optional[dict] = None, *, device,
+          box_materials: Optional[Tuple[rmesh.Material, ...]] = None,
+          textures: Sequence[np.ndarray] = ()
+          ) -> Tuple[CombinedStep, Dict[str, Any]]:
+    """The combined step and its initial state on `device`. Dynamic box k
+    takes box_materials[k % len(box_materials)] (default: the flagship's
+    one material); `textures` (square RGBA images of one size) fill the
+    scene's texture array, in order, for Material.base_texture."""
+    w, pcfg, side = flagship_world(n_bodies, grid_dim, cell_size)
+    n_dyn = n_bodies - 1
+    cube_mesh = rmesh.cube(0.45)
+    ground = rmesh.plane_grid(max(side * 2.0, 20.0), 4)
+    rcfg = _render_config(
+        width, height, tile_size,
+        n_dyn * cube_mesh.vertex_count + ground.vertex_count,
+        n_dyn * cube_mesh.triangle_count + ground.triangle_count, n_dyn + 1,
+        cfg_overrides)
+    tex_size = textures[0].shape[0] if len(textures) else 256
     scene = rmesh.SceneBuffers(rcfg.max_vertices, rcfg.max_triangles,
-                               rcfg.max_instances)
+                               rcfg.max_instances, texture_size=tex_size,
+                               max_textures=len(textures))
+    for img in textures:
+        scene.add_texture(img)
     box_materials = box_materials or (BOX_MATERIAL,)
     rows = {}                        # one material row per distinct material
     for m in box_materials:
@@ -161,16 +243,142 @@ def build(n_bodies: int, width: int, height: int, grid_dim: int = 16,
     scene.add_instance(ground, material=gmat)
     for k in range(n_dyn):
         scene.add_instance(cube_mesh, material=rows[box_materials[k % len(box_materials)]])
-    renderer = DeferredRenderer(rcfg, scene, device)
+    return _combined_step(w.device_state(device), pcfg, w.shapes.present_types(), rcfg,
+                          scene, _flagship_camera(side, width, height, device), device)
 
-    vec = lambda *c: torch.tensor(c, dtype=torch.float32, device=device)
-    eye = vec(0.0, side * 0.9 + 4.0, side * 1.6 + 8.0)
-    view = m3.look_at(eye, vec(0.0, 0.0, 0.0), vec(0.0, 1.0, 0.0))
-    proj = m3.perspective_reverse_z(1.0, width / height, 0.1, device=device)
-    constants = common_constants(eye, view, proj, vec(0.4, -0.7, -0.5),
-                                 (width, height), 0.0, 1.0 / 60.0)
-    state = {"physics": w.device_state(device),
-             "frame": renderer.initial_frame_state()}
-    step = CombinedStep(pcfg, w.shapes.present_types(), renderer,
-                        renderer.device_scene(), constants, n_dyn + 1)
+
+def build_forward(n_bodies: int, width: int, height: int, grid_dim: int = 16, *,
+                  device, use_hdr: bool = False):
+    """The flagship's scene, initial poses and camera under the forward
+    renderer -> (renderer, device scene, instance matrices, constants);
+    one frame is renderer.render(scene, mats, constants)."""
+    step, state = build(n_bodies, width, height, grid_dim, device=device)
+    fwd = ForwardRenderer(step.renderer.config, step.renderer.scene_host, device,
+                          use_hdr=use_hdr)
+    return fwd, step.scene, step.instance_matrices(state["physics"]), step.constants
+
+
+def feature_textures(seed: int = 0, size: int = 256, count: int = N_FEATURE_TEXTURES
+                     ) -> list:
+    """`count` seeded (size, size, 4) RGBA textures, alpha 1: a checker of
+    a seeded period and two colours, with seeded noise over it."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size]
+    out = []
+    for _ in range(count):
+        period = int(rng.integers(8, 65))
+        c0, c1 = rng.uniform(0.2, 1.0, (2, 3))
+        check = ((xx // period + yy // period) % 2)[..., None]
+        rgb = np.where(check == 1, c1, c0) * rng.uniform(0.8, 1.0, (size, size, 1))
+        out.append(np.concatenate([rgb, np.ones((size, size, 1))], -1).astype(np.float32))
+    return out
+
+
+def environment_map(sun_dir_to_light: torch.Tensor, height: int = 512) -> torch.Tensor:
+    """A height x 2 height lat-long map (3 channels) of the procedural sky
+    (`atmosphere.sky_radiance`, 12 march steps) at the texel centres."""
+    dirs, _ = ibl._latlong_dirs(height, 2 * height, sun_dir_to_light.device)
+    return atmosphere.sky_radiance(dirs, sun_dir_to_light)
+
+
+def hud(width: int, height: int, seed: int = 0, atlas_size: int = 512
+        ) -> Tuple[rsprites.TextureAtlas, rsprites.SpriteBatch]:
+    """A HUD over a seeded atlas: four nine-slice panels (36 sprites) at
+    the frame's corners and 12 icons in a bar along the bottom, all placed
+    in proportion to the frame."""
+    rng = np.random.default_rng(seed)
+    atlas = rsprites.TextureAtlas(atlas_size)
+    panel = np.zeros((48, 48, 4), np.float32)
+    panel[..., :3] = rng.uniform(0.1, 0.3, 3)
+    panel[..., 3] = 0.7
+    panel[:4], panel[-4:], panel[:, :4], panel[:, -4:] = 1.0, 1.0, 1.0, 1.0
+    panel_region = atlas.add(panel)
+    yy, xx = np.mgrid[0:32, 0:32]
+    disc = (((xx - 15.5) ** 2 + (yy - 15.5) ** 2) < 15.0 ** 2).astype(np.float32)
+    icons = []
+    for _ in range(4):
+        img = np.concatenate([rng.uniform(0.3, 1.0, (32, 32, 3)), disc[..., None]],
+                             -1).astype(np.float32)
+        icons.append(atlas.add(img))
+    batch = rsprites.SpriteBatch(atlas, capacity=64)
+    pw_, ph_ = 0.22 * width, 0.16 * height
+    border = max(0.012 * height, 2.0)
+    for x in (0.02 * width, 0.76 * width):
+        for y in (0.03 * height, 0.79 * height):
+            batch.push_nine_slice(x, y, pw_, ph_, panel_region, border,
+                                  color=(1.0, 1.0, 1.0, 0.85))
+    size = 0.045 * height
+    for i in range(12):
+        color = tuple(rng.uniform(0.6, 1.0, 3)) + (0.9,)
+        batch.push(rsprites.Sprite(0.30 * width + i * 1.2 * size, 0.90 * height, size, size,
+                                   icons[i % len(icons)], color))
+    return atlas, batch
+
+
+def build_feature_frame(n_bodies: int, width: int, height: int, grid_dim: int = 16,
+                        cell_size: float = 2.0, tile_size: int = 128,
+                        cfg_overrides: Optional[dict] = None, *, device,
+                        seed: int = 0, env_height: int = 512
+                        ) -> Tuple[CombinedStep, Dict[str, Any]]:
+    """The feature frame's combined step: `build` with FEATURE_OVERRIDES
+    (then `cfg_overrides`), FEATURE_BOXES over `feature_textures(seed)`,
+    the environment map of the sky (`environment_map`, env_height rows)
+    and the HUD (`hud`) attached to the step."""
+    step, state = build(n_bodies, width, height, grid_dim, cell_size, tile_size,
+                        dict(FEATURE_OVERRIDES, **(cfg_overrides or {})), device=device,
+                        box_materials=FEATURE_BOXES, textures=feature_textures(seed))
+    step.environment = environment_map(-step.constants["light_dir"], env_height)
+    atlas, batch = hud(width, height, seed)
+    step.ui_atlas = atlas.device(device)
+    step.ui_sprites = batch.device_arrays(device)
     return step, state
+
+
+def build_bench_frame(n_bodies: int, width: int, height: int, tile_size: int = 128,
+                      cfg_overrides: Optional[dict] = None, *, device
+                      ) -> Tuple[CombinedStep, Dict[str, Any]]:
+    """The combined step of bench.py's world (`physics.scenes.bench_world`:
+    a plane, boxes and spheres) with the flagship's camera and passes. Each
+    body is drawn by its shape in the physics state: a box as a cube of its
+    half extent, a sphere as a LOD chain of BENCH_SPHERE_LODS (144 and 36
+    triangles at the bench's radius) switching at the BENCH_LOD_QUANTILE
+    quantile of the sphere centres' distances from the camera, so that both
+    levels draw."""
+    phys, pcfg, present = scenes.bench_world(device, n_bodies)
+    side = scenes.BENCH_SIDE
+    constants = _flagship_camera(side, width, height, device)
+    body_shape = phys["bodies"]["shape"][:n_bodies].long()
+    kinds = phys["shapes"]["type"][body_shape].cpu().numpy()
+    sizes = phys["shapes"]["params"][body_shape][:, 0].cpu().numpy()
+    if kinds[0] != psh.PLANE or not np.isin(kinds[1:], (psh.BOX, psh.SPHERE)).all():
+        raise ValueError("build_bench_frame draws a plane (body 0), boxes and spheres")
+    is_sphere = kinds == psh.SPHERE
+    pos = phys["bodies"]["pos"][:n_bodies].cpu().numpy()
+    eye = constants["camera_pos"].cpu().numpy()
+    dists = np.linalg.norm(pos[is_sphere] - eye, axis=-1)
+    switch = float(np.quantile(dists, BENCH_LOD_QUANTILE)) if dists.size else 0.0
+    chains: Dict[Tuple[bool, float], list] = {}
+    for b in range(1, n_bodies):
+        key = (bool(is_sphere[b]), float(sizes[b]))
+        if key not in chains:
+            chains[key] = ([rmesh.uv_sphere(key[1], r, s) for r, s in BENCH_SPHERE_LODS]
+                           if key[0] else [rmesh.cube(key[1])])
+    body_chains = [chains[(bool(is_sphere[b]), float(sizes[b]))]
+                   for b in range(1, n_bodies)]
+    ground = rmesh.plane_grid(max(side * 2.0, 20.0), 4)
+    rcfg = _render_config(
+        width, height, tile_size,
+        sum(m.vertex_count for c in body_chains for m in c) + ground.vertex_count,
+        sum(m.triangle_count for c in body_chains for m in c) + ground.triangle_count,
+        n_bodies, cfg_overrides)
+    scene = rmesh.SceneBuffers(rcfg.max_vertices, rcfg.max_triangles, rcfg.max_instances)
+    box_mat = scene.add_material(BOX_MATERIAL)
+    sph_mat = scene.add_material(rmesh.Material(base_color=(0.2, 0.4, 0.8), roughness=0.3))
+    scene.add_instance(ground, material=scene.add_material(
+        rmesh.Material(base_color=(0.5, 0.5, 0.5))))
+    for chain in body_chains:
+        if len(chain) > 1:
+            scene.add_instance_lods(chain, [switch], material=sph_mat)
+        else:
+            scene.add_instance(chain[0], material=box_mat)
+    return _combined_step(phys, pcfg, present, rcfg, scene, constants, device)

@@ -71,6 +71,9 @@ def contact_scene(table_cls) -> Dict[str, Any]:
                 margin=rng.uniform(0.05, 0.15, n).astype(np.float32), n_conv=n_conv)
 
 
+BENCH_SIDE = 22     # bench_world's lattice: 22 x 22 columns of 22
+
+
 def bench_world(device, n: int = 10240) -> Tuple[Dict[str, Any], PhysicsConfig, frozenset]:
     """(state, config, present_types) of bench.py's world at n bodies. Its
     active budget covers all 8 candidate pairs, so collide takes the
@@ -82,7 +85,7 @@ def bench_world(device, n: int = 10240) -> Tuple[Dict[str, Any], PhysicsConfig, 
     w.add_body(w.shapes.plane((0.0, 1.0, 0.0), 0.0), motion=pw.STATIC)
     box = w.shapes.box((0.45, 0.45, 0.45))
     sph = w.shapes.sphere(0.45)
-    count, side = 0, 22
+    count, side = 0, BENCH_SIDE
     for ix in range(side):
         for iz in range(side):
             for iy in range(side):

@@ -4,9 +4,9 @@ Port of the frame-path functions of `garden_tpu.render.atmosphere`: sun
 transmittance from a Chapman-function airmass (no LUT lookups), the
 single-scattering sky raymarch with a multi-scatter floor, ground albedo
 and sun disk, aerial perspective on geometry, and the order-2
-spherical-harmonics projection of the sky with its irradiance. The
-reference's offline LUTs (`transmittance_lut`, `multi_scatter_lut`) are
-not ported.
+spherical-harmonics projection of the sky with its irradiance; and the
+reference's offline LUTs (`transmittance_lut`, `multi_scatter_lut`),
+which the frame path does not read.
 """
 
 from __future__ import annotations
@@ -69,6 +69,53 @@ def sun_transmittance(height_km: Tensor, cos_zenith: Tensor) -> Tensor:
     horizon_mu = -torch.sqrt(torch.clamp(1.0 - sin_h * sin_h, min=0.0))
     blocked = cos_zenith < horizon_mu
     return torch.where(blocked[..., None], 0.0, torch.exp(-tau))
+
+
+def transmittance_lut(size: Tuple[int, int] = (64, 256), device="cpu") -> Tensor:
+    """The 256x64 transmittance LUT (size[0], size[1], 3): rows altitude in
+    [0, R_TOP - R_GROUND] km, columns sun zenith cosine in [-0.2, 1]."""
+    hgrid = torch.linspace(0.0, R_TOP - R_GROUND, size[0], device=device)
+    mugrid = torch.linspace(-0.2, 1.0, size[1], device=device)
+    h, mu = torch.meshgrid(hgrid, mugrid, indexing="ij")
+    return sun_transmittance(h, mu)
+
+
+def multi_scatter_lut(size: int = 32, dirs: int = 64, device="cpu") -> Tensor:
+    """The 32x32 multiple-scattering LUT (size, size, 3): rows altitude in
+    [0, R_TOP - R_GROUND] km, columns sun zenith cosine in [-1, 1]; the
+    isotropic multi-scatter transfer Psi = L2 / (1 - f_ms) from a
+    second-order estimate over `dirs` directions (an 8-step march of 40 km
+    each). Non-finite cells (grazing overflow below the horizon) are 0."""
+    h_grid = torch.linspace(0.0, R_TOP - R_GROUND, size, device=device)
+    mu_grid = torch.linspace(-1.0, 1.0, size, device=device)
+    h, mu = torch.meshgrid(h_grid, mu_grid, indexing="ij")
+    sph = torch.from_numpy(_fibonacci_sphere(dirs)).to(device)
+    sun = torch.stack([torch.sqrt(torch.clamp(1 - mu ** 2, 0, 1)), mu,
+                       torch.zeros_like(mu)], dim=-1)
+    beta_r = torch.tensor(BETA_RAYLEIGH, dtype=torch.float32, device=device)
+    beta_r_mean = beta_r.mean()
+    l2 = torch.zeros(h.shape + (3,), device=device)
+    fms = torch.zeros(h.shape, device=device)
+    dt = 40.0 / 8
+    for d in range(dirs):
+        v = sph[d]
+        cos_sun = torch.sum(sun * v, dim=-1)
+        ph_r = _phase_rayleigh(cos_sun)[..., None]
+        ph_m = _phase_mie(cos_sun)[..., None]
+        tau = torch.zeros(h.shape + (3,), device=device)
+        for i in range(8):
+            y = torch.clamp(h + v[1] * (i + 0.5) * dt, min=0.0)
+            dens_r = torch.exp(-y / H_RAYLEIGH)
+            dens_m = torch.exp(-y / H_MIE)
+            t_sun = sun_transmittance(y, mu)
+            scat = beta_r * dens_r[..., None] * ph_r + BETA_MIE_SCAT * dens_m[..., None] * ph_m
+            l2 = l2 + scat * t_sun * torch.exp(-tau) * dt / dirs
+            fms = fms + (beta_r_mean * dens_r + BETA_MIE_SCAT * dens_m) \
+                * torch.exp(-tau.mean(-1)) * dt / dirs
+            tau = tau + (beta_r * dens_r[..., None]
+                         + (BETA_MIE_SCAT + BETA_MIE_ABS) * dens_m[..., None]) * dt
+    psi = l2 / torch.clamp(1.0 - torch.clamp(fms, 0.0, 0.99), min=1e-3)[..., None]
+    return torch.nan_to_num(psi, nan=0.0, posinf=0.0)
 
 
 def _phase_rayleigh(cos_t: Tensor) -> Tensor:

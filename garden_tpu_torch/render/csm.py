@@ -3,13 +3,16 @@
 Port of `garden_tpu.render.csm`. The cascades share one light view; each
 is an orthographic crop of it, and all of them raster side by side into
 one mixed-resolution atlas (`cascade_layout`). Opaque casters are set up
-once for every cascade in atlas pixel coordinates, binned with corner
-binning (`raster.bin_triangles_corner`) and drawn by the depth raster: the
-split path of `raster.rasterize_depth` (kernels depth_super and
-depth_grid) when `ShadowConfig.max_active_tiles` is set, its dense path
-(kernel depth_dense) otherwise. Translucent casters, when given, make a
-second map: slot-binned, their nearest depth drawn by depth_dense and
-their tint blended in bin order over white by the sorted_blend kernel.
+once for every cascade in atlas pixel coordinates, binned and drawn by the
+depth raster: the split path of `raster.rasterize_depth` (kernels
+depth_super and depth_grid) when `ShadowConfig.max_active_tiles` is set,
+its dense path (kernel depth_dense) otherwise. A caster's footprint is 2
+tiles wide and foot_y tall (`atlas_tiling`): with foot_y 2 each caster is
+sorted once by its corner tile (`raster.bin_triangles_corner`), otherwise
+into every tile of its footprint (`raster.bin_triangles`, slot binning).
+Translucent casters, when given, make a second map: slot-binned, their
+nearest depth drawn by depth_dense and their tint blended in bin order
+over white by the sorted_blend kernel.
 The resolve projects each pixel into its cascade, takes one lenient
 reverse-Z compare, smooths the binary factor with a screen-space PCF and
 multiplies in the tint of the translucent casters in front.
@@ -140,17 +143,13 @@ def _setup_cascades(lx: Tensor, ly: Tensor, lz: Tensor, tri_valid: Tensor,
             "ymax": flat(ymax), "valid": flat(valid)}
 
 
-def atlas_tiling(cfg: ShadowConfig, max_per_tile: int = 256) -> Tuple[int, int]:
-    """(atlas tile height, per-tile list cap) of the cascade atlas. Raises
-    NotImplementedError where the reference bins by slot copies instead of
-    by corner (a y-footprint other than 2 tiles)."""
+def atlas_tiling(cfg: ShadowConfig, max_per_tile: int = 256) -> Tuple[int, int, int]:
+    """(atlas tile height, per-tile list cap, y-footprint in tiles) of the
+    cascade atlas: atlas_foot_y, or by default the footprint whose height
+    is 256 pixels, within 2 to 8 tiles."""
     th = cfg.atlas_tile_h or 128
     fy = cfg.atlas_foot_y or max(2, min(8, 256 // th))
-    if fy != 2:
-        raise NotImplementedError(
-            "cascade binning with a y-footprint other than 2 tiles (slot "
-            "binning) is not ported yet (ROADMAP Queue 1 item 13)")
-    return th, max(64, (max_per_tile * th // 128) // 16 * 16)
+    return th, max(64, (max_per_tile * th // 128) // 16 * 16), fy
 
 
 def cascade_raster_inputs(pos_planes: Tuple[Tensor, Tensor, Tensor],
@@ -159,9 +158,9 @@ def cascade_raster_inputs(pos_planes: Tuple[Tensor, Tensor, Tensor],
                           binning: bool = True) -> Dict[str, object]:
     """Everything up to the atlas depth raster, as the keyword arguments of
     raster.rasterize_depth: the shared-view transform of the world corner
-    planes (3, T) each, the cascade setup and the corner binning (with the
-    super-tile big lists on the split path); without `binning`, all but the
-    lists."""
+    planes (3, T) each, the cascade setup and the binning (corner binning
+    with a y-footprint of 2 tiles, else slot binning; with the super-tile
+    big lists on the split path); without `binning`, all but the lists."""
     sizes, offsets, atlas_w, atlas_h = cascade_layout(cfg)
     px, py, pz = pos_planes
     t = px.shape[1]
@@ -176,23 +175,25 @@ def cascade_raster_inputs(pos_planes: Tuple[Tensor, Tensor, Tensor],
     tri_atlas = torch.arange(c_count, dtype=torch.int32,
                              device=px.device).repeat_interleave(t)
     setup = _setup_cascades(lx, ly, lz, tri_valid, sizes, offsets, light["projs"])
-    th, cap = atlas_tiling(cfg, max_per_tile)
+    th, cap, fy = atlas_tiling(cfg, max_per_tile)
     kw = dict(setup=setup, width=atlas_w, height=atlas_h, tile=128,
               atlas_bounds=bounds, tri_atlas=tri_atlas, tile_h=th)
     if not binning:
         return kw
     max_active = cfg.max_active_tiles
+    split = dict(max_big=256, max_active=max_active) if max_active else {}
+    if fy == 2:
+        binned = raster.bin_triangles_corner(setup, atlas_w, atlas_h, 128, cap,
+                                             tile_h=th, **split)
+    else:
+        binned = raster.bin_triangles(setup, atlas_w, atlas_h, 128, cap, foot=2,
+                                      tile_h=th, foot_y=fy, **split)
+    tiles, counts, big = binned[:3]
     if max_active:
-        tiles, counts, big, act = raster.bin_triangles_corner(
-            setup, atlas_w, atlas_h, 128, cap, tile_h=th, max_big=256,
-            max_active=max_active)
         # super-tiles of 512 x (8 tile_h) px for the big-caster lists
         sup = raster.bin_big_supertiles(setup, big, atlas_w, atlas_h, 128, th,
                                         sup_x=4, sup_y=max(128 // th, 1), cap=64)
-        kw.update(sup_bins=sup, max_active=max_active, act_ids=act)
-    else:
-        tiles, counts, big = raster.bin_triangles_corner(
-            setup, atlas_w, atlas_h, 128, cap, tile_h=th)
+        kw.update(sup_bins=sup, max_active=max_active, act_ids=binned[3])
     kw.update(tile_tris=tiles, counts=counts, big_list=big)
     return kw
 
@@ -207,10 +208,10 @@ def translucent_raster_inputs(pos_planes: Tuple[Tensor, Tensor, Tensor],
     list cap, the dense depth path)."""
     kw = cascade_raster_inputs(pos_planes, tri_valid, light, cfg, max_per_tile,
                                binning=False)
-    th, cap = atlas_tiling(cfg, max_per_tile)      # raises unless foot_y is 2
+    th, cap, fy = atlas_tiling(cfg, max_per_tile)
     tiles, counts, big = raster.bin_triangles(
         kw["setup"], kw["width"], kw["height"], 128, max(32, cap // 2), foot=2,
-        tile_h=th, foot_y=2)
+        tile_h=th, foot_y=fy)
     kw.update(tile_tris=tiles, counts=counts, big_list=big)
     return kw
 

@@ -1,20 +1,20 @@
 """Deferred renderer: the pass schedule of one frame.
 
 Port of `garden_tpu.render.deferred.DeferredRenderer`: triangle transform,
-frustum cull and Hi-Z occlusion cull against the previous frame's depth,
-the main-view raster of the opaque triangles with the fused G-buffer kernel
-(with per-pixel velocity from the previous frame's screen positions), the
-G-buffer and the disocclusion mask, cascaded shadows (the atlas depth
+frustum cull with one LOD level per instance, Hi-Z occlusion cull against
+the previous frame's depth, the main-view raster of the opaque triangles
+with the fused G-buffer kernel (with per-pixel velocity from the previous
+frame's screen positions), the G-buffer (with the base-colour textures)
+and the disocclusion mask, cascaded shadows (the atlas depth
 raster, the translucent casters' tint map and the resolve), half-res HBAO,
-SSR and SSGI from the previous frame's HDR, the atmosphere's sky with the
-volumetric clouds and their shadow, SH ambient and specular ambient, the
-lighting resolve, aerial perspective, then the non-opaque passes
+SSR and SSGI from the previous frame's HDR, the sky and ambient (from a
+lat-long environment map when one is given, else the atmosphere with the
+volumetric clouds and their shadow), the lighting resolve, aerial
+perspective under the atmosphere, then the non-opaque passes
 (weighted-blended OIT, refraction, the sorted back-to-front blend,
 trans-depth), bloom, auto exposure, tone mapping, the upscale to display
-size (`render_scale`) and FXAA or SMAA. The 3D passes run at the scaled
-size `render_size(config)`. A config that needs a pass the port lacks
-raises NotImplementedError naming the ROADMAP item that ports it; nothing
-is skipped silently.
+size (`render_scale`), FXAA or SMAA, and the UI sprites. The 3D passes run
+at the scaled size `render_size(config)`.
 """
 
 from __future__ import annotations
@@ -31,21 +31,14 @@ from garden_tpu_torch.core.config import RenderConfig
 from garden_tpu_torch.ops import blur
 from garden_tpu_torch.ops.blur import decimate2x, upsample2x_to
 from garden_tpu_torch.render import (atmosphere, bloom, clouds, csm, fxaa, gbuffer,
-                                     hbao, hiz, lighting, mesh, oit, raster, smaa,
-                                     ssgi, ssr, tonemap)
+                                     hbao, hiz, ibl, lighting, mesh, oit, raster, smaa,
+                                     sprites, ssgi, ssr, tonemap)
 
 Tensor = torch.Tensor
 
 SHADOW_NEAR = 0.1   # the camera near plane the cascades are fitted with
 REFRACT_STRENGTH = 48.0   # screen offset of the refracted sample, px per unit normal
 DISOCCLUSION_STEP = 2     # the disocclusion mask is resolved on every 2nd row and column
-
-
-def check_ported(config: RenderConfig) -> None:
-    """Raise NotImplementedError for any pass the port cannot run yet: the
-    slot-binned cascade atlas (csm.atlas_tiling)."""
-    if config.use_shadows:
-        csm.atlas_tiling(config.shadow)
 
 
 def render_size(config: RenderConfig) -> Tuple[int, int]:
@@ -83,7 +76,6 @@ class DeferredRenderer:
     device scene, instance matrices, constants and frame state."""
 
     def __init__(self, config: RenderConfig, scene: mesh.SceneBuffers, device):
-        check_ported(config)
         self.config = config
         self.scene_host = scene
         self.device = torch.device(device)
@@ -92,6 +84,8 @@ class DeferredRenderer:
         self.any_sorted = bool(scene.tri_sorted_mask().any())
         self.any_refract = bool(scene.tri_refract_mask().any())
         self.any_nonopaque = self.any_translucent or self.any_sorted or self.any_refract
+        self.any_textured = scene.any_textured
+        self.any_lods = scene.any_lods
         self.width, self.height = render_size(config)
 
     def device_scene(self) -> Dict[str, Tensor]:
@@ -122,14 +116,29 @@ class DeferredRenderer:
               + inst_matrices[:, None, :3, 3])
         return torch.amin(wc, dim=1), torch.amax(wc, dim=1)
 
+    @staticmethod
+    def lod_levels(scene: Dict[str, Tensor], inst_matrices: Tensor,
+                   constants: Dict[str, Tensor]) -> Tensor:
+        """(I,) LOD level of each instance: how many of its switch
+        distances its centre's distance from the camera exceeds."""
+        dist = m3.length(inst_matrices[:, :3, 3] - constants["camera_pos"])
+        return torch.sum(dist[:, None] > scene["inst_lod_dist"], dim=-1).int()
+
     def cull_instances(self, scene: Dict[str, Tensor], inst_matrices: Tensor,
                        constants: Dict[str, Tensor]) -> Tensor:
-        """Frustum-cull instance AABBs -> per-triangle validity mask."""
+        """Frustum-cull instance AABBs -> per-triangle validity mask; with
+        LOD chains in the scene, only the triangles of each instance's
+        level (`lod_levels`) stay valid."""
         planes = m3.frustum_planes(constants["view_proj"])
         outside = m3.aabb_outside_frustum(planes, *self.instance_bounds(scene, inst_matrices))
         visible = scene["inst_valid"] & ~outside
         ti = scene["tri_instance"]
-        vis_t = visible[torch.clamp(ti, min=0).long()] & (ti >= 0)
+        inst = torch.clamp(ti, min=0).long()
+        vis_t = visible[inst] & (ti >= 0)
+        if self.any_lods:
+            with record_function("lod"):
+                level = self.lod_levels(scene, inst_matrices, constants)
+                vis_t = vis_t & (scene["tri_lod"] == level[inst])
         return scene["tri_valid"] & vis_t
 
     def occluded_instances(self, scene: Dict[str, Tensor], inst_matrices: Tensor,
@@ -282,8 +291,10 @@ class DeferredRenderer:
         vis, gplanes = raster.rasterize_visibility_shaded(**kin)
         geo = {"planes": planes[0], "tri_valid": tri_valid,
                "records": kin["shade_records"]}
-        return geo, vis, gbuffer.shade_gbuffer(vis, gplanes, constants=constants,
-                                               with_velocity=self.config.use_velocity)
+        return geo, vis, gbuffer.shade_gbuffer(
+            vis, None, None, None, None, constants=constants, gplanes=gplanes,
+            with_velocity=self.config.use_velocity,
+            textures=scene["textures"] if self.any_textured else None)
 
     def disocclusion(self, velocity: Tensor, depth: Tensor, prev_depth: Tensor) -> Tensor:
         """(H, W) 1 where the previous frame's depth, fetched at each pixel
@@ -370,11 +381,16 @@ class DeferredRenderer:
     def shade(self, g: Dict[str, Tensor], constants: Dict[str, Tensor],
               shadow, ao, reflection: Optional[Tensor] = None,
               reflection_conf: Optional[Tensor] = None,
-              gi: Optional[Tensor] = None) -> Tensor:
-        """The sky (under the atmosphere with the clouds when they are on)
-        and the lighting resolve with the SSR and SSGI inputs -> HDR
-        (H, W, 3) float32."""
+              gi: Optional[Tensor] = None,
+              environment: Optional[Tensor] = None) -> Tensor:
+        """The sky (from `environment`, else under the atmosphere with the
+        clouds when they are on) and the lighting resolve with the SSR and
+        SSGI inputs -> HDR (H, W, 3) float32."""
         extra = dict(reflection=reflection, reflection_conf=reflection_conf, gi=gi)
+        if environment is not None:
+            with record_function("environment"):
+                return self._environment_lighting(g, constants, shadow, ao, environment,
+                                                  extra)
         if self.config.use_atmosphere:
             return self._atmosphere_lighting(g, constants, shadow, ao, extra)
         return lighting.resolve(g, constants, shadow=shadow, ao=ao, **extra)
@@ -433,7 +449,8 @@ class DeferredRenderer:
         colour -> (HDR, the refraction pass's tri_id)."""
         w, h = self.width, self.height
         rvis = raster.rasterize_visibility(**self.refraction_inputs(scene, geo, constants))
-        rg = gbuffer.shade_gbuffer(rvis, constants=constants, records=geo["records"])
+        rg = gbuffer.shade_gbuffer(rvis, None, None, None, None, constants=constants,
+                                   records=geo["records"])
         chain = blur.ggx_blur_chain(hdr, levels=3)
         lvl = torch.clamp(rg["roughness"] * 2.0, 0.0, 2.0)
         dev = hdr.device
@@ -532,19 +549,31 @@ class DeferredRenderer:
         return smaa.apply_smaa(ldr) if self.config.aa_mode == "smaa" else fxaa.apply_fxaa(ldr)
 
     def post(self, hdr: Tensor, constants: Dict[str, Tensor],
-             frame_state: Dict[str, Tensor]):
-        """`tone`, then `antialias` when use_fxaa is on -> (uint8 image,
+             frame_state: Dict[str, Tensor], ui_atlas: Optional[Tensor] = None,
+             ui_sprites: Optional[Dict[str, Any]] = None):
+        """`tone`, then `antialias` when use_fxaa is on, then the UI sprites
+        (`ui_sprites` over `ui_atlas`, when both are given) -> (uint8 image,
         the post chain's HDR, the adapted average luminance)."""
         ldr, hdr, avg_lum = self.tone(hdr, constants, frame_state)
         if self.config.use_fxaa:
             with record_function("aa"):
                 ldr = self.antialias(ldr)
+        if ui_atlas is not None and ui_sprites is not None:
+            with record_function("ui"):
+                ldr = sprites.composite_sprites(ldr, ui_atlas, ui_sprites)
         return tonemap.to_uint8(ldr), hdr, avg_lum
 
     def render(self, scene: Dict[str, Tensor], inst_matrices: Tensor,
                constants: Dict[str, Tensor], frame_state: Dict[str, Tensor],
-               prev_inst_matrices: Optional[Tensor] = None) -> Dict[str, Any]:
-        """One frame. The output holds the image, the post chain's HDR, the
+               ui_atlas: Optional[Tensor] = None,
+               ui_sprites: Optional[Dict[str, Any]] = None,
+               prev_inst_matrices: Optional[Tensor] = None,
+               environment: Optional[Tensor] = None) -> Dict[str, Any]:
+        """One frame, with the reference's arguments: `environment`, an
+        optional (He, 2 He, 3) lat-long radiance map, replaces the
+        atmosphere as the sky, the SH diffuse ambient and the prefiltered
+        specular ambient; `ui_sprites` (`sprites.SpriteBatch.device_arrays`)
+        over `ui_atlas` (A, A, 4) composite after AA. The output holds the image, the post chain's HDR, the
         opaque depth and tri_id, the G-buffer, the shadow and AO factors,
         the velocity (pixels, from `prev_inst_matrices`, default this
         frame's, and the frame state's camera) and the disocclusion mask,
@@ -580,10 +609,12 @@ class DeferredRenderer:
             with record_function("ssgi"):
                 gi = self.bounce(g, vis["depth"], frame_state, constants)
         with record_function("sky_lighting"):
-            if cfg.use_atmosphere and cfg.use_clouds and shadow is not None:
+            if (environment is None and cfg.use_atmosphere and cfg.use_clouds
+                    and shadow is not None):
                 with record_function("clouds"):
                     shadow = self.cloud_shadow(g, constants, shadow)
-            hdr = self.shade(g, constants, shadow, ao, ssr_rgb, ssr_conf, gi)
+            hdr = self.shade(g, constants, shadow, ao, ssr_rgb, ssr_conf, gi,
+                             environment)
         reveal = refract_id = trans_depth = None
         if cfg.use_oit and self.any_translucent:
             with record_function("oit"):
@@ -599,7 +630,8 @@ class DeferredRenderer:
                 trans_depth = self.trans_depth_pass(scene, geo, constants)
         lit = hdr          # float32, before bloom: next frame's SSR and SSGI read it
         with record_function("post"):
-            image, hdr, avg_lum = self.post(hdr, constants, frame_state)
+            image, hdr, avg_lum = self.post(hdr, constants, frame_state, ui_atlas,
+                                            ui_sprites)
         state = {"avg_luminance": avg_lum}
         if cfg.use_occlusion_culling or cfg.use_velocity:
             state["prev_depth"] = vis["depth"]
@@ -622,6 +654,24 @@ class DeferredRenderer:
                             "trans_atlas": trans_atlas},
             "frame_state": state,
         }
+
+    def _environment_lighting(self, g: Dict[str, Tensor], constants: Dict[str, Tensor],
+                              shadow, ao, environment: Tensor,
+                              extra: Dict[str, Optional[Tensor]]) -> Tensor:
+        """Lighting under a lat-long environment map: the map's prefiltered
+        chain (rebuilt each frame, as the reference), the sky its sharpest
+        mip in the view ray, the SH diffuse ambient of the map, the specular
+        ambient its roughness-selected mips in the reflection ray; then the
+        resolve with `extra`. No aerial perspective."""
+        rays = lighting.view_rays(g, constants)
+        chain = ibl.prefilter_latlong(environment)
+        sky = ibl.sample_prefiltered(chain[:1], rays, torch.zeros_like(rays[..., 0]))
+        sh = ibl.latlong_sh(environment)
+        view = m3.normalize(constants["camera_pos"] - g["position"])
+        refl = m3.reflect(-view.expand(g["normal"].shape), g["normal"])
+        spec_amb = ibl.sample_prefiltered(chain, refl, g["roughness"])
+        return lighting.resolve(g, constants, shadow=shadow, ao=ao, ambient_sh=sh,
+                                sky=sky, specular_ambient=spec_amb, **extra)
 
     def _atmosphere_lighting(self, g: Dict[str, Tensor], constants: Dict[str, Tensor],
                              shadow, ao, extra: Dict[str, Optional[Tensor]]) -> Tensor:

@@ -40,6 +40,7 @@ import torch
 
 Tensor = torch.Tensor
 
+FOOT = 4            # default tile footprint edge of bin_triangles (else the big list)
 NEAR_EPS = 1e-6
 TRI_BLOCK = 16      # list slots per scan block
 GBUF_PLANES = 18    # [normal3 | uv2 | base3 metallic roughness emissive3
@@ -52,6 +53,19 @@ EDGE_WIDTH = 16     # edge-coefficient record, see _pack_edge_records
 # that tournament keeps the first slot met in bit-reversed order. Blocks
 # then merge into the running result in list order, again strictly.
 BITREV16 = (0, 8, 4, 12, 2, 10, 6, 14, 1, 9, 5, 13, 3, 11, 7, 15)
+
+
+def setup_triangles(clip: Tensor, indices: Tensor, tri_valid: Tensor, width: int,
+                    height: int) -> Dict[str, Tensor]:
+    """Screen-space setup from a vertex pool: clip (V, 4), indices (T, 3)."""
+    return setup_triangles_tv(clip[indices.long()], tri_valid, width, height)
+
+
+def setup_triangles_tv(v: Tensor, tri_valid: Tensor, width: int, height: int
+                       ) -> Dict[str, Tensor]:
+    """Screen-space setup from gathered clip-space corners v (T, 3, 4)."""
+    return setup_triangles_planes(*(v[..., i].T for i in range(4)), tri_valid,
+                                  width, height)
 
 
 def setup_triangles_planes(cx: Tensor, cy: Tensor, cz: Tensor, cw: Tensor,
@@ -88,9 +102,9 @@ def _grid(width: int, height: int, tile: int, tile_h: int):
 
 def bin_triangles(setup: Dict[str, Tensor], width: int, height: int, tile: int,
                   max_per_tile: int, max_big: int = 64, priority: Tensor = None,
-                  bucket_priority: Tensor = None, foot: int = 4,
-                  tile_h: int = None, foot_y: int = None
-                  ) -> Tuple[Tensor, Tensor, Tensor]:
+                  bucket_priority: Tensor = None, foot: int = None,
+                  tile_h: int = None, foot_y: int = None, max_active: int = None
+                  ) -> Tuple[Tensor, ...]:
     """Returns (tile_tris (tiles, max_per_tile) int32 padded with -1,
     counts (tiles,) int32, big_list (max_big,) int32 padded with -1);
     tiles are row-major over (tiles_y, tiles_x) tiles of tile x tile_h.
@@ -100,9 +114,19 @@ def bin_triangles(setup: Dict[str, Tensor], width: int, height: int, tile: int,
     list come out in ascending priority (the sorted pass's back-to-front
     order). bucket_priority: optional int[T] in [0, 16); tile entries
     come out ordered by (bucket, triangle id), so overflow drops the last
-    buckets, and the big list likewise. The two are exclusive."""
+    buckets, and the big list likewise. The two are exclusive. foot
+    defaults to FOOT, foot_y to foot.
+
+    max_active: only the max_active tiles with the most entries keep a
+    list (largest first, ties to the higher tile index, `_top_tiles`), and
+    a fourth output act_ids (max_active,) names them: (tile_tris
+    (max_active, C), counts (max_active,), big_list, act_ids). Exclusive
+    with priority."""
     if priority is not None and bucket_priority is not None:
         raise ValueError("priority and bucket_priority are exclusive")
+    if priority is not None and max_active is not None:
+        raise ValueError("priority and max_active are exclusive")
+    foot = foot or FOOT
     th = tile_h or tile
     foot_y = foot_y or foot
     tiles_x, tiles_y, n_tiles = _grid(width, height, tile, th)
@@ -142,6 +166,10 @@ def bin_triangles(setup: Dict[str, Tensor], width: int, height: int, tile: int,
     edges = torch.searchsorted(key_sorted, probes, side="left")
     start = edges[:n_tiles]
     end = edges[1:n_tiles + 1]
+    act_ids = None
+    if max_active is not None:
+        act_ids = _top_tiles(end - start, n_tiles, min(max_active, n_tiles))
+        start, end = start[act_ids.long()], end[act_ids.long()]
     last = key_sorted.shape[0] - 1
     gather = start[:, None] + torch.arange(max_per_tile, device=dev)[None, :]
     ok = gather < end[:, None]
@@ -161,6 +189,8 @@ def bin_triangles(setup: Dict[str, Tensor], width: int, height: int, tile: int,
     tile_tris = torch.where(ok, tile_pay, -1).int()
     counts = torch.clamp(end - start, max=max_per_tile).int()
     big_list = torch.where(slots < big_cnt, big_pay, -1).int()
+    if act_ids is not None:
+        return tile_tris, counts, big_list, act_ids
     return tile_tris, counts, big_list
 
 
@@ -755,6 +785,18 @@ def rasterize_visibility(setup: Dict[str, Tensor], tile_tris: Tensor,
 
 
 rasterize_visibility.launches = 0
+
+
+def render_pass(clip: Tensor, indices: Tensor, tri_valid: Tensor, width: int,
+                height: int, tile: int, max_per_tile: int
+                ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+    """A whole visibility pass from a clip-space vertex pool (V, 4): setup,
+    slot binning on square tiles of `tile` pixels (footprint FOOT, the
+    default 64-slot big list), then the visibility raster (kernel K5 on a
+    CUDA tensor) -> (vis, setup)."""
+    setup = setup_triangles(clip, indices, tri_valid, width, height)
+    tile_tris, counts, big = bin_triangles(setup, width, height, tile, max_per_tile)
+    return rasterize_visibility(setup, tile_tris, counts, big, width, height, tile), setup
 
 
 # -- ordered alpha blend (the sorted pass and the translucent shadow tint) -----

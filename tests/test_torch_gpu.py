@@ -860,3 +860,97 @@ def test_small_pass_set_steps_match_cpu(cuda, pass_set):
     d = (out["cpu"][0].int() - out["cuda"][0].int()).abs().amax(-1)
     assert (d <= 2).float().mean().item() >= 0.995
     assert (out["cpu"][1] - out["cuda"][1]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("w,h", [(320, 200), (384, 256)], ids=["ragged", "whole"])
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+def test_visibility_on_square_tiles_matches_plain_on_card(cuda, w, h, ties):
+    """K5 as the forward renderer runs it (raster.render_pass): default
+    slot binning into 128x128 tiles, 512 list slots and the 64-slot big
+    list, 128x8 row bands; bit for bit against the plain version, its kept
+    counts against tile_slot_keep over band_args, and render_pass on the
+    card equal to render_pass on the CPU."""
+    setup, _ = _scene(31, 400, w, h, ties)
+    bins = raster.bin_triangles(setup, w, h, 128, 512)
+    args = [_to(a, cuda) for a in raster.visibility_args(setup, *bins, w, h, 128)]
+    keep = raster.tile_slot_keep(*raster.band_args(args)[:8], (), "edge")
+    kept = torch.full((keep.shape[0],), -1, dtype=torch.int32, device=cuda)
+    kv, pv = raster.visibility_cuda(*args, kept=kept), raster.visibility_plain(*args)
+    torch.cuda.synchronize()
+    for k in ("tri_id", "depth", "b0", "b1"):
+        assert torch.equal(kv[k].view(torch.int32) if k != "tri_id" else kv[k],
+                           pv[k].view(torch.int32) if k != "tri_id" else pv[k]), k
+    assert torch.equal(kept, keep.sum(1).int())
+    assert (kv["tri_id"] >= 0).float().mean().item() > 0.2
+    clip = torch.tensor(np.random.default_rng(5).uniform(-1.2, 1.2, (600, 4)),
+                        dtype=torch.float32)
+    clip[:, 3] = clip[:, 3].abs() + 1.0
+    idx = torch.tensor(np.random.default_rng(6).integers(0, 600, (400, 3)),
+                       dtype=torch.int32)
+    valid = torch.ones(400, dtype=torch.bool)
+    before = raster.rasterize_visibility.launches
+    gpu, _ = raster.render_pass(clip.to(cuda), idx.to(cuda), valid.to(cuda), w, h, 128, 512)
+    assert raster.rasterize_visibility.launches == before + 1
+    cpu, _ = raster.render_pass(clip, idx, valid, w, h, 128, 512)
+    for k in cpu:
+        assert torch.equal(gpu[k].cpu(), cpu[k]), k
+
+
+@pytest.mark.parametrize("foot_y", [8, 4])
+@pytest.mark.parametrize("max_active", [12, 40])
+def test_split_depth_on_slot_lists_matches_plain_on_card(cuda, foot_y, max_active):
+    """K2 and K3 on slot-binned lists (the cascades' y-footprint other than
+    2 tiles, bin_triangles(max_active=)) against their plain versions bit
+    for bit, with their kept counts against tile_slot_keep (K2 over
+    super_lists, K3 per active row)."""
+    w, h, th = 512, 256, 16
+    setup, atl = _atlas_setup(17, w, h)
+    setup = {k: v.to(cuda) for k, v in setup.items()}
+    atl = torch.from_numpy(atl).to(cuda)
+    bounds = ((0, 256, 0, 256), (256, 512, 0, 256))
+    tiles, counts, big, act = raster.bin_triangles(
+        setup, w, h, 128, 64, foot=2, tile_h=th, foot_y=foot_y, max_big=256,
+        max_active=max_active)
+    sup = raster.bin_big_supertiles(setup, big, w, h, 128, th, 4, 8, 64)
+    s = raster.depth_args(setup, tiles, counts, big, w, h, 128, bounds, atl, th, sup,
+                          max_active=max_active, act_ids=act)
+    sa, ga = s["super"], s["grid"]
+    keep2 = raster.tile_slot_keep(sa[0], *raster.super_lists(*sa[1:8]), sa[1][0, :0],
+                                  *sa[4:9], "edge")
+    keep3 = raster.tile_slot_keep(ga[0], ga[3], ga[2], ga[3][0, :0], *ga[5:10], "edge",
+                                  ga[1])
+    kept2 = torch.full((keep2.shape[0],), -1, dtype=torch.int32, device=cuda)
+    kept3 = torch.full((keep3.shape[0],), -1, dtype=torch.int32, device=cuda)
+    ks = raster.depth_super_cuda(*sa, kept=kept2)
+    ps = raster.depth_super_plain(*sa)
+    kg = raster.depth_grid_cuda(ks.clone(), *ga, kept=kept3)
+    pg = raster.depth_grid_plain(ps.clone(), *ga)
+    torch.cuda.synchronize()
+    assert torch.equal(ks.view(torch.int32), ps.view(torch.int32))
+    assert torch.equal(kg.view(torch.int32), pg.view(torch.int32))
+    assert torch.equal(kept2, keep2.sum(1).int()) and torch.equal(kept3, keep3.sum(1).int())
+    assert (kg > 0).float().mean().item() > 0.05
+
+
+def test_small_feature_and_bench_frames_match_cpu(cuda):
+    """The feature frame (slot-binned cascades, textures, environment, HUD)
+    and the bench frame (LOD spheres) at a few bodies and 256x128, one
+    step on the card against the CPU: the image bar of the flagship."""
+    from garden_tpu_torch.core.config import ShadowConfig
+    from garden_tpu_torch.entry import build_bench_frame, build_feature_frame
+    cut = ShadowConfig(resolve_step=2, cascade_sizes=(256, 128, 128), atlas_tile_h=16,
+                       atlas_foot_y=None, max_active_tiles=24)
+    makers = (lambda dev: build_feature_frame(32, 256, 128, grid_dim=8,
+                                              cfg_overrides=dict(shadow=cut), device=dev,
+                                              env_height=16),
+              lambda dev: build_bench_frame(64, 256, 128, cfg_overrides=dict(
+                  shadow=ShadowConfig(**{**cut.__dict__, "atlas_foot_y": 2})), device=dev))
+    for make in makers:
+        out = {}
+        for dev in ("cpu", cuda):
+            step, state = make(dev)
+            state, img = step(state)
+            out[str(dev)] = (img.cpu(), state["physics"]["bodies"]["pos"].cpu())
+        d = (out["cpu"][0].int() - out["cuda"][0].int()).abs().amax(-1)
+        assert (d <= 2).float().mean().item() >= 0.995
+        assert (out["cpu"][1] - out["cuda"][1]).abs().max().item() <= 1e-4

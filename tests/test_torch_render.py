@@ -128,8 +128,8 @@ def test_shade_gbuffer_matches():
     vis = {"tri_id": tri, "depth": depth}
     j = jgb.shade_gbuffer({k: jnp.asarray(v) for k, v in vis.items()}, None, {},
                           None, None, constants=jc, gplanes=jnp.asarray(g))
-    t = tgb.shade_gbuffer({k: torch.as_tensor(v) for k, v in vis.items()},
-                          torch.as_tensor(g), constants=tc)
+    t = tgb.shade_gbuffer({k: torch.as_tensor(v) for k, v in vis.items()}, None, None,
+                          None, None, constants=tc, gplanes=torch.as_tensor(g))
     assert set(j) == set(t)
     for k in j:
         if t[k].dtype in (torch.bool, torch.int32):
@@ -146,8 +146,8 @@ def _gbuffer_dict():
     g[5:14] = np.abs(g[5:14])
     jg = jgb.shade_gbuffer({k: jnp.asarray(v) for k, v in vis.items()}, None, {},
                            None, None, constants=jc, gplanes=jnp.asarray(g))
-    tg = tgb.shade_gbuffer({k: torch.as_tensor(v) for k, v in vis.items()},
-                           torch.as_tensor(g), constants=tc)
+    tg = tgb.shade_gbuffer({k: torch.as_tensor(v) for k, v in vis.items()}, None, None,
+                           None, None, constants=tc, gplanes=torch.as_tensor(g))
     return jg, tg, jc, tc
 
 
@@ -216,8 +216,8 @@ def test_tonemap_matches(dtype):
                                   "use_occlusion_culling", "render_scale", "smaa",
                                   "slot_binning"])
 def test_unported_pass_raises(flag):
-    """Every render flag builds on the port; the one option that is not
-    ported, the slot-binned cascade atlas, raises, naming its ROADMAP item."""
+    """Every render flag builds on the port, the slot-binned cascade atlas
+    (a y-footprint other than 2 atlas tiles) among them: nothing raises."""
     from garden_tpu_torch.core.config import ShadowConfig
     cfg = dict(width=W, height=H, max_triangles=2000, max_vertices=2000,
                max_instances=16)
@@ -231,8 +231,7 @@ def test_unported_pass_raises(flag):
         cfg["shadow"] = ShadowConfig(atlas_tile_h=32, atlas_foot_y=4)
     else:
         cfg[flag] = True
-    if flag != "slot_binning":
-        tdef.DeferredRenderer(RenderConfig(**cfg), scene, "cpu")
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdef.DeferredRenderer(RenderConfig(**cfg), scene, "cpu")
+    ren = tdef.DeferredRenderer(RenderConfig(**cfg), scene, "cpu")
+    if flag == "slot_binning":
+        from garden_tpu_torch.render import csm as tcsm
+        assert tcsm.atlas_tiling(ren.config.shadow)[2] == 4

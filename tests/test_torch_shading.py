@@ -151,7 +151,8 @@ def _gbuffers(h, w):
     vis = {"tri_id": tri, "depth": depth}
     jg = jgb.shade_gbuffer({k: jnp.asarray(v) for k, v in vis.items()}, None, {},
                            None, None, constants=jc, gplanes=jnp.asarray(g))
-    tg = tgb.shade_gbuffer({k: _t(v) for k, v in vis.items()}, _t(g), constants=tc)
+    tg = tgb.shade_gbuffer({k: _t(v) for k, v in vis.items()}, None, None, None, None,
+                           constants=tc, gplanes=_t(g))
     return jg, tg, jc, tc
 
 

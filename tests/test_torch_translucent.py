@@ -106,7 +106,9 @@ def test_gbuffer_from_records_matches():
     """shade_gbuffer(records=): one gather of the winner's record, the
     perspective-correct weights through its inv_w, normal, uv, material,
     instance and position from depth, against the reference's records
-    path; empty pixels report instance -1 and position 0."""
+    path; empty pixels report instance -1 and position 0. Without
+    constants, positions interpolate the winner's corners from the vertex
+    pool, as the reference's."""
     h, w, t = 24, 40, 30
     rec = RNG.uniform(0, 1, (t, 36)).astype(np.float32)
     rec[:, 0:9] = RNG.normal(size=(t, 9))
@@ -120,7 +122,7 @@ def test_gbuffer_from_records_matches():
                            None, None, constants=_constants(w, h, False),
                            records=jnp.asarray(rec))
     tvis = {k: torch.from_numpy(v) for k, v in vis.items()}
-    tg = tgb.shade_gbuffer(tvis, constants=_constants(w, h, True),
+    tg = tgb.shade_gbuffer(tvis, None, None, None, None, constants=_constants(w, h, True),
                            records=torch.from_numpy(rec))
     assert set(tg) <= set(jg)
     for k in tg:
@@ -131,8 +133,16 @@ def test_gbuffer_from_records_matches():
     empty = vis["tri_id"] < 0
     assert empty.any() and (tg["instance"].numpy()[empty] == -1).all()
     assert (tg["position"].numpy()[empty] == 0).all()
-    with pytest.raises(NotImplementedError):
-        tgb.shade_gbuffer(tvis, records=torch.from_numpy(rec))
+    idx = RNG.integers(0, 50, (t, 3)).astype(np.int32)
+    wpos = RNG.uniform(-5, 5, (50, 3)).astype(np.float32)
+    jp = jgb.shade_gbuffer({k: jnp.asarray(v) for k, v in vis.items()}, None,
+                           {"indices": jnp.asarray(idx)}, jnp.asarray(wpos), None,
+                           records=jnp.asarray(rec))["position"]
+    tp = tgb.shade_gbuffer(tvis, None, {"indices": torch.from_numpy(idx)},
+                           torch.from_numpy(wpos), None,
+                           records=torch.from_numpy(rec))["position"]
+    _close(jp, tp, 1e-5)
+    assert (tp.numpy()[empty] != 0).any()      # empty pixels: triangle 0's corners
 
 
 def _atlas_close(j, t):

@@ -2,7 +2,8 @@
 """Profile the PyTorch port's combined step on one CUDA card.
 
     python3 tools/profile_torch_step.py [--steps 3]
-        [--slice | --glass | --ultra | --temporal | --physics] [--trace trace.json]
+        [--slice | --glass | --ultra | --temporal | --physics | --forward |
+         --features | --bench-frame] [--trace trace.json]
 
 Builds the full-size combined step (10,240 bodies, 1920x1080) with the
 flagship's passes (`--slice`: the first slice's pass set, SLICE_OVERRIDES;
@@ -11,21 +12,27 @@ whose frame adds the OIT, refraction, sorted and trans-depth passes and
 the translucent shadow map; `--ultra`: the ultra preset, ULTRA_OVERRIDES:
 clouds, SSR, SSGI and the dense atlas; `--temporal`: TEMPORAL_OVERRIDES,
 velocity, Hi-Z and SMAA, the renderer given the previous step's instance
-matrices) and warms it up. First, without the profiler, it prints the median wall
+matrices; `--features`: the feature frame, `entry.build_feature_frame`:
+slot-binned cascades, textures, the environment map and the HUD;
+`--bench-frame`: bench.py's world with LOD spheres,
+`entry.build_bench_frame`) and warms it up. First, without the profiler, it prints the median wall
 time (host clock, synchronized) of the physics step, the render and the
 whole step over 10 runs each. Then it profiles `--steps` steps with
 torch.profiler and prints the wall time per step, the device's busy time
 (kernel and copy time, and its share of the wall time), the host and
 device time of each stage (physics, instance matrices, and the render's
 main raster with its hiz, csm_render, csm_resolve, hbao, ssr, ssgi,
-sky_lighting with its clouds, oit, refraction, sorted, trans_depth and
-post with its aa; nested ranges count inside their parent too; device
+sky_lighting with its clouds and environment, oit, refraction, sorted,
+trans_depth and post with its aa and ui; lod inside the cull; nested
+ranges count inside their parent too; device
 time counts the hand kernels, see `stage_times`) and the
 operators with the most device time; the profiler adds host overhead to
 every launch. `--trace` also writes a Chrome trace. `--physics` profiles
 the physics step alone on bench.py's world (10,240 bodies, half spheres;
 `physics.scenes.bench_world`): wall time, device busy share and the
 step's stages (`profile_physics`, which chip_smoke.py also runs).
+`--forward` profiles the forward renderer's frame over the flagship
+scene (`entry.build_forward`; stages raster, gbuffer, lighting).
 """
 
 import argparse
@@ -73,9 +80,10 @@ def stage_times(prof, names):
     return {n: out[n] for n in names if n in out}
 
 
-RENDER_STAGES = ("raster", "hiz", "csm_render", "csm_resolve", "hbao", "ssr", "ssgi",
-                 "sky_lighting", "clouds", "oit", "refraction", "sorted", "trans_depth",
-                 "post", "aa")
+RENDER_STAGES = ("raster", "lod", "hiz", "csm_render", "csm_resolve", "hbao", "ssr",
+                 "ssgi", "sky_lighting", "clouds", "environment", "oit", "refraction",
+                 "sorted", "trans_depth", "post", "aa", "ui")
+FORWARD_STAGES = ("raster", "gbuffer", "lighting")
 PHYSICS_STAGES = ("physics", "collide", "broadphase", "narrowphase", "contact_compact",
                   "warm_match", "solve_velocity", "constraints", "integrate",
                   "solve_position", "sleep_misc")
@@ -131,6 +139,24 @@ def profile_step(step, state, steps: int, temporal: bool = False):
     return wall, busy, stages, prof
 
 
+def profile_forward(fwd, scene, mats, constants, steps: int):
+    """Profile `steps` forward frames, each inside a "frame" range. Returns
+    (wall ms per frame, device busy ms per frame, {stage: (host ms, device
+    ms) per frame})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            with record_function("frame"):
+                fwd.render(scene, mats, constants)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    stages = {n: (h / 1e6 / steps, d / 1e6 / steps)
+              for n, (h, d) in stage_times(prof, ("frame",) + FORWARD_STAGES).items()}
+    return wall, stages["frame"][1], stages
+
+
 def main() -> int:
     import torch
 
@@ -147,6 +173,12 @@ def main() -> int:
                        help="profile the ultra preset (ULTRA_OVERRIDES)")
     which.add_argument("--temporal", action="store_true",
                        help="profile the temporal pass set (TEMPORAL_OVERRIDES)")
+    which.add_argument("--forward", action="store_true",
+                       help="profile the forward renderer over the flagship scene")
+    which.add_argument("--features", action="store_true",
+                       help="profile the feature frame (entry.build_feature_frame)")
+    which.add_argument("--bench-frame", action="store_true",
+                       help="profile bench.py's world drawn (entry.build_bench_frame)")
     ap.add_argument("--trace", help="write a Chrome trace to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -158,7 +190,9 @@ def main() -> int:
     print(f"card: {card.splitlines()[0]}")
 
     from garden_tpu_torch.entry import (GLASS_BOXES, GLASS_OVERRIDES, SLICE_OVERRIDES,
-                                        TEMPORAL_OVERRIDES, ULTRA_OVERRIDES, build)
+                                        TEMPORAL_OVERRIDES, ULTRA_OVERRIDES, build,
+                                        build_bench_frame, build_feature_frame,
+                                        build_forward)
     if args.physics:
         from garden_tpu_torch.physics import scenes
         from garden_tpu_torch.physics import world as pw
@@ -173,6 +207,19 @@ def main() -> int:
         for name, (host, dev) in stages.items():
             print(f"  stage {name}: host {host:.3f} ms, device {dev:.3f} ms per step")
         return 0
+    if args.forward:
+        fwd, scene, mats, constants = build_forward(10240, 1920, 1080, grid_dim=64,
+                                                    device="cuda")
+        for _ in range(3):
+            fwd.render(scene, mats, constants)
+        torch.cuda.synchronize()
+        wall, busy, stages = profile_forward(fwd, scene, mats, constants, args.steps)
+        print(f"forward frame: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+              f"({100 * busy / wall:.1f}% of wall)")
+        for name, (host, dev) in stages.items():
+            print(f"  stage {name}: host {host:.3f} ms, device {dev:.3f} ms per frame")
+        return 0
+    builder = build
     if args.slice:
         name, kw = "SLICE_OVERRIDES", dict(cfg_overrides=SLICE_OVERRIDES)
     elif args.glass:
@@ -181,10 +228,15 @@ def main() -> int:
         name, kw = "ultra", dict(cfg_overrides=ULTRA_OVERRIDES)
     elif args.temporal:
         name, kw = "temporal", dict(cfg_overrides=TEMPORAL_OVERRIDES)
+    elif args.features:
+        name, kw, builder = "feature frame", dict(grid_dim=64), build_feature_frame
+    elif args.bench_frame:
+        name, kw, builder = "bench frame", {}, build_bench_frame
     else:
         name, kw = "flagship", {}
-    step, state = build(n_bodies=10240, width=1920, height=1080, grid_dim=64,
-                        device="cuda", **kw)
+    if builder is build:
+        kw["grid_dim"] = 64
+    step, state = builder(10240, 1920, 1080, device="cuda", **kw)
     print("pass set:", name)
     for _ in range(3):
         state, _ = step(state)
