@@ -121,8 +121,24 @@ w. a small feature frame and a small bench frame on the card against the
    CPU (the bars of phases e and j); timings: the forward frame and K5 at
    its shape, the feature step and render with its ui, environment and
    cascade stages, the bench-frame step and render with its binnings; the
-   feature step under the profiler.
-Kernels launched on the paths of phases t-v join each kernel's
+   feature step under the profiler;
+then the runtime (`entry.build_engine_frame`: the Engine and its systems
+over the flagship pile, 8 characters, 64 animated entities, a HUD):
+x. x.1: a small engine world (32 bodies, 2 characters, 4 animated, a
+   spawner), 30 ticks and a 256x128 frame on the card and on the CPU:
+   transforms within TOL_ENGINE_CPU, grounded flags, animation times,
+   tick and time in every bit, the image bars of phases e and j; x.2: the
+   engine frame at full size for ENGINE_FRAMES frames: K1, K2, K3 once a
+   frame, every state leaf finite, each movable transform row its body's
+   interpolated pose in every bit, K1 and K2/K3 on the last frame's
+   inputs as in phases 4 and u, the tick, frame, bake and render times,
+   peak memory, the frame under the profiler (`profile_engine`); x.3: a
+   checkpoint saved at frame 2, loaded, stepped: frame 3 as the
+   uninterrupted run's in every bit; x.4: `gather_snapshots` of the
+   full-size state, card bytes == CPU bytes, applied to a fresh state the
+   poses in every bit; x.5: `utils.profiler.trace` of one frame names the
+   physics ranges and K1.
+Kernels launched on the paths of phases t-x join each kernel's
 `launches_by_path` in the kernels line (`launches` sums them).
 
 Every kernel culls its slots exactly. Wherever one is checked (phases 4,
@@ -1432,6 +1448,206 @@ def feature_phases(card: str, results: dict, t_start: float) -> None:
           f"{time.perf_counter() - t_start:.1f} s")
 
 
+SMALL_SHADOW = dict(resolve_step=2, cascade_sizes=(256, 128, 128), atlas_tile_h=16,
+                    atlas_foot_y=2, max_active_tiles=24)
+ENGINE_FRAMES, TOL_ENGINE_CPU = 5, 1e-4
+
+
+def tree_leaves(tree, path: str = "") -> list:
+    """(key path, tensor) of a nested dict of tensors, in sorted key order."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in tree_leaves(tree[k], f"{path}/{k}")]
+    return [(path, tree)]
+
+
+def same_trees(a, b) -> list:
+    """Key paths where two states differ in shape, dtype or any bit."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if [k for k, _ in la] != [k for k, _ in lb]:
+        return ["<structure>"]
+    return [k for (k, x), (_, y) in zip(la, lb)
+            if x.shape != y.shape or x.dtype != y.dtype
+            or not torch_equal_bits(x, y)]
+
+
+def torch_equal_bits(x, y) -> bool:
+    import torch
+    x, y = x.cpu(), y.cpu()
+    if x.is_floating_point():
+        return same_bits(x.float(), y.float())
+    return torch.equal(x, y)
+
+
+def engine_phases(card: str, results: dict, t_start: float) -> None:
+    """Phase x: the runtime (the ECS world, the Engine's tick, the systems,
+    checkpoints, replication, the profiler) in the engine frame."""
+    import os
+    import tempfile
+    import torch
+    from garden_tpu_torch.core.config import ShadowConfig
+    from garden_tpu_torch.entry import ENGINE_DT, build_engine_frame
+    from garden_tpu_torch.net import replication
+    from garden_tpu_torch.physics import world as pw
+    from garden_tpu_torch.render import raster
+    from garden_tpu_torch.utils import checkpoint, profiler
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from profile_torch_step import profile_engine
+
+    kernels = {"raster_shade": raster.rasterize_visibility_shaded,
+               "depth_super": raster.depth_super, "depth_grid": raster.depth_grid,
+               "depth_dense": raster.depth_dense, "visibility": raster.rasterize_visibility}
+    t_phase = time.perf_counter()
+
+    # x.1: a small world, 30 ticks and one frame on the card and on the CPU
+    small = {}
+    for dev in ("cuda", "cpu"):
+        f, s = build_engine_frame(32, 256, 128, grid_dim=8, device=dev, n_characters=2,
+                                  n_animated=4,
+                                  cfg_overrides=dict(shadow=ShadowConfig(**SMALL_SHADOW)))
+        s = f.engine.run_ticks(s, 30, ENGINE_DT)
+        out = f.render(f.instance_matrices(s), s["frame"])
+        small[dev] = (s, out["image"].cpu(), out["tri_id"].cpu())
+    sc, sp = small["cuda"][0], small["cpu"][0]
+    tcc, tcp = sc["components"]["transform"], sp["components"]["transform"]
+    d_tr = max(max_diff(tcc[k].cpu(), tcp[k]) for k in ("position", "rotation", "scale"))
+    same_ground = torch.equal(sc["components"]["character"]["grounded"].cpu(),
+                              sp["components"]["character"]["grounded"])
+    same_anim = not same_trees(
+        {"anim": sc["components"]["animation"]["time"], "tick": sc["tick"], "time": sc["time"]},
+        {"anim": sp["components"]["animation"]["time"], "tick": sp["tick"], "time": sp["time"]})
+    tri_small = (small["cuda"][2] == small["cpu"][2]).float().mean().item()
+    img_ok = ((small["cuda"][1].int() - small["cpu"][1].int()).abs().amax(-1) <= 2
+              ).float().mean().item()
+    print(f"phase x.1: 32 bodies, 2 characters, 4 animated, 30 ticks + a 256x128 frame, "
+          f"cuda vs cpu: max|d| transforms {d_tr:.3g} (<= {TOL_ENGINE_CPU}), grounded equal "
+          f"{same_ground}, animation times / tick / time equal in every bit {same_anim}, "
+          f"tri_id agreement {tri_small:.5f}, image within 2 levels {img_ok:.5f}")
+    check(d_tr <= TOL_ENGINE_CPU and same_ground and same_anim,
+          "phase x.1: the small engine world on the card disagrees with the CPU")
+    check(tri_small >= 0.999 and img_ok >= 0.995,
+          "phase x.1: the small engine frame on the card disagrees with the CPU")
+    del small, sc, sp, tcc, tcp
+
+    # x.2: the engine frame at full width, ENGINE_FRAMES frames
+    t0 = time.perf_counter()
+    frame, state0 = build_engine_frame(N_BODIES, WIDTH, HEIGHT, device="cuda")
+    torch.cuda.synchronize()
+    w = frame.engine.world
+    print(f"phase x.2: built the engine frame in {time.perf_counter() - t0:.1f} s: "
+          f"{w.entity_count()} entities of {w.capacity}, "
+          f"{int(w._stores['rigidbody']['has'].sum())} bodies, "
+          f"{int(w._stores['character']['has'].sum())} characters, "
+          f"{int(w._stores['animation']['has'].sum())} animated, "
+          f"{frame.ui_sprites['count']} HUD sprites")
+    check(frame.ui_sprites["count"] > 0, "phase x.2: the HUD emitted no sprite")
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    states = [state0]
+    for _ in range(ENGINE_FRAMES):
+        nxt, image = frame(states[-1])
+        states.append(nxt)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launch = {k: fn.launches for k, fn in kernels.items()}
+    print(f"phase x.2: {ENGINE_FRAMES} engine frames, launches {launch}; peak device "
+          f"memory {peak:.2f} GiB")
+    check(launch == {"raster_shade": ENGINE_FRAMES, "depth_super": ENGINE_FRAMES,
+                     "depth_grid": ENGINE_FRAMES, "depth_dense": 0, "visibility": 0},
+          "phase x.2: the engine frame did not run K1, K2 and K3 once per frame")
+    for k in ("raster_shade", "depth_super", "depth_grid"):
+        by = results[k].setdefault("launches_by_path", {})
+        by[f"engine frame ({ENGINE_FRAMES} frames)"] = launch[k]
+        results[k]["launches"] = sum(by.values())
+    last = states[-1]
+    bad = all_finite(last, "state")
+    check(not bad, f"phase x.2: non-finite state leaves {bad}")
+    check(tuple(image.shape) == (HEIGHT, WIDTH, 3), f"phase x.2: image {tuple(image.shape)}")
+    pcfg = w.systems["PhysicsSystem"].config
+    pos, quat = pw.interpolated_pose(last["physics"], pcfg)
+    b = last["physics"]["bodies"]
+    movable = b["has"] & (b["entity"] >= 0) & (b["motion"] != pw.STATIC)
+    ent = b["entity"][movable].long()
+    tc = last["components"]["transform"]
+    synced = (torch.equal(tc["position"][ent], pos[movable])
+              and torch.equal(tc["rotation"][ent], quat[movable]))
+    grounded = last["components"]["character"]["grounded"]
+    fell = (state0["physics"]["bodies"]["pos"][1:N_BODIES, 1]
+            - b["pos"][1:N_BODIES, 1]).mean().item()
+    print(f"phase x.2: {int(movable.sum())} movable transform rows equal their bodies' "
+          f"interpolated pose in every bit: {synced}; characters grounded "
+          f"{int(grounded.sum())} of {int(last['components']['character']['has'].sum())}; "
+          f"mean drop of the pile {fell:.5f} m; tick {int(last['tick'])}")
+    check(synced, "phase x.2: the transform sync differs from interpolated_pose")
+    mats = frame.instance_matrices(last)
+    args = raster.kernel_args(**frame.renderer.raster_inputs(frame.scene, mats,
+                                                             frame.constants))
+    *_, err_x = check_raster_shade(args, "phase x.2")
+    results["raster_shade"]["max_abs_err"] = max(results["raster_shade"]["max_abs_err"], err_x)
+    din, _ = atlas_inputs(frame, mats)
+    check_split(din, "phase x.2", "cascade lists", results)
+    del args, din
+    tick_ms = cuda_ms(lambda: frame.tick(last, ENGINE_DT), reps=5)
+    frame_ms = cuda_ms(lambda: frame(last), reps=5)
+    bake_ms = cuda_ms(lambda: frame.instance_matrices(last), reps=5)
+    render_ms = cuda_ms(lambda: frame.render(mats, last["frame"]), reps=5)
+    for name, ms in (("engine tick", tick_ms), ("engine frame", frame_ms),
+                     ("bake_world_matrices", bake_ms), ("engine frame render", render_ms)):
+        print(f"phase x.2: {name} median {ms:.4f} ms  [{card}]")
+    wall, busy, stages, _ = profile_engine(frame, last, 3)
+    print(f"phase x.2: engine frame under the profiler: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms ({100 * busy / wall:.1f}% of wall)  [{card}]")
+    for name, (host, dev) in stages.items():
+        print(f"phase x.2:   stage {name}: host {host:.3f} ms, device {dev:.3f} ms per frame")
+
+    # x.3: save at frame 2, load, run frame 3: every leaf as the run that
+    # was never interrupted
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "frame2.npz")
+        checkpoint.save(path, states[2])
+        loaded = checkpoint.load(path, states[2])
+    resumed, img_r = frame(loaded)
+    again, img_a = frame(states[2])
+    diff = same_trees(resumed, states[3]) + same_trees(again, states[3])
+    on_card = all(x.is_cuda for _, x in tree_leaves(loaded))
+    print(f"phase x.3: checkpoint at frame 2 ({len(tree_leaves(loaded))} leaves, on the "
+          f"card {on_card}), frame 3 from it equals the uninterrupted run's in every bit: "
+          f"{not diff} {diff[:5]}")
+    check(not diff and on_card and torch.equal(img_r, img_a),
+          "phase x.3: the resumed frame differs from the uninterrupted run")
+
+    # x.4: replication of the full-width state
+    uid = torch.arange(pcfg.max_bodies, dtype=torch.int64).numpy() + 1000
+    payload = replication.gather_snapshots(last["physics"], uid)
+    on_cpu = {k: v.cpu() for k, v in last["physics"]["bodies"].items()}
+    payload_cpu = replication.gather_snapshots(dict(last["physics"], bodies=on_cpu), uid)
+    client = replication.apply_snapshots(frame.engine.device_state()["physics"], payload,
+                                         {int(u): i for i, u in enumerate(uid)})
+    dyn = b["motion"] == pw.DYNAMIC
+    poses = all(torch.equal(client["bodies"][k][dyn], b[k][dyn])
+                for k in ("pos", "quat", "linvel", "angvel"))
+    print(f"phase x.4: gather_snapshots {len(payload)} bytes ({int(dyn.sum())} bodies), "
+          f"card == cpu bytes {payload == payload_cpu}; applied to a fresh engine state: "
+          f"poses equal in every bit {poses}")
+    check(payload == payload_cpu and poses, "phase x.4: replication is not bitwise")
+
+    # x.5: one engine frame under utils.profiler.trace
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiler.trace(tmp):
+            frame(last)
+        with open(os.path.join(tmp, profiler.TRACE_FILE), encoding="utf-8") as fh:
+            names = {e.get("name", "") for e in json.load(fh).get("traceEvents", [])}
+    want = ("PhysicsSystem.update", "CharacterSystem.update", "collide", "solve_velocity",
+            "raster")
+    missing = [n for n in want if n not in names]
+    k1 = sorted(n for n in names if "raster_shade_kernel" in n)
+    print(f"phase x.5: the trace names {len(names)} events; ranges missing {missing}; "
+          f"K1 as {k1[:1]}")
+    check(not missing and k1, "phase x.5: the trace lacks the physics ranges or K1")
+    print(f"chip_smoke: phase x took {time.perf_counter() - t_phase:.1f} s; phases 1-x "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1953,6 +2169,7 @@ def main() -> int:
     physics_phases(card)
     pass_set_phases(card, results, t_start)
     feature_phases(card, results, t_start)
+    engine_phases(card, results, t_start)
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():

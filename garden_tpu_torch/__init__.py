@@ -2,10 +2,11 @@
 H100.
 
 The package mirrors the JAX package's layout (core, physics, render,
-systems) and never imports JAX or `garden_tpu`. Plain tensor code is
+systems, utils, net, the engine) and never imports JAX or `garden_tpu`. Plain tensor code is
 PyTorch; each TPU Pallas kernel on the ported path becomes a hand-written
 CUDA kernel under `csrc/`, with a plain PyTorch version beside it that CPU
-tensors take. `entry.build` assembles the combined physics + frame step.
+tensors take. `entry.build` assembles the combined physics + frame step, and
+`engine.Engine` the ECS runtime (`entry.build_engine_frame` draws one).
 """
 
 __version__ = "0.1.0"

@@ -5,12 +5,16 @@ The JAX package's config module cannot be imported without JAX (its package
 dataclasses. Field names and defaults must stay equal to the reference;
 `tests/test_torch_config.py` checks that they do. Every field is static:
 changing one changes which code paths run, as in the reference.
+`to_json` / `from_json` persist an `EngineConfig` in the reference's JSON
+format, so a config written by either package loads in the other.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import json
+import typing
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,3 +160,49 @@ def render_quality(quality: str = "medium", **overrides) -> RenderConfig:
     kw = dict(QUALITY_PRESETS[quality])
     kw.update(overrides)
     return RenderConfig(**kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    capacity: int = 4096                # entity capacity
+    physics: PhysicsConfig = dataclasses.field(default_factory=PhysicsConfig)
+    render: RenderConfig = dataclasses.field(default_factory=RenderConfig)
+    max_tick_rate: int = 60             # the host loop's tick-rate cap
+    # leading batch axis for multi-world; carried so configs mirror, batched
+    # worlds (parallel/worlds.py) are not ported yet
+    world_batch: int = 1
+
+
+def _to_dict(obj: Any) -> Any:
+    if dataclasses.is_dataclass(obj):
+        return {f.name: _to_dict(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+    if isinstance(obj, tuple):
+        return list(obj)
+    return obj
+
+
+def _from_dict(cls: type, data: Dict[str, Any]) -> Any:
+    # resolve string annotations (PEP 563) to real types
+    hints = typing.get_type_hints(cls)
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in data:
+            continue
+        v = data[f.name]
+        ftype = hints.get(f.name, f.type)
+        if isinstance(ftype, type) and dataclasses.is_dataclass(ftype):
+            v = _from_dict(ftype, v)
+        elif isinstance(v, list):
+            v = tuple(v)
+        kwargs[f.name] = v
+    return cls(**kwargs)
+
+
+def to_json(cfg: EngineConfig) -> str:
+    """The config tree as JSON, in the reference's format: a JSON string
+    written by either package loads in the other."""
+    return json.dumps(_to_dict(cfg), indent=2)
+
+
+def from_json(text: str, cls: type = EngineConfig) -> EngineConfig:
+    return _from_dict(cls, json.loads(text))

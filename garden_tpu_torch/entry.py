@@ -37,6 +37,17 @@ after AA. `build_bench_frame` draws bench.py's world (boxes and spheres,
 `physics.scenes.bench_world`) with the flagship's camera and passes, each
 sphere a two-level LOD chain switching at the 0.1 quantile of the
 spheres' camera distances (BENCH_LOD_QUANTILE).
+
+`build_engine_frame` is the runtime's frame: an `Engine` (transform,
+camera, physics, character, animation, spawner, link and the UI systems)
+whose entities are the flagship pile (entity i carries body i, and its
+baked world matrix is the scene's instance i), N_CHARACTERS capsule
+characters walking beside it, N_ANIMATED entities on named animation tracks
+(one with a property curve) and a HUD of labels, two buttons, a checkbox
+and a focused input box emitted through `render.text.FontAtlas` (the
+committed `DEFAULT_GLYPHS`, no PIL). One engine frame is one Engine step
+(Input, Update, Output), the bake of the world matrices and the flagship's
+deferred frame.
 """
 
 from __future__ import annotations
@@ -47,22 +58,31 @@ import numpy as np
 import torch
 
 from garden_tpu_torch.core import math3d as m3
-from garden_tpu_torch.core.config import (QUALITY_PRESETS, PhysicsConfig, RenderConfig,
-                                          SLICE_OVERRIDES, ShadowConfig)
+from garden_tpu_torch.core.config import (QUALITY_PRESETS, EngineConfig, PhysicsConfig,
+                                          RenderConfig, SLICE_OVERRIDES, ShadowConfig)
+from garden_tpu_torch.engine import Engine
 from garden_tpu_torch.physics import scenes
 from garden_tpu_torch.physics import shapes as psh
 from garden_tpu_torch.physics import world as pw
 from garden_tpu_torch.render import atmosphere, ibl
 from garden_tpu_torch.render import mesh as rmesh
 from garden_tpu_torch.render import sprites as rsprites
+from garden_tpu_torch.render import text as rtext
 from garden_tpu_torch.render.deferred import DeferredRenderer
 from garden_tpu_torch.render.forward import ForwardRenderer
-from garden_tpu_torch.systems.camera import common_constants
+from garden_tpu_torch.systems import ui
+from garden_tpu_torch.systems.animation import AnimationSystem
+from garden_tpu_torch.systems.camera import CameraSystem, common_constants
+from garden_tpu_torch.systems.character import CharacterSystem
+from garden_tpu_torch.systems.link import LinkSystem
+from garden_tpu_torch.systems.physics import PhysicsSystem
+from garden_tpu_torch.systems.spawner import SpawnerSystem
+from garden_tpu_torch.systems.transform import TransformSystem, bake_world_matrices
 
-__all__ = ["CombinedStep", "DENSE_SHADOW_OVERRIDES", "FEATURE_BOXES",
+__all__ = ["CombinedStep", "DENSE_SHADOW_OVERRIDES", "EngineFrame", "FEATURE_BOXES",
            "FEATURE_OVERRIDES", "GLASS_BOXES", "GLASS_OVERRIDES", "SLICE_OVERRIDES",
            "TEMPORAL_OVERRIDES", "ULTRA_OVERRIDES", "build", "build_bench_frame",
-           "build_feature_frame", "build_forward"]
+           "build_engine_frame", "build_feature_frame", "build_forward"]
 
 # the reference-parity shadow preset: the dense depth raster over a
 # 6144x2048 atlas of 128x128 tiles
@@ -382,3 +402,205 @@ def build_bench_frame(n_bodies: int, width: int, height: int, tile_size: int = 1
         else:
             scene.add_instance(chain[0], material=box_mat)
     return _combined_step(phys, pcfg, present, rcfg, scene, constants, device)
+
+
+# the engine frame's extra entities (build_engine_frame's defaults)
+N_CHARACTERS, N_ANIMATED = 8, 64
+ENGINE_DT = 1.0 / 60.0
+UI_SYSTEMS = (ui.UiTransformSystem, ui.UiButtonSystem, ui.UiCheckboxSystem,
+              ui.UiLabelSystem, ui.UiInputSystem, ui.UiScissorSystem, ui.UiTriggerSystem)
+
+
+class EngineFrame:
+    """An Engine and a deferred renderer over its entities. `state` is the
+    engine's state, the renderer's frame state under "frame". Its parts are
+    exposed so callers can time or inspect each stage."""
+
+    def __init__(self, engine: Engine, renderer: DeferredRenderer,
+                 scene: Dict[str, torch.Tensor], constants: Dict[str, torch.Tensor],
+                 n_instances: int, font: rtext.FontAtlas, hud_batch: rsprites.SpriteBatch):
+        self.engine = engine
+        self.renderer = renderer
+        self.scene = scene
+        self.constants = constants
+        self.n_instances = n_instances
+        self.font = font
+        self.hud_batch = hud_batch
+        self.tick = engine.build_step()
+        self.ui_atlas = font.atlas.device(engine.device)
+        self.ui_sprites = self.emit_hud()
+
+    def emit_hud(self) -> Dict[str, Any]:
+        """The UI systems' sprites (labels, then the input boxes) on the
+        device; run again after the widgets change."""
+        w = self.engine.world
+        size = (float(self.renderer.width), float(self.renderer.height))
+        self.hud_batch.clear()
+        w.systems["UiLabelSystem"].emit(self.hud_batch, self.font, size)
+        w.systems["UiInputSystem"].emit(self.hud_batch, self.font, size)
+        return self.hud_batch.device_arrays(self.engine.device)
+
+    def instance_matrices(self, state: Dict[str, Any]) -> torch.Tensor:
+        """The baked world matrices of entities 0 .. n_instances - 1."""
+        return bake_world_matrices(state["components"]["transform"])[:self.n_instances]
+
+    def render(self, inst_mats: torch.Tensor, frame: Dict[str, torch.Tensor]
+               ) -> Dict[str, Any]:
+        return self.renderer.render(self.scene, inst_mats, self.constants, frame,
+                                    ui_atlas=self.ui_atlas, ui_sprites=self.ui_sprites)
+
+    def __call__(self, state: Dict[str, Any]) -> Tuple[Dict[str, Any], torch.Tensor]:
+        state = self.tick(state, ENGINE_DT)
+        out = self.render(self.instance_matrices(state), state["frame"])
+        return dict(state, frame=out["frame_state"]), out["image"]
+
+
+def _engine_pile(engine: Engine, n_bodies: int) -> int:
+    """The flagship pile as entities 0 .. n_bodies - 1: a static plane, then
+    boxes on flagship_world's lattice, entity i on body i. -> the side."""
+    w = engine.world
+    phys = w.systems["PhysicsSystem"]
+    shapes = phys.physics.shapes
+    e = w.create_entity()
+    w.add_component(e, "transform")
+    phys.add_rigidbody(e, shapes.plane((0, 1, 0), 0.0), motion=pw.STATIC)
+    box = shapes.box((0.45, 0.45, 0.45))
+    n_dyn = n_bodies - 1
+    side = max(int(round(n_dyn ** (1.0 / 3.0))), 1)
+    for k in range(n_dyn):
+        iy, iz, ix = k // (side * side), k // side % side, k % side
+        e = w.create_entity()
+        w.add_component(e, "transform", position=(ix * 1.05 - side / 2, 0.5 + iy * 1.05,
+                                                  iz * 1.05 - side / 2))
+        phys.add_rigidbody(e, box, friction=0.5)
+    return side
+
+
+def _engine_actors(engine: Engine, side: int, n_characters: int, n_animated: int
+                   ) -> None:
+    """Characters walking on the plane in front of the pile (linked and
+    tagged), entities on named animation tracks (the first one also a
+    camera whose fov_y follows a property curve) and one spawner with a
+    one-shot prefab, spawned now."""
+    w = engine.world
+    rng = np.random.default_rng(0)
+    chars, link = w.systems["CharacterSystem"], w.systems["LinkSystem"]
+    for c in range(n_characters):
+        e = w.create_entity()
+        w.add_component(e, "transform", position=(
+            (c - (n_characters - 1) / 2) * 1.5, 0.95, side * 0.5 + 3.0))
+        chars.add_character(e)
+        walk = 1.5 if c % 2 == 0 else -1.5
+        w.set_component(e, "character", desired_vel=(walk, 0.0, 0.0))
+        link.add_link(e, uuid=f"{c:032x}", tag="character")
+    anim = w.systems["AnimationSystem"]
+    for a in range(n_animated):
+        e = w.create_entity()
+        w.add_component(e, "transform")
+        keys = []
+        for k in range(4):
+            axis = rng.normal(size=3)
+            angle = rng.uniform(0.0, np.pi)
+            quat = np.append(axis / np.linalg.norm(axis) * np.sin(angle / 2), np.cos(angle / 2))
+            keys.append({"time": 0.5 * k, "position": rng.uniform(-20.0, 20.0, 3).tolist(),
+                         "rotation": quat.tolist()})
+        track = anim.add_track(keys, name=f"orbit_{a}")
+        w.add_component(e, "animation", track=track, looped=True,
+                        speed=float(rng.uniform(0.5, 1.5)))
+        if a == 0:
+            w.add_component(e, "camera")
+            anim.add_property_keyframes(track, "camera", "fov_y", [
+                {"time": 0.0, "value": 0.8}, {"time": 1.5, "value": 1.1}])
+    spawner = w.systems["SpawnerSystem"]
+
+    def prefab(world, owner):
+        child = world.create_entity()
+        world.add_component(child, "transform",
+                            position=world._stores["transform"]["position"][owner])
+        return child
+
+    spawner.register_prefab("marker", prefab)
+    e = w.create_entity()
+    w.add_component(e, "transform", position=(0.0, 2.0, side * 0.5 + 6.0))
+    spawner.add_spawner(e, "marker")
+    spawner.process(0.0)
+
+
+def _engine_hud(engine: Engine, width: int, height: int) -> None:
+    """Labels, two buttons (labelled), a checkbox (labelled) and an input
+    box, then a click that focuses the input box and typed text."""
+    w = engine.world
+    labels, inputs = w.systems["UiLabelSystem"], w.systems["UiInputSystem"]
+
+    def widget(x, y, size, *components, text=None, anchor=ui.ANCHOR_TOP_LEFT):
+        e = w.create_entity()
+        w.add_component(e, "ui_transform", position=(x, y), size=size, anchor=anchor)
+        for name in components:
+            w.add_component(e, name)
+        if text is not None:
+            w.add_component(e, "ui_label", color=(1.0, 1.0, 0.8, 1.0))
+            labels.set_text(e, text)
+        return e
+
+    widget(12.0, 10.0, (240.0, 20.0), text="garden-tpu engine frame")
+    widget(-12.0, 10.0, (200.0, 20.0), text="bodies, characters, tracks",
+           anchor=ui.ANCHOR_TOP_RIGHT)
+    widget(12.0, -70.0, (96.0, 24.0), "ui_button", text="Pause", anchor=ui.ANCHOR_BOTTOM_LEFT)
+    widget(120.0, -70.0, (96.0, 24.0), "ui_button", text="Reset", anchor=ui.ANCHOR_BOTTOM_LEFT)
+    widget(228.0, -70.0, (120.0, 24.0), "ui_button", "ui_checkbox", text="[x] Shadows",
+           anchor=ui.ANCHOR_BOTTOM_LEFT)
+    box = widget(12.0, -36.0, (260.0, 24.0), "ui_input", anchor=ui.ANCHOR_BOTTOM_LEFT)
+    inputs.set_text(box, "spawn ")
+    rect = ui.resolve_rects(w._stores["ui_transform"], float(width), float(height))[box]
+    inputs.process_click((float(rect[0]) + 4.0, float(rect[1]) + 4.0),
+                         (float(width), float(height)))
+    inputs.process_text("crate")
+
+
+def build_engine_frame(n_bodies: int, width: int, height: int, grid_dim: int = 64,
+                       cfg_overrides: Optional[dict] = None, *, device,
+                       n_characters: int = N_CHARACTERS, n_animated: int = N_ANIMATED
+                       ) -> Tuple[EngineFrame, Dict[str, Any]]:
+    """The engine frame and its initial state on `device`: the flagship pile
+    of n_bodies as entities, n_characters characters, n_animated animated
+    entities, a spawner, a link registry and the HUD, drawn by the
+    flagship's renderer (then `cfg_overrides`) at width x height."""
+    n_dyn = n_bodies - 1
+    cube_mesh = rmesh.cube(0.45)
+    side = max(int(round(n_dyn ** (1.0 / 3.0))), 1)
+    ground = rmesh.plane_grid(max(side * 2.0, 20.0), 4)
+    rcfg = _render_config(
+        width, height, 128,
+        n_dyn * cube_mesh.vertex_count + ground.vertex_count,
+        n_dyn * cube_mesh.triangle_count + ground.triangle_count, n_bodies,
+        cfg_overrides)
+    pcfg = PhysicsConfig(max_bodies=n_bodies + n_characters, grid_dim=grid_dim,
+                         cell_size=2.0, max_contacts_per_body=7, solver_iterations=8,
+                         max_globals=1, max_active_contacts=16)
+    n_ui = 6
+    capacity = n_bodies + n_characters + n_animated + 2 + n_ui
+    engine = Engine(EngineConfig(capacity=capacity, physics=pcfg, render=rcfg), device=device)
+    for system in (TransformSystem(), CameraSystem(), PhysicsSystem(pcfg), CharacterSystem(),
+                   AnimationSystem(max_tracks=max(n_animated, 1), max_keyframes=8),
+                   SpawnerSystem(), LinkSystem(), *(cls() for cls in UI_SYSTEMS)):
+        engine.create_system(system)
+    anim = engine.world.systems["AnimationSystem"]
+    engine.register_state("animation_tracks", anim.device_state)
+    engine.initialize()
+    _engine_pile(engine, n_bodies)
+    _engine_actors(engine, side, n_characters, n_animated)
+    _engine_hud(engine, width, height)
+
+    scene = rmesh.SceneBuffers(rcfg.max_vertices, rcfg.max_triangles, rcfg.max_instances)
+    mat = scene.add_material(BOX_MATERIAL)
+    scene.add_instance(ground, material=scene.add_material(
+        rmesh.Material(base_color=(0.5, 0.5, 0.5))))
+    for _ in range(n_dyn):
+        scene.add_instance(cube_mesh, material=mat)
+    renderer = DeferredRenderer(rcfg, scene, device)
+    engine.register_state("frame", renderer.initial_frame_state)
+    font = rtext.FontAtlas.load_glyphs(rsprites.TextureAtlas(256))
+    frame = EngineFrame(engine, renderer, renderer.device_scene(),
+                        _flagship_camera(side, width, height, device), n_bodies, font,
+                        rsprites.SpriteBatch(font.atlas, capacity=256))
+    return frame, engine.device_state()

@@ -45,6 +45,18 @@ def _at(x: Tensor, i: Tensor) -> Tensor:
     return x.index_select(0, i.reshape(1))[0]
 
 
+def _rows(x: Tensor, i: Tensor) -> Tensor:
+    """x[i] for an index tensor of any shape (0-dim: one row), without
+    reading it on the host."""
+    return x.index_select(0, i.reshape(-1)).reshape(i.shape + x.shape[1:])
+
+
+def _col(v):
+    """A per-cast tensor with a trailing axis to meet the next axis of the
+    (cast, body) arrays; a plain number as it is."""
+    return v[..., None] if isinstance(v, Tensor) else v
+
+
 def _select(conds, vals, default: Tensor) -> Tensor:
     """The first value whose condition holds, else default (jnp.select)."""
     out = default
@@ -163,7 +175,8 @@ def _ray_heightfield(o, d, pos, quat, params, tables, steps: int = 32,
 
     span = params[..., 1] * torch.maximum(params[..., 2], params[..., 3])
     t_reach = torch.clamp(m3.length(o_l) + (0.5 * span + 1.0) * 1.732, max=max_distance)
-    ts = torch.linspace(0.0, 1.0, steps, device=o.device)[:, None] * t_reach[None, ...]
+    ts = (torch.linspace(0.0, 1.0, steps, device=o.device).reshape((steps,) + (1,) * t_reach.ndim)
+          * t_reach)
     shape = o_l.shape[:-1]
     t_hit = torch.full(shape, NO_HIT, device=o.device)
     prev_t = torch.zeros(shape, device=o.device)
@@ -195,7 +208,7 @@ def _ray_compound(o, d, pos, quat, params, tables, r=0.0):
         tk = ctype[..., k]
         pk, qk, prmk = cpos_w[..., k, :], cquat_w[..., k, :], cparams[..., k, :]
         ts = _ray_sphere(o, d, pk, prmk[..., 0] + r)
-        tb = _ray_box(o, d, pk, m3.quat_to_mat3(qk), prmk[..., :3] + r)
+        tb = _ray_box(o, d, pk, m3.quat_to_mat3(qk), prmk[..., :3] + _col(r))
         axisk = m3.quat_rotate(qk, m3.constant(_UP, pk.device).expand_as(pk))
         tc = _ray_capsule(o, d, pk - axisk * prmk[..., 1:2], pk + axisk * prmk[..., 1:2],
                           prmk[..., 0] + r)
@@ -262,7 +275,7 @@ def _ray_mesh(o, d, pos, quat, params, tables, steps: int = 32,
 def _closest_on_segment_single(a0, a1, p):
     d = a1 - a0
     t = m3.dot(p - a0, d) / torch.clamp(m3.dot(d, d), min=1e-12)
-    return a0 + d * torch.clamp(t, 0.0, 1.0)
+    return a0 + d * torch.clamp(t, 0.0, 1.0)[..., None]
 
 
 def _body_shapes(state):
@@ -277,11 +290,13 @@ def _capsule_axes(b, params):
 
 
 def _face_normal_at(pos, quat, params, tables, p):
-    """The hull face whose plane p lies farthest outside of."""
+    """The hull face whose plane p lies farthest outside of (one point, or
+    a leading axis of points and hulls)."""
     verts_w, vv, faces_w, fv = _hull_world_rows(pos, quat, params, tables)
-    s_f = torch.einsum("fi,i->f", faces_w, p) - _hull_support(verts_w, vv, faces_w)
+    s_f = torch.einsum("...fi,...i->...f", faces_w, p) - _hull_support(verts_w, vv, faces_w)
     s_f = torch.where(fv, s_f, torch.full_like(s_f, -float("inf")))
-    return _at(faces_w, torch.argmax(s_f))
+    k = torch.argmax(s_f, dim=-1)
+    return torch.gather(faces_w, -2, k[..., None, None].expand(k.shape + (1, 3)))[..., 0, :]
 
 
 def cast_ray(state: Dict[str, Any], origin: Tensor, direction: Tensor,
@@ -338,61 +353,69 @@ def cast_ray(state: Dict[str, Any], origin: Tensor, direction: Tensor,
 
 
 def cast_sphere(state: Dict[str, Any], origin: Tensor, direction: Tensor,
-                radius: float, max_distance: float = 1e6,
-                exclude_body: int = -1) -> RayHit:
+                radius, max_distance=1e6, exclude_body=-1) -> RayHit:
     """Swept-sphere cast: nearest time of impact against all alive bodies,
     by Minkowski inflation of each shape by the radius (boxes by their
-    inflated slab, conservative by at most r at the corners)."""
+    inflated slab, conservative by at most r at the corners).
+
+    Batched: with origin and direction (E, 3), and radius, max_distance and
+    exclude_body each a number or an (E,) tensor, E casts run in one pass
+    over (E, N) (cast, body) pairs and every field of the hit gains the
+    leading E axis; cast e equals the single call with row e's arguments."""
     b, shapes_t, stype, params = _body_shapes(state)
-    o = origin.expand_as(b["pos"])
+    lead = origin.shape[:-1]
+    bx = lambda x: x.expand(lead + x.shape)       # a body array per cast
+    r, md, excl = _col(radius), _col(max_distance), _col(exclude_body)
+    rv = _col(r)                                  # against (..., N, 3)
+    pos, quat, prm = bx(b["pos"]), bx(b["quat"]), bx(params)
+    o = origin[..., None, :].expand(pos.shape)
     dirn = m3.normalize(direction)
-    d = dirn.expand_as(b["pos"])
-    r = radius
+    d = dirn[..., None, :].expand(pos.shape)
     up = m3.constant(_UP, o.device)
     rot = m3.quat_to_mat3(b["quat"])
     n_w = m3.quat_rotate(b["quat"], params[..., :3])
     d_w = params[..., 3] - m3.dot(n_w, b["pos"])
     a0, a1 = _capsule_axes(b, params)
-    t_sphere = _ray_sphere(o, d, b["pos"], params[..., 0] + r)
+    t_sphere = _ray_sphere(o, d, pos, prm[..., 0] + r)
+    st = bx(stype)
     t = _select(
-        [stype == sh.SPHERE, stype == sh.BOX, stype == sh.PLANE, stype == sh.CAPSULE,
-         stype == sh.HEIGHTFIELD, stype == sh.HULL, stype == sh.COMPOUND,
-         stype == sh.MESH],
-        [t_sphere, _ray_box(o, d, b["pos"], rot, params[..., :3] + r),
-         _ray_plane(o, d, n_w, d_w + r), _ray_capsule(o, d, a0, a1, params[..., 0] + r),
+        [st == sh.SPHERE, st == sh.BOX, st == sh.PLANE, st == sh.CAPSULE,
+         st == sh.HEIGHTFIELD, st == sh.HULL, st == sh.COMPOUND, st == sh.MESH],
+        [t_sphere, _ray_box(o, d, pos, bx(rot), prm[..., :3] + rv),
+         _ray_plane(o, d, bx(n_w), bx(d_w) + r),
+         _ray_capsule(o, d, bx(a0), bx(a1), prm[..., 0] + r),
          # the sphere centre marched against the surface lowered by r
-         _ray_heightfield(o - up * r, d, b["pos"], b["quat"], params, shapes_t,
-                          max_distance=max_distance),
-         _ray_hull(o, d, b["pos"], b["quat"], params, shapes_t, r),
-         _ray_compound(o, d, b["pos"], b["quat"], params, shapes_t, r=r),
-         _ray_mesh(o, d, b["pos"], b["quat"], params, shapes_t, max_t=max_distance,
-                   inflate=radius)],
+         _ray_heightfield(o - up * rv, d, pos, quat, prm, shapes_t, max_distance=md),
+         _ray_hull(o, d, pos, quat, prm, shapes_t, rv),
+         _ray_compound(o, d, pos, quat, prm, shapes_t, r=r),
+         _ray_mesh(o, d, pos, quat, prm, shapes_t, max_t=md, inflate=_col(rv))],
         torch.full_like(t_sphere, NO_HIT))
-    idx = torch.arange(t.shape[0], device=t.device)
-    t = torch.where(b["has"] & (t <= max_distance) & (idx != exclude_body), t,
+    idx = torch.arange(t.shape[-1], device=t.device)
+    t = torch.where(bx(b["has"]) & (t <= md) & (idx != excl), t,
                     torch.full_like(t, NO_HIT))
 
-    best = torch.argmin(t)
-    t_best = _at(t, best)
+    best = torch.argmin(t, dim=-1)
+    t_best = torch.gather(t, -1, best[..., None])[..., 0]
     hit = t_best < NO_HIT
-    center_at_hit = origin + dirn * t_best
+    center_at_hit = origin + dirn * t_best[..., None]
     # the contact normal from the closest point on the uninflated shape
-    pos_b = _at(b["pos"], best)
-    rot_b = _at(rot, best)
-    prm_b = _at(params, best)
-    st_b = _at(stype, best)
-    box_l = torch.einsum("ji,j->i", rot_b, center_at_hit - pos_b)
-    box_cl = torch.minimum(torch.maximum(box_l, -prm_b[:3]), prm_b[:3])
+    pos_b = _rows(b["pos"], best)
+    rot_b = _rows(rot, best)
+    prm_b = _rows(params, best)
+    st_b = _rows(stype, best)
+    box_l = torch.einsum("...ji,...j->...i", rot_b, center_at_hit - pos_b)
+    box_cl = torch.minimum(torch.maximum(box_l, -prm_b[..., :3]), prm_b[..., :3])
     support = _select(
         [st_b == sh.SPHERE, st_b == sh.BOX],
-        [pos_b, torch.einsum("ij,j->i", rot_b, box_cl) + pos_b],
-        _closest_on_segment_single(_at(a0, best), _at(a1, best), center_at_hit))
-    n_hull = _face_normal_at(pos_b, _at(b["quat"], best), prm_b, shapes_t, center_at_hit)
+        [pos_b, torch.einsum("...ij,...j->...i", rot_b, box_cl) + pos_b],
+        _closest_on_segment_single(_rows(a0, best), _rows(a1, best), center_at_hit))
+    n_hull = _face_normal_at(pos_b, _rows(b["quat"], best), prm_b, shapes_t, center_at_hit)
     n_hit = _select([st_b == sh.PLANE, st_b == sh.HEIGHTFIELD, st_b == sh.HULL],
-                    [_at(n_w, best), up, n_hull],
+                    [_rows(n_w, best), up.expand_as(pos_b), n_hull],
                     m3.normalize(center_at_hit - support))
     return RayHit(hit=hit, body=torch.where(hit, best, torch.full_like(best, -1)),
-                  distance=t_best, point=center_at_hit - n_hit * radius, normal=n_hit)
+                  distance=t_best, point=center_at_hit - n_hit * _col(radius),
+                  normal=n_hit)
 
 
 def cast_shape(state: Dict[str, Any], shape_index: int, origin: Tensor,

@@ -7,10 +7,17 @@ from the pen origin) and the face's ascent and descent; kerning pairs are
 measured with the font's own layout, kern(a, b) = len(a + b) - len(a) -
 len(b), keeping the nonzero ones. Text becomes a run of sprites drawn by
 `sprites.composite_sprites`. Without PIL, `FontAtlas` raises RuntimeError.
+
+`save_glyphs` writes a rasterized glyph set (alpha images, advances,
+bearings, metrics, kerning) to an .npz, and `FontAtlas.load_glyphs` packs
+such a file into an atlas without PIL, giving the same atlas and layout as
+the font it was written from. `DEFAULT_GLYPHS` is PIL's default font at
+the default size (written by `tools/make_glyphs.py`).
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -22,6 +29,14 @@ try:
     _HAS_PIL = True
 except ImportError:
     _HAS_PIL = False
+
+
+DEFAULT_GLYPHS = Path(__file__).resolve().parent / "glyphs_default.npz"
+
+
+def _glyph_rgba(alpha: np.ndarray) -> np.ndarray:
+    """A glyph's atlas image: white, its coverage in alpha."""
+    return np.stack([np.ones_like(alpha)] * 3 + [alpha], axis=-1)
 
 
 class FontAtlas:
@@ -51,7 +66,7 @@ class FontAtlas:
             img = Image.new("L", (w, h), 0)
             ImageDraw.Draw(img).text((-x0, -y0), ch, fill=255, font=font)
             arr = np.asarray(img, np.float32) / 255.0
-            region = atlas.add(np.stack([np.ones_like(arr)] * 3 + [arr], axis=-1))
+            region = atlas.add(_glyph_rgba(arr))
             try:
                 advance = float(font.getlength(ch))
             except AttributeError:
@@ -65,6 +80,47 @@ class FontAtlas:
                     k = float(font.getlength(a + b)) - singles[a] - singles[b]
                     if abs(k) > 1e-3:
                         self.kerning[(a, b)] = k
+
+    def save_glyphs(self, path: str) -> None:
+        """Write the glyph set to `path` (.npz): each glyph's 8-bit coverage
+        read back from the atlas, its advance and bearing, the face's
+        metrics and the kerning pairs."""
+        chars = "".join(self.glyphs)
+        alphas, shapes, metrics = [], [], []
+        for ch in chars:
+            (x, y, w, h), adv, bx, by = self.glyphs[ch]
+            alphas.append(np.rint(self.atlas.data[y:y + h, x:x + w, 3] * 255.0)
+                          .astype(np.uint8).ravel())
+            shapes.append((w, h))
+            metrics.append((adv, bx, by))
+        pairs = sorted(self.kerning)
+        np.savez_compressed(
+            path, chars=np.array(chars), alpha=np.concatenate(alphas),
+            shapes=np.array(shapes, np.int32), metrics=np.array(metrics, np.float64),
+            face=np.array([self.size, self.ascent, self.descent], np.int32),
+            kern_pairs=np.array(["".join(p) for p in pairs]),
+            kern=np.array([self.kerning[p] for p in pairs], np.float64))
+
+    @classmethod
+    def load_glyphs(cls, atlas: TextureAtlas, path=DEFAULT_GLYPHS) -> "FontAtlas":
+        """A FontAtlas from a `save_glyphs` file, packed into `atlas` in the
+        file's glyph order; needs no PIL."""
+        self = cls.__new__(cls)
+        self.atlas = atlas
+        with np.load(path) as f:
+            chars, alpha, shapes = str(f["chars"]), f["alpha"], f["shapes"]
+            metrics, face = f["metrics"], f["face"]
+            kern_pairs, kern = f["kern_pairs"], f["kern"]
+        self.size, self.ascent, self.descent = (int(v) for v in face)
+        self.font = None
+        self.glyphs = {}
+        at = 0
+        for ch, (w, h), (adv, bx, by) in zip(chars, shapes, metrics):
+            arr = alpha[at:at + w * h].reshape(h, w).astype(np.float32) / 255.0
+            at += w * h
+            self.glyphs[ch] = (atlas.add(_glyph_rgba(arr)), float(adv), int(bx), int(by))
+        self.kerning = {(str(p)[0], str(p)[1]): float(k) for p, k in zip(kern_pairs, kern)}
+        return self
 
     def measure(self, text: str) -> float:
         """The line's width: advances and kerning; a glyph the atlas lacks

@@ -1,18 +1,50 @@
-"""Per-frame common constants (view/projection matrices and friends).
+"""Camera component and per-frame common constants.
 
-Port of `garden_tpu.systems.camera.common_constants`. The rest of the
-reference module depends on the ECS, which is not ported yet.
+Port of `garden_tpu.systems.camera`: the CAMERA component (perspective or
+orthographic projection parameters) and its system, `view_matrix` (a
+world-space pose to its view matrix) and `common_constants`, the
+view/projection matrices and friends each frame's passes read. Projection
+is reverse-Z.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from garden_tpu_torch.core import math3d as m3
+from garden_tpu_torch.core.ecs import ComponentDef, Field, System
 
 Tensor = torch.Tensor
+
+PROJ_PERSPECTIVE = 0
+PROJ_ORTHOGRAPHIC = 1
+
+CAMERA = ComponentDef(
+    "camera",
+    {
+        # perspective params
+        "fov_y": Field((), np.float32, 0.9),
+        "aspect": Field((), np.float32, 16.0 / 9.0),
+        "near": Field((), np.float32, 0.1),
+        # orthographic params
+        "ortho_extents": Field((6,), np.float32, (-1, 1, -1, 1, -1, 1)),
+        "proj_type": Field((), np.int32, PROJ_PERSPECTIVE),
+    },
+)
+
+
+def view_matrix(position: Tensor, rotation: Tensor) -> Tensor:
+    """World-space camera pose -> view matrix (inverse rigid transform)."""
+    r = m3.quat_to_mat3(rotation)
+    rt = torch.swapaxes(r, -1, -2)
+    t = -torch.einsum("...ij,...j->...i", rt, position)
+    top = torch.cat([rt, t[..., :, None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
+                          device=top.device).expand(top.shape[:-2] + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
 
 
 def common_constants(camera_position: Tensor, view: Tensor, projection: Tensor,
@@ -40,3 +72,7 @@ def common_constants(camera_position: Tensor, view: Tensor, projection: Tensor,
         "time": f32(time),
         "delta_time": f32(delta_time),
     }
+
+
+class CameraSystem(System):
+    component = CAMERA

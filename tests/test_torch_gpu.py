@@ -954,3 +954,83 @@ def test_small_feature_and_bench_frames_match_cpu(cuda):
         d = (out["cpu"][0].int() - out["cuda"][0].int()).abs().amax(-1)
         assert (d <= 2).float().mean().item() >= 0.995
         assert (out["cpu"][1] - out["cuda"][1]).abs().max().item() <= 1e-4
+
+
+def _small_engine(dev):
+    from garden_tpu_torch.core.config import ShadowConfig
+    from garden_tpu_torch.entry import build_engine_frame
+    cut = ShadowConfig(resolve_step=2, cascade_sizes=(256, 128, 128), atlas_tile_h=16,
+                       atlas_foot_y=2, max_active_tiles=24)
+    return build_engine_frame(32, 256, 128, grid_dim=8, device=dev, n_characters=2,
+                              n_animated=4, cfg_overrides=dict(shadow=cut))
+
+
+def test_small_engine_matches_cpu(cuda):
+    """The engine frame's runtime at 32 bodies, 2 characters and 4 animated
+    entities, 30 ticks and one 256x128 frame on the card against the CPU:
+    transforms within 1e-4, grounded flags, animation times, tick and time
+    in every bit, the image bar of the flagship."""
+    from garden_tpu_torch.entry import ENGINE_DT
+    out = {}
+    for dev in ("cpu", cuda):
+        frame, state = _small_engine(dev)
+        state = frame.engine.run_ticks(state, 30, ENGINE_DT)
+        img = frame.render(frame.instance_matrices(state), state["frame"])["image"]
+        out[str(dev)] = ({k: v.cpu() for k, v in state["components"]["transform"].items()},
+                         state["components"]["character"]["grounded"].cpu(),
+                         state["components"]["animation"]["time"].cpu(),
+                         state["tick"].cpu(), state["time"].cpu(), img.cpu())
+    cpu, card = out["cpu"], out["cuda"]
+    for k in ("position", "rotation", "scale"):
+        assert (cpu[0][k] - card[0][k]).abs().max().item() <= 1e-4, k
+    for a, b in zip(cpu[1:5], card[1:5]):
+        assert torch.equal(a, b)
+    d = (cpu[5].int() - card[5].int()).abs().amax(-1)
+    assert (d <= 2).float().mean().item() >= 0.995
+
+
+def test_batched_cast_sphere_on_card(cuda):
+    """The batched sphere cast on the card: each cast equal in every bit to
+    the single call on the card, and to the CPU's within 1e-4."""
+    from garden_tpu_torch.physics import queries, scenes
+    rng = np.random.default_rng(5)
+    e = 12
+    args = (np.c_[rng.uniform(-5, 5, e), rng.uniform(0.3, 4, e), rng.uniform(-3, 3, e)],
+            rng.normal(size=(e, 3)), rng.uniform(0.1, 0.5, e), rng.uniform(1, 10, e))
+    hits = {}
+    for dev in ("cpu", cuda):
+        state, _, _ = scenes.mixed_world(dev)
+        org, dirs, rad, dist = (torch.tensor(a, dtype=torch.float32, device=dev) for a in args)
+        excl = torch.tensor(np.arange(e) % 9 - 1, dtype=torch.int32, device=dev)
+        batched = queries.cast_sphere(state, org, dirs, rad, dist, excl)
+        for i in range(e):
+            one = queries.cast_sphere(state, org[i], dirs[i], float(rad[i]), float(dist[i]),
+                                      int(excl[i]))
+            for f in one._fields:
+                assert torch.equal(getattr(batched, f)[i], getattr(one, f)), (dev, i, f)
+        hits[str(dev)] = batched
+    assert torch.equal(hits["cpu"].hit, hits["cuda"].hit.cpu())
+    assert (hits["cpu"].distance - hits["cuda"].distance.cpu()).abs().max().item() <= 1e-4
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """A small engine frame's state saved on the card loads back onto the
+    card in every bit, and the next frame from it equals the next frame
+    from the state that was saved."""
+    from garden_tpu_torch.utils import checkpoint
+    frame, state = _small_engine(cuda)
+    state, _ = frame(frame(state)[0])
+    checkpoint.save(str(tmp_path / "snap.npz"), state)
+    loaded = checkpoint.load(str(tmp_path / "snap.npz"), state)
+    pairs = list(zip(_tensor_leaves(state), _tensor_leaves(loaded)))
+    assert pairs and all(b.is_cuda and torch.equal(a, b) for a, b in pairs)
+    a, img_a = frame(state)
+    b, img_b = frame(loaded)
+    assert torch.equal(img_a, img_b)
+    assert all(torch.equal(x, y) for x, y in zip(_tensor_leaves(a), _tensor_leaves(b)))
+
+
+def _tensor_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tensor_leaves(tree[k])]
+    return [tree]

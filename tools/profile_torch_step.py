@@ -3,7 +3,7 @@
 
     python3 tools/profile_torch_step.py [--steps 3]
         [--slice | --glass | --ultra | --temporal | --physics | --forward |
-         --features | --bench-frame] [--trace trace.json]
+         --features | --bench-frame | --engine] [--trace trace.json]
 
 Builds the full-size combined step (10,240 bodies, 1920x1080) with the
 flagship's passes (`--slice`: the first slice's pass set, SLICE_OVERRIDES;
@@ -33,6 +33,11 @@ the physics step alone on bench.py's world (10,240 bodies, half spheres;
 step's stages (`profile_physics`, which chip_smoke.py also runs).
 `--forward` profiles the forward renderer's frame over the flagship
 scene (`entry.build_forward`; stages raster, gbuffer, lighting).
+`--engine` profiles the engine frame (`entry.build_engine_frame`: the
+runtime's Engine over the flagship pile with characters, animation and the
+HUD; `profile_engine`): the tick with each system's update and the physics
+stages inside it, the bake of the world matrices and the render with its
+stages.
 """
 
 import argparse
@@ -157,6 +162,38 @@ def profile_forward(fwd, scene, mats, constants, steps: int):
     return wall, stages["frame"][1], stages
 
 
+ENGINE_STAGES = ("tick", "AnimationSystem.update", "CharacterSystem.update",
+                 "PhysicsSystem.update", "bake", "render")
+
+
+def profile_engine(frame, state, steps: int):
+    """Profile `steps` engine frames from `state`: the Engine's tick (each
+    system's update in a range the Engine opens), the bake of the instance
+    matrices and the render, each in a range of its own. Returns (wall ms
+    per frame, device busy ms per frame, {stage: (host ms, device ms) per
+    frame}, the profiler); busy counts the kernels and copies launched
+    inside the three top-level ranges."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from garden_tpu_torch.entry import ENGINE_DT
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            with record_function("tick"):
+                state = frame.tick(state, ENGINE_DT)
+            with record_function("bake"):
+                mats = frame.instance_matrices(state)
+            with record_function("render"):
+                out = frame.render(mats, state["frame"])
+            state = dict(state, frame=out["frame_state"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    stages = {n: (h / 1e6 / steps, d / 1e6 / steps) for n, (h, d) in stage_times(
+        prof, ENGINE_STAGES + PHYSICS_STAGES[1:] + RENDER_STAGES).items()}
+    busy = sum(stages[n][1] for n in ("tick", "bake", "render") if n in stages)
+    return wall, busy, stages, prof
+
+
 def main() -> int:
     import torch
 
@@ -179,6 +216,8 @@ def main() -> int:
                        help="profile the feature frame (entry.build_feature_frame)")
     which.add_argument("--bench-frame", action="store_true",
                        help="profile bench.py's world drawn (entry.build_bench_frame)")
+    which.add_argument("--engine", action="store_true",
+                       help="profile the engine frame (entry.build_engine_frame)")
     ap.add_argument("--trace", help="write a Chrome trace to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -191,8 +230,8 @@ def main() -> int:
 
     from garden_tpu_torch.entry import (GLASS_BOXES, GLASS_OVERRIDES, SLICE_OVERRIDES,
                                         TEMPORAL_OVERRIDES, ULTRA_OVERRIDES, build,
-                                        build_bench_frame, build_feature_frame,
-                                        build_forward)
+                                        build_bench_frame, build_engine_frame,
+                                        build_feature_frame, build_forward)
     if args.physics:
         from garden_tpu_torch.physics import scenes
         from garden_tpu_torch.physics import world as pw
@@ -218,6 +257,20 @@ def main() -> int:
               f"({100 * busy / wall:.1f}% of wall)")
         for name, (host, dev) in stages.items():
             print(f"  stage {name}: host {host:.3f} ms, device {dev:.3f} ms per frame")
+        return 0
+    if args.engine:
+        frame, state = build_engine_frame(10240, 1920, 1080, device="cuda")
+        for _ in range(3):
+            state, _ = frame(state)
+        torch.cuda.synchronize()
+        wall, busy, stages, prof = profile_engine(frame, state, args.steps)
+        print(f"engine frame: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+              f"({100 * busy / wall:.1f}% of wall)")
+        for name, (host, dev) in stages.items():
+            indent = "" if name in ("tick", "bake", "render") else "  "
+            print(f"{indent}stage {name}: host {host:.3f} ms, device {dev:.3f} ms per frame")
+        if args.trace:
+            prof.export_chrome_trace(args.trace)
         return 0
     builder = build
     if args.slice:
