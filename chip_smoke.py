@@ -138,7 +138,29 @@ x. x.1: a small engine world (32 bodies, 2 characters, 4 animated, a
    full-size state, card bytes == CPU bytes, applied to a fresh state the
    poses in every bit; x.5: `utils.profiler.trace` of one frame names the
    physics ranges and K1.
-Kernels launched on the paths of phases t-x join each kernel's
+then batched worlds and split-frame bands (`parallel/`), the command line
+and the full demo:
+y. `WorldBatch` over WORLD_BATCH copies of bench.py's world (each lifted
+   0.1 m more than the last; fewer if one world's reckoned memory times
+   the copies exceeds half the card): one batched step against the same
+   worlds stepped one by one (bitwise, or positions within TOL_WORLDS,
+   the difference printed); ms per world-step both ways (CUDA events),
+   the busy share of each under the profiler, peak device memory; vmap's
+   per-world fallback warning is an error;
+z. z.1: `FrameTiles` of 4 bands over ["cuda"] * 4 at 256x128 against the
+   same bands on the CPU (the image bar of phases e and j); at the
+   flagship config and 1920x1080, 4 bands against the single renderer's
+   frame (the off-seam p99 and mean differences printed beside the
+   reference test's bars), the banded frame's ms, K1, K2, K3 once a band,
+   and on each band's inputs K1 as in phase 4 and K2, K3 as in phase b
+   (`check_frame`); z.2: `python -m garden_tpu_torch scene <demo.scene>
+   --preview` (`cli.main`) at 640x384 on the card against `--cpu` (the
+   image bar), K1 once, and on the preview's inputs (`cli.preview_frame`)
+   K1 as in phase 4 and K4 on its dense atlas in every bit; z.3:
+   `examples/full_demo_torch.py`, 3 frames into a temporary directory:
+   finite HDR, the G-buffer and physics dumps written, K1 once a frame,
+   and on the last frame's inputs K1 and K4 as in z.2.
+Kernels launched on the paths of phases t-z join each kernel's
 `launches_by_path` in the kernels line (`launches` sums them).
 
 Every kernel culls its slots exactly. Wherever one is checked (phases 4,
@@ -176,6 +198,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 KERNELS = {   # name -> (route, source, the TPU kernel it replaces)
     "raster_shade": ("cuda", "garden_tpu_torch/csrc/raster_shade.cu",
@@ -656,6 +679,42 @@ def check_split(din, name: str, lists: str, results: dict):
     return k3
 
 
+def check_dense(args, name: str, what: str, results: dict) -> None:
+    """K4 on `args` (raster.depth_args' "dense") against its plain version
+    in every bit, its kept counts against tile_slot_keep (run_kept), the
+    plain version masked by that mask equal to the unmasked one; the max
+    |d| joins results."""
+    import torch
+    from garden_tpu_torch.render import raster
+    k4, keep, _, _ = run_kept(raster.depth_dense_cuda, args, "depth",
+                              f"{name}: depth_dense (K4) on {what}")
+    p4 = raster.depth_dense_plain(*args)
+    p4k = raster.depth_dense_plain(*args, keep=keep)
+    torch.cuda.synchronize()
+    err = max_diff(k4, p4)
+    print(f"{name}: {what} {k4.shape[1]}x{k4.shape[0]}: depth_dense vs plain max|d| {err}, "
+          f"same bits {same_bits(k4, p4)}; masked plain == plain {same_bits(p4k, p4)}")
+    check(same_bits(k4, p4), f"{name}: depth_dense differs from its plain version")
+    check(same_bits(p4k, p4), f"{name}: the masked plain depth_dense differs")
+    results["depth_dense"]["max_abs_err"] = max(results["depth_dense"]["max_abs_err"], err)
+
+
+def check_frame(rend, scene, mats, const, name: str, results: dict, atlas: str) -> None:
+    """K1 on the inputs of one frame of `rend` (as phase 4), and its shadow
+    atlas kernels on that frame's casters: K2 and K3 (check_split) for a
+    split atlas (`atlas` "split"), K4 (check_dense) for a dense one."""
+    from garden_tpu_torch.render import raster
+    *_, err = check_raster_shade(raster.kernel_args(**rend.raster_inputs(scene, mats, const)),
+                                 name)
+    results["raster_shade"]["max_abs_err"] = max(results["raster_shade"]["max_abs_err"], err)
+    frame = SimpleNamespace(renderer=rend, scene=scene, constants=const)
+    din, _ = atlas_inputs(frame, mats)
+    if atlas == "split":
+        check_split(din, name, "cascade lists", results)
+    else:
+        check_dense(raster.depth_args(**din)["dense"], name, "the dense atlas", results)
+
+
 def raster_shade_bounds(args, vis, planes, keep, n_named):
     """(bound, bound_full) of raster_shade on `args` with outputs vis and
     planes: the operations of the (slot, pixel) pairs that tile_slot_keep
@@ -996,19 +1055,8 @@ def pass_set_phases(card: str, results: dict, t_start: float) -> None:
     # K4 on the ultra atlas (3x2048, 5x5 PCF) against its plain version
     umats = frames[-1][0]
     uargs = raster.depth_args(**atlas_inputs(ustep, umats)[0])["dense"]
-    k4u, keep_u, _, _ = run_kept(raster.depth_dense_cuda, uargs, "depth",
-                                 "phase p: depth_dense (K4) on the ultra atlas")
-    p4u = raster.depth_dense_plain(*uargs)
-    p4uk = raster.depth_dense_plain(*uargs, keep=keep_u)
-    torch.cuda.synchronize()
-    err4u = max_diff(k4u, p4u)
-    print(f"phase p: ultra atlas {k4u.shape[1]}x{k4u.shape[0]}: depth_dense vs plain max|d| "
-          f"{err4u}, same bits {same_bits(k4u, p4u)}; masked plain == plain "
-          f"{same_bits(p4uk, p4u)}")
-    check(same_bits(k4u, p4u), "phase p: depth_dense differs from its plain version")
-    check(same_bits(p4uk, p4u), "phase p: the masked plain depth_dense differs")
-    results["depth_dense"]["max_abs_err"] = max(results["depth_dense"]["max_abs_err"], err4u)
-    del k4u, p4u, p4uk, uargs, frames
+    check_dense(uargs, "phase p", "the ultra atlas", results)
+    del uargs, frames
 
     # phase q: the flagship with TEMPORAL_OVERRIDES at full size, 3 steps, the
     # renderer given the previous step's instance matrices
@@ -1648,6 +1696,286 @@ def engine_phases(card: str, results: dict, t_start: float) -> None:
           f"{time.perf_counter() - t_start:.1f} s")
 
 
+WORLD_BATCH, TOL_WORLDS = 8, 1e-5
+SEAM_ROWS = 2      # rows each side of a band seam left out of the band bars
+
+
+def world_batch_phase(card: str) -> None:
+    """Phase y: WorldBatch over copies of bench.py's world on the card."""
+    import warnings
+    import torch
+    from garden_tpu_torch.parallel.worlds import WorldBatch
+    from garden_tpu_torch.physics import scenes, world as pw
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from profile_torch_step import profile_physics
+
+    t0 = time.perf_counter()
+    bst, bcfg, btypes = scenes.bench_world("cuda")
+    step = lambda s: pw.step(s, bcfg, 1.0 / 60.0, btypes)
+    # one world's memory: its state plus what its step holds at its peak
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(bst)
+    torch.cuda.synchronize()
+    state_bytes = sum(x.numel() * x.element_size() for _, x in tree_leaves(bst))
+    per_world = state_bytes + torch.cuda.max_memory_allocated() - base
+    total = torch.cuda.get_device_properties(0).total_memory
+    n = max(1, min(WORLD_BATCH, int(total // 2 // per_world)))
+    print(f"phase y: one bench world: state {state_bytes / 2 ** 30:.3f} GiB, state + step "
+          f"peak {per_world / 2 ** 30:.3f} GiB; {WORLD_BATCH} worlds reckoned "
+          f"{WORLD_BATCH * per_world / 2 ** 30:.2f} GiB of the card's {total / 2 ** 30:.1f} "
+          f"GiB (half {total / 2 ** 31:.1f}): batching {n} worlds")
+    dyn_y = torch.zeros_like(bst["bodies"]["pos"])
+    dyn_y[:, 1] = (bst["bodies"]["motion"] == pw.DYNAMIC).float()
+
+    def lift(s, i):
+        b = s["bodies"]
+        return dict(s, bodies=dict(b, pos=b["pos"] + dyn_y * (0.1 * i.float())))
+
+    wb = WorldBatch(step, n, device="cuda")
+    singles = [lift(bst, torch.tensor(i, dtype=torch.int32, device="cuda")) for i in range(n)]
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*performance drop.*")
+        batched = wb.replicate(bst, vary_fn=lift)
+        torch.cuda.reset_peak_memory_stats()
+        stepped = wb.step(batched)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ones = [step(s) for s in singles]
+        bits = all(not same_trees({k: v[i] for k, v in tree_leaves(stepped)},
+                                  dict(tree_leaves(one))) for i, one in enumerate(ones))
+        d_pos = max(max_diff(stepped["bodies"]["pos"][i], one["bodies"]["pos"])
+                    for i, one in enumerate(ones))
+        spread = (stepped["bodies"]["pos"][:, 1:, 1].mean(1)).tolist()
+        print(f"phase y: {n} worlds, one batched step against each world's own step: every "
+              f"leaf in every bit {bits}; max|d| pos {d_pos:.3g} (bar {TOL_WORLDS}); mean "
+              f"body height per world {[round(v, 4) for v in spread]}; peak device memory "
+              f"{peak:.2f} GiB")
+        check(bits or d_pos <= TOL_WORLDS, "phase y: a batched world differs from its own step")
+        check(all(b > a for a, b in zip(spread, spread[1:])), "phase y: the worlds did not differ")
+        batched_ms = cuda_ms(lambda: wb.step(stepped), reps=5, warmup=1)
+        single_ms = cuda_ms(lambda: [step(s) for s in singles], reps=3, warmup=1)
+        wall_b, busy_b, _ = profile_physics(wb.step, stepped, 3)
+    wall_s, busy_s, _ = profile_physics(step, ones[0], 3)
+    print(f"phase y: batched step of {n} worlds median {batched_ms:.4f} ms = "
+          f"{batched_ms / n:.4f} ms per world-step; {n} single steps median "
+          f"{single_ms:.4f} ms = {single_ms / n:.4f} ms per world-step  [{card}]")
+    print(f"phase y: under the profiler: batched wall {wall_b:.3f} ms, device busy "
+          f"{busy_b:.3f} ms ({100 * busy_b / wall_b:.1f}%); single wall {wall_s:.3f} ms, "
+          f"device busy {busy_s:.3f} ms ({100 * busy_s / wall_s:.1f}%)  [{card}]")
+    print(f"chip_smoke: phase y took {time.perf_counter() - t0:.1f} s")
+
+
+DEMO_SCENE = {"entities": [
+    {"uid": 1, "transform": {"position": [0, 0, 0]},
+     "rigidbody": {"shapeType": "plane", "normal": [0, 1, 0], "distance": 0.0,
+                   "motionType": "static"}},
+    {"uid": 2, "transform": {"position": [0, 0.5, 0]},
+     "rigidbody": {"shapeType": "box", "halfExtent": [0.5, 0.5, 0.5]}},
+    {"uid": 3, "transform": {"position": [0.1, 1.5, 0.0]},
+     "rigidbody": {"shapeType": "sphere", "radius": 0.5}},
+    {"uid": 4, "transform": {"position": [-1.5, 0.8, 0.5], "rotation": [0, 0, 0.38268, 0.92388]},
+     "rigidbody": {"shapeType": "capsule", "radius": 0.3, "halfHeight": 0.5,
+                   "motionType": "kinematic"}},
+    {"uid": 5, "transform": {"position": [1.6, 0.6, -0.4]},
+     "rigidbody": {"shapeType": "compound", "children": [
+         {"shapeType": "sphere", "radius": 0.3, "position": [-0.3, 0, 0]},
+         {"shapeType": "box", "halfExtent": [0.2, 0.2, 0.2], "position": [0.3, 0, 0]}]}},
+]}
+
+
+def band_bars(img, ref, n_bands: int):
+    """(p99, mean) of |img - ref| over the rows SEAM_ROWS or more from a seam."""
+    import numpy as np
+    h = ref.shape[0]
+    band_h = h // n_bands
+    seam = {r for b in range(1, n_bands)
+            for r in range(b * band_h - SEAM_ROWS, b * band_h + SEAM_ROWS)}
+    rows = [r for r in range(h) if r not in seam]
+    diff = np.abs(img[rows].astype(int) - ref[rows].astype(int))
+    return float(np.percentile(diff, 99)), float(diff.mean())
+
+
+def parallel_cli_phases(card: str, results: dict, t_start: float) -> None:
+    """Phases z.1-z.3: split-frame bands, the scene preview of the command
+    line and the full demo, with the kernels they launch."""
+    import importlib.util
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from garden_tpu_torch import cli
+    from garden_tpu_torch.core.config import ShadowConfig
+    from garden_tpu_torch.entry import build
+    from garden_tpu_torch.parallel.frame_tiles import FrameTiles, band_constants
+    from garden_tpu_torch.render import raster
+
+    kernels = {"raster_shade": raster.rasterize_visibility_shaded,
+               "depth_super": raster.depth_super, "depth_grid": raster.depth_grid,
+               "depth_dense": raster.depth_dense}
+    t_phase = time.perf_counter()
+
+    def counted(fn):
+        for k in kernels.values():
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: f.launches for k, f in kernels.items()}
+
+    def join(path: str, launch: dict) -> None:
+        for k, v in launch.items():
+            if v:
+                by = results[k].setdefault("launches_by_path", {})
+                by[path] = v
+                results[k]["launches"] = sum(by.values())
+
+    # z.1 small: 4 bands on the card against the same bands on the CPU
+    small = {}
+    for dev in ("cuda", "cpu"):
+        st, s0 = build(300, 256, 128, device=dev,
+                       cfg_overrides=dict(shadow=ShadowConfig(**SMALL_SHADOW)))
+        ft = FrameTiles(st.renderer.config, st.renderer.scene_host, 4, overlap=16,
+                        devices=[dev] * 4)
+        img, _ = ft.render(st.scene, st.instance_matrices(s0["physics"]), st.constants,
+                           ft.initial_state())
+        small[dev] = img.cpu()
+    img_ok = ((small["cuda"].int() - small["cpu"].int()).abs().amax(-1) <= 2
+              ).float().mean().item()
+    print(f"phase z.1: 4 bands of a 300-body 256x128 frame, cuda vs cpu: image within 2 "
+          f"levels {img_ok:.5f} (bar 0.995)")
+    check(img_ok >= 0.995, "phase z.1: the banded frame on the card disagrees with the CPU")
+
+    # z.1 full size: the flagship frame as 4 bands against the single renderer
+    step, state = build(N_BODIES, WIDTH, HEIGHT, grid_dim=64, device="cuda")
+    mats = step.instance_matrices(state["physics"])
+    ref = step.render(mats, state["frame"])["image"]
+    ft = FrameTiles(step.renderer.config, step.renderer.scene_host, 4, overlap=16,
+                    devices=["cuda"] * 4)
+    fstate = ft.initial_state()
+    (img, nstate), launch = counted(lambda: ft.render(step.scene, mats, step.constants,
+                                                      fstate))
+    p99, mean = band_bars(img.cpu().numpy(), ref.cpu().numpy(), 4)
+    lum = [float(s["avg_luminance"]) for s in nstate]
+    print(f"phase z.1: flagship 1920x1080 as 4 bands of {ft.band_h} rows + {ft.overlap} "
+          f"guard rows each side, against the single renderer off the seams (+-{SEAM_ROWS} "
+          f"rows): p99 |d| {p99:.1f} levels (the reference test's bar 2), mean "
+          f"{mean:.4f} (bar 0.5); launches {launch}; next exposure per band {lum}")
+    check(tuple(img.shape) == tuple(ref.shape) and len(set(lum)) == 1
+          and all(math.isfinite(v) for v in lum), "phase z.1: the banded frame is malformed")
+    check(launch["raster_shade"] == 4 and launch["depth_super"] == 4
+          and launch["depth_grid"] == 4, "phase z.1: K1, K2, K3 did not run once a band")
+    join("frame bands (4 bands, 1 frame)", launch)
+    # each band's K1 on its cropped camera (334 rows at 1080p, not a multiple
+    # of K1's 32-row tile) and K2/K3 on the cascades fitted to that band
+    for b in range(ft.n_bands):
+        consts = band_constants(step.constants, b, ft.n_bands, 2.0 * ft.overlap / ft.full_h)
+        check_frame(ft.renderers[b], step.scene, mats, consts, f"phase z.1: band {b}",
+                    results, "split")
+    band_ms = cuda_ms(lambda: ft.render(step.scene, mats, step.constants, fstate), reps=3)
+    single_ms = cuda_ms(lambda: step.render(mats, state["frame"]), reps=3)
+    print(f"phase z.1: banded frame (4 bands on one card) median {band_ms:.4f} ms; the "
+          f"single renderer's frame {single_ms:.4f} ms  [{card}]")
+    del step, state, mats, ref, ft, fstate, img, nstate
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # z.2: the scene preview of the command line, card and CPU
+        scene_path = os.path.join(tmp, "demo.scene")
+        with open(scene_path, "w", encoding="utf-8") as fh:
+            json.dump(DEMO_SCENE, fh)
+        out_png = {d: os.path.join(tmp, f"preview_{d}.png") for d in ("cuda", "cpu")}
+        t0 = time.perf_counter()
+        rc, launch = counted(lambda: cli.main(["scene", scene_path, "--preview",
+                                               out_png["cuda"]]))
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rc_cpu = cli.main(["scene", scene_path, "--preview", out_png["cpu"], "--cpu"])
+        cpu_s = time.perf_counter() - t0
+        pngs = {d: read_png(p) for d, p in out_png.items()}
+        ok = (np.abs(pngs["cuda"].astype(int) - pngs["cpu"].astype(int)).max(-1) <= 2).mean()
+        print(f"phase z.2: scene preview {pngs['cuda'].shape[1]}x{pngs['cuda'].shape[0]} on "
+              f"the card ({card_s:.1f} s) against --cpu ({cpu_s:.1f} s): within 2 levels "
+              f"{ok:.5f} (bar 0.995); launches {launch}")
+        check(rc == 0 and rc_cpu == 0 and pngs["cuda"].shape == (384, 640, 3),
+              "phase z.2: the preview failed")
+        check(ok >= 0.995, "phase z.2: the preview on the card disagrees with the CPU")
+        check(launch["raster_shade"] == 1, "phase z.2: the preview did not launch K1 once")
+        join("scene preview (1 frame)", launch)
+        with open(scene_path, encoding="utf-8") as fh:
+            check_frame(*cli.preview_frame(json.load(fh), 640, 384, "cuda"), "phase z.2",
+                        results, "dense")
+
+        # z.3: the full demo, 3 frames
+        spec = importlib.util.spec_from_file_location(
+            "full_demo_torch", Path(__file__).resolve().parent / "examples" / "full_demo_torch.py")
+        demo = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(demo)
+        out_dir = os.path.join(tmp, "demo")
+        summary, launch = counted(lambda: demo.main([out_dir, "--frames", "3"]))
+        files = sorted(os.listdir(out_dir))
+        dumps = [os.path.basename(p) for p in summary["written"]]
+        print(f"phase z.3: full demo, 3 frames in {summary['seconds']:.2f} s; HDR finite "
+              f"{summary['finite']}; wrote {len(files)} files, dumps {dumps}; launches "
+              f"{launch}  [{card}]")
+        check(all(summary["finite"]) and len(summary["finite"]) == 3,
+              "phase z.3: a demo frame is not finite")
+        check(all(os.path.getsize(os.path.join(out_dir, f)) > 0 for f in dumps)
+              and "debug_normal.png" in dumps and "physics_top.png" in dumps
+              and "frame_002.png" in files, "phase z.3: the demo's dumps are missing")
+        check(launch["raster_shade"] == 3, "phase z.3: K1 did not run once a frame")
+        join("full demo (3 frames)", launch)
+        check_frame(*summary["last"], "phase z.3 (last frame)", results, "dense")
+    print(f"chip_smoke: phase z took {time.perf_counter() - t_phase:.1f} s; phases 1-z "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+
+def read_png(path: str):
+    """Decode an 8-bit RGB or RGBA, non-interlaced PNG (any row filter) to
+    (H, W, 3) uint8: the card's machine has no PIL."""
+    import struct
+    import zlib
+    import numpy as np
+    data = open(path, "rb").read()
+    pos, idat = 8, b""
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h, depth, color = struct.unpack(">IIBB", body[:10])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    check(depth == 8 and color in (2, 6), f"read_png: unsupported PNG {path}")
+    c = 3 if color == 2 else 4
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * c)
+    out = np.zeros((h, w * c), np.int32)
+    prev = np.zeros(w * c, np.int32)
+    for y in range(h):
+        f, line = raw[y, 0], raw[y, 1:].astype(np.int32)
+        if f in (0, 2):                      # none, up: no dependence along the row
+            out[y] = prev = (line + (prev if f == 2 else 0)) & 255
+            continue
+        cur = np.zeros(w * c, np.int32)
+        for x in range(w * c):
+            a = cur[x - c] if x >= c else 0
+            b = prev[x]
+            cc = prev[x - c] if x >= c else 0
+            if f == 0:
+                pred = 0
+            elif f == 1:
+                pred = a
+            elif f == 2:
+                pred = b
+            elif f == 3:
+                pred = (a + b) // 2
+            else:
+                pa, pb, pc = abs(b - cc), abs(a - cc), abs(a + b - 2 * cc)
+                pred = a if pa <= pb and pa <= pc else (b if pb <= pc else cc)
+            cur[x] = (line[x] + pred) & 255
+        out[y] = prev = cur
+    return out.reshape(h, w, c)[..., :3].astype(np.uint8)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2161,7 +2489,8 @@ def main() -> int:
           f"depth_dense translucent atlas {b4[0]} (full {b4_full[0]}), trans-depth "
           f"{b4[1]} (full {b4_full[1]})")
 
-    results["visibility"]["launches_by_path"] = {"glass (5 steps)": glaunch["visibility"]}
+    for k in ("visibility", "depth_dense"):
+        results[k]["launches_by_path"] = {"glass (5 steps)": glaunch[k]}
     for k, path, n in (("raster_shade", "slice (5 steps)", launches),
                        ("depth_super", "flagship (5 steps)", counts["depth_super"]),
                        ("depth_grid", "flagship (5 steps)", counts["depth_grid"])):
@@ -2170,6 +2499,8 @@ def main() -> int:
     pass_set_phases(card, results, t_start)
     feature_phases(card, results, t_start)
     engine_phases(card, results, t_start)
+    world_batch_phase(card)
+    parallel_cli_phases(card, results, t_start)
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():

@@ -16,6 +16,7 @@ from __future__ import annotations
 import functools
 import math
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -44,6 +45,10 @@ def cross(a: Tensor, b: Tensor) -> Tensor:
 
 def lerp(a: Tensor, b: Tensor, t) -> Tensor:
     return a + (b - a) * t
+
+
+def saturate(x: Tensor) -> Tensor:
+    return torch.clamp(x, 0.0, 1.0)
 
 
 def reflect(v: Tensor, n: Tensor) -> Tensor:
@@ -79,6 +84,13 @@ def select_row(x: Tensor, idx: Tensor) -> Tensor:
 
 
 # -- quaternions (x, y, z, w) ------------------------------------------------------
+
+
+QUAT_IDENTITY = np.array([0.0, 0.0, 0.0, 1.0], dtype=np.float32)
+
+
+def quat_identity(shape=(), *, device) -> Tensor:
+    return torch.as_tensor(QUAT_IDENTITY, device=device).expand(tuple(shape) + (4,))
 
 
 def quat_mul(a: Tensor, b: Tensor) -> Tensor:
@@ -122,6 +134,18 @@ def quat_slerp(a: Tensor, b: Tensor, t) -> Tensor:
     return quat_normalize(wa[..., None] * a + wb[..., None] * b)
 
 
+def quat_from_euler(euler: Tensor) -> Tensor:
+    """XYZ-intrinsic Euler angles (radians) -> quaternion."""
+    hx, hy, hz = 0.5 * euler[..., 0], 0.5 * euler[..., 1], 0.5 * euler[..., 2]
+    cx, sx = torch.cos(hx), torch.sin(hx)
+    cy, sy = torch.cos(hy), torch.sin(hy)
+    cz, sz = torch.cos(hz), torch.sin(hz)
+    return torch.stack([sx * cy * cz + cx * sy * sz,
+                        cx * sy * cz - sx * cy * sz,
+                        cx * cy * sz + sx * sy * cz,
+                        cx * cy * cz - sx * sy * sz], dim=-1)
+
+
 def quat_rotate(q: Tensor, v: Tensor) -> Tensor:
     """Rotate vectors v by unit quaternions q."""
     u = q[..., :3]
@@ -152,6 +176,10 @@ def quat_integrate(q: Tensor, omega: Tensor, dt) -> Tensor:
 
 
 # -- matrices -------------------------------------------------------------------
+
+
+def mat4_identity(shape=(), *, device) -> Tensor:
+    return torch.eye(4, dtype=torch.float32, device=device).expand(tuple(shape) + (4, 4))
 
 
 def matmul(a: Tensor, b: Tensor) -> Tensor:
@@ -251,6 +279,11 @@ def aabb_union(min_a: Tensor, max_a: Tensor, min_b: Tensor, max_b: Tensor):
     return torch.minimum(min_a, min_b), torch.maximum(max_a, max_b)
 
 
+def aabb_overlap(min_a: Tensor, max_a: Tensor, min_b: Tensor, max_b: Tensor) -> Tensor:
+    """Batched AABB-AABB overlap test -> bool."""
+    return torch.all((min_a <= max_b) & (min_b <= max_a), dim=-1)
+
+
 def aabb_transform(aabb_min: Tensor, aabb_max: Tensor, position: Tensor,
                    rotation: Tensor):
     """Rotate+translate an AABB; returns the enclosing AABB (|R| extents)."""
@@ -288,6 +321,10 @@ def aabb_outside_frustum(planes: Tensor, aabb_min: Tensor,
 
 
 # -- color ----------------------------------------------------------------------
+
+
+def srgb_to_linear(c: Tensor) -> Tensor:
+    return torch.where(c <= 0.04045, c / 12.92, torch.pow((c + 0.055) / 1.055, 2.4))
 
 
 def linear_to_srgb(c: Tensor) -> Tensor:

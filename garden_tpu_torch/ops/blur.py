@@ -1,6 +1,7 @@
 """Blurs, 2x decimation and upsampling of screen-space images.
 
-Port of the parts of `garden_tpu.ops.blur` on the frame path: the 2x mean
+Port of `garden_tpu.ops.blur`: the box and depth-aware (bilateral) blurs; on
+the frame path, the 2x mean
 decimation behind every half-res pass, the tent upsample of the sky and
 specular ambient, the depth-guided (joint bilateral) upsample of the
 shadow and AO factors, and the refraction pass's GGX blur chain (gaussian
@@ -40,6 +41,42 @@ def gaussian_blur(img: Tensor, radius: int = 2, sigma: Optional[float] = None) -
     for i, wgt in enumerate(k):
         out = out + at(radius - i, 0) * float(wgt)
     return out
+
+
+def box_blur(img: Tensor, radius: int = 1) -> Tensor:
+    """Separable box blur of (H, W[, C]) with edge clamping."""
+    n = 2 * radius + 1
+    at = Shifter(img, 0, radius)
+    out = torch.zeros_like(img)
+    for d in range(-radius, radius + 1):
+        out = out + at(0, -d)
+    at = Shifter(out / n, radius, 0)
+    out = torch.zeros_like(img)
+    for d in range(-radius, radius + 1):
+        out = out + at(-d, 0)
+    return out / n
+
+
+def bilateral_blur(img: Tensor, guide_depth: Tensor, radius: int = 2,
+                   depth_sigma: float = 0.1) -> Tensor:
+    """Depth-aware blur of (H, W[, C]): gaussian taps weighted by
+    exp(-|depth - centre depth| / depth_sigma), summed row by row."""
+    k = gaussian_kernel(radius)
+    g_at = Shifter(guide_depth, radius, radius)
+    i_at = Shifter(img, radius, radius)
+    acc = torch.zeros_like(img)
+    wacc = torch.zeros(img.shape[:2] + (1,) * (img.ndim - 2), dtype=img.dtype,
+                       device=img.device)
+    for dy in range(-radius, radius + 1):
+        for dx in range(-radius, radius + 1):
+            wgt = float(k[dy + radius] * k[dx + radius])
+            dw = torch.exp(-torch.abs(g_at(-dy, -dx) - guide_depth) / depth_sigma)
+            w = wgt * dw
+            while w.ndim < img.ndim:
+                w = w[..., None]
+            acc = acc + i_at(-dy, -dx) * w
+            wacc = wacc + w
+    return acc / torch.clamp(wacc, min=1e-6)
 
 
 def downsample2x(img: Tensor) -> Tensor:

@@ -123,8 +123,8 @@ def find_candidates(
     # cand_per_cell and the sentinel go to a trash row
     m = key_sorted.shape[0]
     idxs = torch.arange(m, dtype=torch.int64, device=dev)
-    run_start = torch.ones(m, dtype=torch.bool, device=dev)
-    run_start[1:] = key_sorted[1:] != key_sorted[:-1]
+    run_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                           key_sorted[1:] != key_sorted[:-1]])
     seg_start = torch.cummax(torch.where(run_start, idxs, 0), dim=0).values
     slot = idxs - seg_start
     c_per = cand_per_cell
@@ -140,8 +140,8 @@ def find_candidates(
                        torch.full_like(slot, trash))
     flat_pos = torch.cat([base, base + c_per, base + 2 * c_per])
     flat_val = ent_sorted.T.reshape(-1)
-    cell_tab = torch.full((trash + 3 * c_per,), -1, dtype=torch.int32, device=dev)
-    cell_tab[flat_pos] = flat_val
+    cell_tab = torch.full((trash + 3 * c_per,), -1, dtype=torch.int32,
+                          device=dev).index_put((flat_pos,), flat_val)
     cell_tab = cell_tab[:trash].reshape(n_buckets, 3 * c_per)
 
     # 4. each body reads its own 8 cells' entries and filters them

@@ -54,13 +54,25 @@ def _empty_manifold(shape, device) -> Dict[str, Tensor]:
     }
 
 
+def _manifold(slots) -> Dict[str, Tensor]:
+    """A manifold whose first len(slots) points are the given (point,
+    normal, pen, valid) and whose others are empty; built out of place, so
+    that it batches under vmap."""
+    pen0 = slots[0][2]
+    empty = _empty_manifold(tuple(pen0.shape), pen0.device)
+    out = {}
+    for f, field in enumerate(_FIELDS):
+        vec = field in ("point", "normal")
+        cols = [empty[field][..., i, :] if vec else empty[field][..., i]
+                for i in range(MAX_POINTS)]
+        cols[:len(slots)] = [torch.broadcast_to(sl[f], cols[0].shape).to(cols[0].dtype)
+                             for sl in slots]
+        out[field] = torch.stack(cols, dim=-2 if vec else -1)
+    return out
+
+
 def _one_point(point, normal, pen, valid) -> Dict[str, Tensor]:
-    m = _empty_manifold(tuple(pen.shape), pen.device)
-    m["point"][..., 0, :] = point
-    m["normal"][..., 0, :] = normal
-    m["pen"][..., 0] = pen
-    m["valid"][..., 0] = valid
-    return m
+    return _manifold([(point, normal, pen, valid)])
 
 
 def _select(shape, device, parts) -> Dict[str, Tensor]:
@@ -193,14 +205,11 @@ def _closest_segment_segment(p1, q1, p2, q2):
 
 def capsule_plane(pa, qa, ra, hha, n_w, d_w, margin):
     """Two sphere contacts at the capsule segment's ends."""
-    m = _empty_manifold(tuple(pa.shape[:-1]), pa.device)
-    for i, e in enumerate(_capsule_segment(pa, qa, hha)):
+    slots = []
+    for e in _capsule_segment(pa, qa, hha):
         pen = ra - (m3.dot(n_w, e) + d_w)
-        m["point"][..., i, :] = e - n_w * (ra - 0.5 * pen)[..., None]
-        m["normal"][..., i, :] = -n_w
-        m["pen"][..., i] = pen
-        m["valid"][..., i] = pen > -margin
-    return m
+        slots.append((e - n_w * (ra - 0.5 * pen)[..., None], -n_w, pen, pen > -margin))
+    return _manifold(slots)
 
 
 def capsule_capsule(pa, qa, ra, hha, pb, qb, rb, hhb, margin):
@@ -516,14 +525,12 @@ def sphere_hull(pa, ra, pb, qb, prm_b, tables, margin):
 
 def capsule_hull(pa, qa, ra, hha, pb, qb, prm_b, tables, margin):
     """Both endpoint spheres against the hull (a 2-point manifold)."""
-    m = _empty_manifold(tuple(pa.shape[:-1]), pa.device)
-    for i, e in enumerate(_capsule_segment(pa, qa, hha)):
+    slots = []
+    for e in _capsule_segment(pa, qa, hha):
         src = sphere_hull(e, ra, pb, qb, prm_b, tables, margin)
-        m["point"][..., i, :] = src["point"][..., 0, :]
-        m["normal"][..., i, :] = src["normal"][..., 0, :]
-        m["pen"][..., i] = src["pen"][..., 0]
-        m["valid"][..., i] = src["valid"][..., 0]
-    return m
+        slots.append((src["point"][..., 0, :], src["normal"][..., 0, :],
+                      src["pen"][..., 0], src["valid"][..., 0]))
+    return _manifold(slots)
 
 
 def hull_plane(pa, qa, prm_a, n_w, d_w, tables, margin):

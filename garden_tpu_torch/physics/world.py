@@ -40,6 +40,10 @@ LAYER_HQ_DEBRIS = 3
 LAYER_LQ_DEBRIS = 4
 NUM_LAYERS = 5
 
+# the reference's default count of grid-bypassing big-body slots
+# (PhysicsConfig.max_globals is what the step reads)
+MAX_GLOBALS = 8
+
 
 def default_layer_table() -> np.ndarray:
     """Which layers collide (the reference's object-layer pair filter)."""

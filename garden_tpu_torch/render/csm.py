@@ -33,6 +33,8 @@ from garden_tpu_torch.render import raster
 
 Tensor = torch.Tensor
 
+NEAR_EPS = 1e-6
+
 
 def cascade_splits(cfg: ShadowConfig, near: float) -> List[float]:
     """View-space split depths [near, s1, ..., far]; the last cascade always

@@ -380,6 +380,23 @@ def transform_triangle_planes(scene: Dict[str, Tensor], inst_matrices: Tensor
     return pos, tuple(c * inv_len for c in nr)
 
 
+def transform_triangles(scene: Dict[str, Tensor], inst_matrices: Tensor
+                        ) -> Tuple[Tensor, Tensor]:
+    """Per-triangle world corners and unit normals, (T, 3, 3) each
+    (triangle, corner, component), under each triangle's instance matrix;
+    triangles without an instance take instance 0's, as the reference's
+    clamped gather. (The reference's `tri_instance_np` block layout is a
+    TPU gather workaround with the same result on valid triangles.)"""
+    rows = inst_matrices[:, :3, :].reshape(-1, 12)[
+        torch.clamp(scene["tri_instance"], min=0).long()]   # (T, 12): 4i + j = M[i, j]
+    c = lambda j: rows[:, None, j::4]                        # column j (T, 1, 3)
+    p = scene["tri_pos_local_t"].permute(2, 1, 0)            # (T, corner, comp)
+    n = scene["tri_nrm_local_t"].permute(2, 1, 0)
+    pos = c(0) * p[..., 0:1] + c(1) * p[..., 1:2] + c(2) * p[..., 2:3] + c(3)
+    nrm = m3.normalize(c(0) * n[..., 0:1] + c(1) * n[..., 1:2] + c(2) * n[..., 2:3])
+    return pos, nrm
+
+
 def transform_vertices(scene: Dict[str, Tensor], inst_matrices: Tensor
                        ) -> Tuple[Tensor, Tensor]:
     """The vertex pool in world space: (positions (V, 3), unit normals

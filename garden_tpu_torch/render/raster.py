@@ -1128,6 +1128,35 @@ def _depth_blocks(records: Tensor, lists: Tensor, n_blocks: Tensor,
     return depth
 
 
+def _depth_kept(records: Tensor, lists: Tensor, n_blocks: Tensor, keep: Tensor,
+                depth: Tensor, px: Tensor, py: Tensor, atlas_bounds: tuple,
+                bound: Tensor = None, max_elems: int = 1 << 23) -> Tensor:
+    """`_depth_blocks` (without `work`) walking only the (row, slot) pairs
+    that `keep` marks, `tile_slot_keep`'s exact cull: a pair it drops
+    leaves every pixel's candidate depth 0, and a depth never falls below
+    +0.0, so the result is the same in every bit, at the cost of the pairs
+    that can reach a pixel."""
+    n_blocks = torch.clamp(n_blocks.long(), max=lists.shape[1] // TRI_BLOCK)
+    done = torch.zeros(lists.shape[0], dtype=torch.bool, device=lists.device)
+    step = max(1, max_elems // px.shape[-1])
+    for cb in range(int(n_blocks.max()) if n_blocks.numel() else 0):
+        blk = slice(cb * TRI_BLOCK, (cb + 1) * TRI_BLOCK)
+        act = (cb < n_blocks) & ~done
+        ids = lists[:, blk]
+        pairs = torch.nonzero(keep[:, blk] & (ids >= 0) & act[:, None])
+        zmax = torch.zeros_like(depth)
+        for p0 in range(0, pairs.shape[0], step):
+            r, sl = pairs[p0:p0 + step, 0], pairs[p0:p0 + step, 1]
+            d = records[ids[r, sl].long()]
+            zs, _ = _depth_candidates(d[:, None, :, None], px[r][:, None, :],
+                                      py[r][:, None, :], atlas_bounds)
+            zmax.scatter_reduce_(0, r[:, None].expand(-1, zs.shape[-1]), zs[:, 0], "amax")
+        depth = torch.where(act[:, None], torch.maximum(depth, zmax), depth)
+        if bound is not None:
+            done = done | (act & (torch.amin(depth, dim=1) >= bound[:, cb + 1]))
+    return depth
+
+
 def _blocks_of(counts: Tensor) -> Tensor:
     return torch.div(counts.long() + TRI_BLOCK - 1, TRI_BLOCK, rounding_mode="floor")
 
@@ -1236,6 +1265,30 @@ def depth_dense_plain(records: Tensor, tile_tris: Tensor, counts: Tensor,
                           atlas_bounds, work=work, keep=kb)
         out[tiles] = _depth_blocks(records, tile_tris[tiles], _blocks_of(counts[tiles]),
                                    d, px, py, atlas_bounds, bound[tiles], work, kg)
+    return _tiles_to_image(out, tiles_y, tiles_x, tile_h, tile, tiles_y * tile_h,
+                           tiles_x * tile)
+
+
+def depth_dense_culled(records: Tensor, tile_tris: Tensor, counts: Tensor,
+                       big_list: Tensor, bound: Tensor, width: int, height: int,
+                       tile: int, tile_h: int, atlas_bounds: tuple = (),
+                       max_elems: int = 1 << 23) -> Tensor:
+    """`depth_dense_plain`'s result, walking only the (tile, slot) pairs
+    that `tile_slot_keep` keeps, as the kernel does (`_depth_kept`): the
+    CPU path of `depth_dense`, which a frame with a few large casters over
+    a big atlas would otherwise spend on pairs that cannot reach a pixel."""
+    tiles_x, tiles_y, n_tiles = _grid(width, height, tile, tile_h)
+    n_big = big_list.shape[0]
+    dev = records.device
+    kept = tile_slot_keep(records, tile_tris, counts, big_list, width, height, tile,
+                          tile_h, atlas_bounds, form="edge")
+    px, py = _tile_coords(torch.arange(n_tiles, device=dev), tiles_x, tile, tile_h)
+    out = torch.zeros((n_tiles, tile * tile_h), device=dev)
+    out = _depth_kept(records, big_list[None, :].expand(n_tiles, -1),
+                      _blocks_of((big_list >= 0).sum()).expand(n_tiles), kept[:, :n_big],
+                      out, px, py, atlas_bounds, max_elems=max_elems)
+    out = _depth_kept(records, tile_tris, _blocks_of(counts), kept[:, n_big:], out, px, py,
+                      atlas_bounds, bound, max_elems)
     return _tiles_to_image(out, tiles_y, tiles_x, tile_h, tile, tiles_y * tile_h,
                            tiles_x * tile)
 
@@ -1547,9 +1600,10 @@ def depth_grid(depth: Tensor, *args) -> Tensor:
 
 def depth_dense(records: Tensor, *args) -> Tensor:
     """The one-pass depth raster (`depth_dense_plain`): the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors; for CPU tensors the plain version over the kernel's own
+    cull (`depth_dense_culled`, the same bits)."""
     return _on_device("depth_dense", records, depth_dense_cuda,
-                      depth_dense_plain)(records, *args)
+                      depth_dense_culled)(records, *args)
 
 
 depth_super.launches = 0

@@ -26,6 +26,7 @@ from typing import Any, List, Tuple
 import numpy as np
 import torch
 
+SEP = "\x1f"
 _guards = {"on": False}
 
 

@@ -15,6 +15,8 @@ centre lying on a triangle edge can fall on either side. The bar is
 >= 99.5% of pixels (measured: every pixel on these scenes).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -12,6 +12,8 @@ once for the module. Serial time ~13 s with the persistent compile cache
 cold, ~10 s warm.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import json
 import os
 

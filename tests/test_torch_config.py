@@ -1,5 +1,7 @@
 """The port's config mirror must equal the JAX package's dataclasses."""
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import dataclasses
 
 import pytest

@@ -20,6 +20,8 @@ is held to those kernels bit for bit. The sphere and capsule heightfield
 pairs rank fewer than 4 candidates, so they cover the top-4 padding.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -23,6 +23,8 @@ reference's own split/dense and corner/slot tests (tests/test_raster.py)
 wind theirs the other way and compare empty atlases.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

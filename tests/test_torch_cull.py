@@ -30,6 +30,8 @@ tiles=)`): their tests draw the active rows out of tile order, and add an
 early exit after a block that the cull emptied for that row's tile only.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import numpy as np
 import pytest
 import torch
@@ -188,7 +190,8 @@ def test_blend_cull_is_exact(case, rects):
 @pytest.mark.parametrize("case", list(CASES))
 def test_depth_cull_is_exact(case, rects):
     """K4's edge-form cull: the masked plain dense depth raster, early exit
-    included, equals the unmasked one bit for bit, and the mask culls."""
+    included, equals the unmasked one bit for bit, and the mask culls; so
+    does the CPU path that walks only the kept pairs (depth_dense_culled)."""
     setup, big, lists, counts, atlas, _ = _inputs(case, 2)
     bounds = BOUNDS if rects else ()
     a = raster.depth_args(setup, lists, counts, big, W, H, 128, bounds,
@@ -197,6 +200,7 @@ def test_depth_cull_is_exact(case, rects):
     ref = raster.depth_dense_plain(*a)
     out = raster.depth_dense_plain(*a, keep=keep)
     assert torch.equal(_bits(out), _bits(ref))
+    assert torch.equal(_bits(raster.depth_dense_culled(*a)), _bits(ref))
     assert (ref > 0).any()
     assert 0 < int(keep.sum()) < _named(*a[1:4])
 
@@ -257,6 +261,7 @@ def test_early_exit_after_a_culled_block():
         raster.depth_dense_plain(*args, work=w_ref)
         out = raster.depth_dense_plain(*args, work=w_keep, keep=keep)
         assert torch.equal(_bits(out), _bits(ref)), name
+        assert torch.equal(_bits(raster.depth_dense_culled(*args)), _bits(ref)), name
         works[name] = w_keep[0]
     # the exit skipped block 2's 16 kept slots on tile 0's 128x16 pixels
     assert works["never"] - works["exit"] == 16 * 128 * 16

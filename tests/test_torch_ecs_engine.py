@@ -10,6 +10,8 @@ jitted once for the module (`jax_engine`). Serial time ~15 s with the
 persistent compile cache cold, ~11 s warm.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import dataclasses
 
 import jax

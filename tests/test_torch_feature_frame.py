@@ -12,6 +12,8 @@ levels on >= 99.5% (the bf16 post chain and FXAA's edge decisions, as the
 flagship's parity test).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import dataclasses
 
 import jax

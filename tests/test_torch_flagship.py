@@ -19,6 +19,8 @@ the next bin, and the trimmed mean counts or drops whole bins at its band
 edges.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import inspect
 
 import jax

@@ -14,6 +14,8 @@ of pixels (measured: every pixel) and depth within 1e-5 where both agree; the fr
 every pixel).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

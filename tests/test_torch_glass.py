@@ -15,6 +15,8 @@ where both cover (measured: identical coverage, max |d| 6.1e-9); bodies to
 1e-5 (measured: equal).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

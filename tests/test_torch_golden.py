@@ -22,6 +22,8 @@ physics.golden`), run on the CPU and must:
    TOL_CURVE (measured 1.0e-6), which is the check of that cause.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import numpy as np
 import pytest
 import torch

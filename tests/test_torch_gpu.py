@@ -22,6 +22,8 @@ tiles=act_ids), at two tile shapes and at a frame size that is not a
 multiple of the tile.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import numpy as np
 import pytest
 import torch
@@ -1034,3 +1036,60 @@ def _tensor_leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _tensor_leaves(tree[k])]
     return [tree]
+
+
+def test_world_batch_on_card(cuda):
+    """Two worlds of the mixed world (every shape type, a joint, sleep)
+    batched by WorldBatch on the card for 5 steps: each world equal in
+    every bit to its own unbatched steps on the card, and to the CPU's
+    batch within 1e-4 in position."""
+    import warnings
+    from garden_tpu_torch.parallel.worlds import WorldBatch
+    from garden_tpu_torch.physics import scenes, world as pw
+
+    def lift(s, i):
+        b = s["bodies"]
+        return dict(s, bodies=dict(b, pos=b["pos"] + 0.05 * i.float()))
+
+    out = {}
+    for dev in ("cpu", cuda):
+        state, cfg, types = scenes.mixed_world(dev)
+        step = lambda s: pw.step(s, cfg, 1.0 / 60.0, types)
+        wb = WorldBatch(step, 2, device=dev)
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message=".*performance drop.*")
+            batched = wb.replicate(state, vary_fn=lift)
+            for _ in range(5):
+                batched = wb.step(batched)
+        out[str(dev)] = batched["bodies"]["pos"]
+        if dev == cuda:
+            for i in range(2):
+                s = lift(state, torch.tensor(i, dtype=torch.int32, device=dev))
+                for _ in range(5):
+                    s = step(s)
+                assert torch.equal(s["bodies"]["pos"], batched["bodies"]["pos"][i])
+    assert (out["cpu"] - out["cuda"].cpu()).abs().max().item() <= 1e-4
+
+
+def test_frame_tiles_on_card(cuda):
+    """Two bands of a small flagship frame on the card stitch into the
+    single renderer's image on the card off the seams (p99 <= 2 levels,
+    mean < 0.5), with K1 once a band."""
+    from garden_tpu_torch.core.config import ShadowConfig
+    from garden_tpu_torch.parallel.frame_tiles import FrameTiles
+    cut = ShadowConfig(resolve_step=2, cascade_sizes=(256, 128, 128), atlas_tile_h=16,
+                       atlas_foot_y=2, max_active_tiles=24)
+    step, state = build(300, 256, 128, device=cuda, cfg_overrides=dict(shadow=cut))
+    mats = step.instance_matrices(state["physics"])
+    ref = step.render(mats, state["frame"])["image"].cpu().numpy().astype(int)
+    ft = FrameTiles(step.renderer.config, step.renderer.scene_host, n_bands=2, overlap=16,
+                    devices=[cuda] * 2)
+    before = raster.rasterize_visibility_shaded.launches
+    img, _ = ft.render(step.scene, mats, step.constants, ft.initial_state())
+    assert raster.rasterize_visibility_shaded.launches - before == 2
+    img = img.cpu().numpy().astype(int)
+    assert img.shape == ref.shape
+    seam = set(range(64 - 2, 64 + 2))
+    rows = [r for r in range(128) if r not in seam]
+    diff = np.abs(img[rows] - ref[rows])
+    assert np.percentile(diff, 99) <= 2 and diff.mean() < 0.5

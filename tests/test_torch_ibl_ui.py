@@ -13,6 +13,8 @@ cubemap functions to rtol 1e-5; the LUTs to rtol 2e-4 (the sky's bar:
 float32 exponentials of optical depths ~10 summed in another order).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

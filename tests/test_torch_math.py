@@ -5,6 +5,8 @@ Tolerance: 1e-5 absolute and relative. Both sides compute in float32; the
 JAX einsums and the matrix inverse sum in another order than PyTorch's.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

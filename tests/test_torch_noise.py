@@ -19,6 +19,8 @@ alpha 1.1e-5, rgb 2.8e-5, the composite 1.5e-5); the density within 1e-5
 >= 99.9% of samples.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

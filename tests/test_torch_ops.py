@@ -7,6 +7,8 @@ upsamples agree to 1e-5 (the reference's window reductions may add their
 taps in another order).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

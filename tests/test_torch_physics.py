@@ -10,6 +10,8 @@ velocity: eight Jacobi iterations amplify ulp-level differences in
 velocity more than in the integrated pose. Each test states its own.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

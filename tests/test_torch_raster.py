@@ -12,6 +12,8 @@ pixel position minus interpolated previous position, both ~1e2 px here, so
 the barycentrics' ~1e-6 rounding difference grows to ~1e-4 px (2e-4 bar).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,8 @@ bins to within 1% of the samples (bf16 rounding of luminance may move a
 sample across a bin edge when the two frameworks round at other steps).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

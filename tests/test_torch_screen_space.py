@@ -34,6 +34,8 @@ threshold and floor the velocity-moved position, both discrete). The resizes equ
 index, linear within 1e-6 (measured 1.2e-7).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import dataclasses
 
 import jax

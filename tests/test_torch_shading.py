@@ -11,6 +11,8 @@ libraries may differ by an ulp); bloom and FXAA within 1e-5 in float32
 steps, so the module is compared in f32); positions to rtol 1e-5.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,8 @@ auto exposure, and XLA contracts some of the reference's products into
 FMAs, so single pixels on triangle edges may differ.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import inspect
 import os
 import subprocess

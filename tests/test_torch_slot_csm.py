@@ -15,6 +15,8 @@ wound front-facing in the atlas and the tests assert that something is
 drawn.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

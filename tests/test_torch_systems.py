@@ -19,6 +19,8 @@ times, `tick` and `time` in every bit. Serial time ~36 s with the
 persistent compile cache cold, ~24 s warm.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import os
 
 import jax

@@ -12,6 +12,8 @@ Tolerances: host-built arrays are equal; the vertex transform within
 the culled triangle masks equal.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -18,6 +18,8 @@ in bin order over the opaque z-test, within 1e-5 on >= 99.5% of texels
 99.5% of pixels (measured: every pixel).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import dataclasses
 
 import jax

@@ -10,6 +10,8 @@ file the engine frame's HUD uses (`text.DEFAULT_GLYPHS`) must rebuild the
 PIL font's atlas and layout exactly. All host-side: serial time ~5 s.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import numpy as np
 import pytest
 

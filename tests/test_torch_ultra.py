@@ -20,6 +20,8 @@ equal. Measured: tri_id 100% in all three cases; image 99.98% / 100% /
 defined (clouds on) at 128x64; its JAX step takes minutes to compile.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
 import inspect
 
 import jax
