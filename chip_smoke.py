@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch port on one CUDA card.
+"""Smoke test of the PyTorch port on one CUDA card (phase mc uses every
+visible card when there are more).
 
 Run from the repository root with `python3 chip_smoke.py`. It needs one
 NVIDIA card (Hopper: the kernels are built for sm_90a) and the CUDA
@@ -146,7 +147,7 @@ y. `WorldBatch` over WORLD_BATCH copies of bench.py's world (each lifted
    worlds stepped one by one (bitwise, or positions within TOL_WORLDS,
    the difference printed); ms per world-step both ways (CUDA events),
    the busy share of each under the profiler, peak device memory; vmap's
-   per-world fallback warning is an error;
+   per-world fallback warning is an error (one shard on cuda:0);
 z. z.1: `FrameTiles` of 4 bands over ["cuda"] * 4 at 256x128 against the
    same bands on the CPU (the image bar of phases e and j); at the
    flagship config and 1920x1080, 4 bands against the single renderer's
@@ -159,8 +160,34 @@ z. z.1: `FrameTiles` of 4 bands over ["cuda"] * 4 at 256x128 against the
    K1 as in phase 4 and K4 on its dense atlas in every bit; z.3:
    `examples/full_demo_torch.py`, 3 frames into a temporary directory:
    finite HDR, the G-buffer and physics dumps written, K1 once a frame,
-   and on the last frame's inputs K1 and K4 as in z.2.
-Kernels launched on the paths of phases t-z join each kernel's
+   and on the last frame's inputs K1 and K4 as in z.2. With at least 2
+   cards visible, z.1's flagship bands also run over distinct cards
+   (band b on cuda:b mod count), equal in every bit to the bands on one.
+then the multi-device path (`WorldBatch` over a device list and over the
+ranks of a process group, `CombinedStep.to`, `entry.dryrun_multichip`),
+over D: every visible card when there are at least 2, else cuda:0 twice:
+mc. mc.1: phase y's bench worlds (its count and lift) as shards over D,
+   every leaf equal in every bit to phase y's one-device batch, the
+   reduce of the mean body height within TOL_MC_MEAN of the one-device
+   reduce, ms per world-step both ways (host clock, every card idle
+   before and after), peak memory per card; mc.2: the flagship combined
+   step (10,240 bodies, 1920x1080) as one instance per entry of D
+   (`CombinedStep.to`, instance i's pile lifted 0.1 i m; fewer if the
+   instances on one card would pass half its memory, reckoned as phase
+   y does), MC_STEPS steps through `WorldBatch`: K1, K2, K3 once per
+   instance per step, each instance's state and image equal in every bit
+   to the instance stepped alone on cuda:0, and on each instance's last
+   inputs, on its own card, K1 and K2/K3 as in z.1 (`check_frame`); the
+   step of all instances beside n x one; mc.3:
+   `dryrun_multichip(len(D), devices=D)`: images (len(D), 32, 64, 3),
+   finite states, K1 and K4 once per instance, each instance's state and
+   image equal in every bit to the tiny step run once alone on cuda:0,
+   and on each instance's inputs, on its own card, K1 and K4 (the dense
+   atlas) against their plain versions (`check_frame`); mc.4:
+   `tests/torch_multihost_worker.py` as two processes over gloo, each
+   rank on its own card when there are 2, else both on cuda:0: each
+   rank's mean sphere height within TOL_MC_PROCS of the CPU's.
+Kernels launched on the paths of phases t-z and mc join each kernel's
 `launches_by_path` in the kernels line (`launches` sums them).
 
 Every kernel culls its slots exactly. Wherever one is checked (phases 4,
@@ -1369,11 +1396,11 @@ def feature_phases(card: str, results: dict, t_start: float) -> None:
     # of the LUT's scale); equi_to_cube card vs CPU at rtol 1e-5
     for name, fn in (("transmittance_lut", atmosphere.transmittance_lut),
                      ("multi_scatter_lut", atmosphere.multi_scatter_lut)):
-        on_card, on_cpu = fn(device="cuda").cpu(), fn()
+        on_card, on_cpu = fn(device="cuda").cpu(), fn(device="cpu")
         default = torch.get_default_dtype()
         torch.set_default_dtype(torch.float64)
         try:
-            exact = fn()
+            exact = fn(device="cpu")
         finally:
             torch.set_default_dtype(default)
         floor = 1e-6 * exact.abs().max().item()      # absolute floor: 1e-6 of the scale
@@ -1700,8 +1727,27 @@ WORLD_BATCH, TOL_WORLDS = 8, 1e-5
 SEAM_ROWS = 2      # rows each side of a band seam left out of the band bars
 
 
-def world_batch_phase(card: str) -> None:
-    """Phase y: WorldBatch over copies of bench.py's world on the card."""
+def lift_bodies(state, i):
+    """A physics state with its dynamic bodies lifted 0.1 * i m (i a 0-d
+    tensor; the same bits on any device and under vmap)."""
+    import torch
+    from garden_tpu_torch.physics import world as pw
+    b = state["bodies"]
+    dyn = (b["motion"] == pw.DYNAMIC).to(b["pos"].dtype)
+    zero = torch.zeros_like(dyn)
+    return dict(state, bodies=dict(b, pos=b["pos"] + torch.stack([zero, dyn, zero], -1)
+                                   * (0.1 * i.float())))
+
+
+def mean_body_height(state):
+    """The mean height of a world's bodies after the ground (body 0)."""
+    return state["bodies"]["pos"][1:, 1].mean()
+
+
+def world_batch_phase(card: str) -> dict:
+    """Phase y: WorldBatch over copies of bench.py's world on the card. ->
+    what phase mc.1 shards: the step, the state, the count, the one-device
+    batch after one step and the reduce of its mean body height."""
     import warnings
     import torch
     from garden_tpu_torch.parallel.worlds import WorldBatch
@@ -1726,20 +1772,14 @@ def world_batch_phase(card: str) -> None:
           f"peak {per_world / 2 ** 30:.3f} GiB; {WORLD_BATCH} worlds reckoned "
           f"{WORLD_BATCH * per_world / 2 ** 30:.2f} GiB of the card's {total / 2 ** 30:.1f} "
           f"GiB (half {total / 2 ** 31:.1f}): batching {n} worlds")
-    dyn_y = torch.zeros_like(bst["bodies"]["pos"])
-    dyn_y[:, 1] = (bst["bodies"]["motion"] == pw.DYNAMIC).float()
-
-    def lift(s, i):
-        b = s["bodies"]
-        return dict(s, bodies=dict(b, pos=b["pos"] + dyn_y * (0.1 * i.float())))
-
-    wb = WorldBatch(step, n, device="cuda")
-    singles = [lift(bst, torch.tensor(i, dtype=torch.int32, device="cuda")) for i in range(n)]
+    wb = WorldBatch(step, n, devices=["cuda:0"])
+    singles = [lift_bodies(bst, torch.tensor(i, dtype=torch.int32, device="cuda"))
+               for i in range(n)]
     with warnings.catch_warnings():
         warnings.filterwarnings("error", message=".*performance drop.*")
-        batched = wb.replicate(bst, vary_fn=lift)
+        batched = wb.replicate(bst, vary_fn=lift_bodies)
         torch.cuda.reset_peak_memory_stats()
-        stepped = wb.step(batched)
+        (stepped,) = wb.step(batched)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         ones = [step(s) for s in singles]
@@ -1754,9 +1794,9 @@ def world_batch_phase(card: str) -> None:
               f"{peak:.2f} GiB")
         check(bits or d_pos <= TOL_WORLDS, "phase y: a batched world differs from its own step")
         check(all(b > a for a, b in zip(spread, spread[1:])), "phase y: the worlds did not differ")
-        batched_ms = cuda_ms(lambda: wb.step(stepped), reps=5, warmup=1)
+        batched_ms = cuda_ms(lambda: wb.step([stepped]), reps=5, warmup=1)
         single_ms = cuda_ms(lambda: [step(s) for s in singles], reps=3, warmup=1)
-        wall_b, busy_b, _ = profile_physics(wb.step, stepped, 3)
+        wall_b, busy_b, _ = profile_physics(wb.step, [stepped], 3)
     wall_s, busy_s, _ = profile_physics(step, ones[0], 3)
     print(f"phase y: batched step of {n} worlds median {batched_ms:.4f} ms = "
           f"{batched_ms / n:.4f} ms per world-step; {n} single steps median "
@@ -1765,6 +1805,8 @@ def world_batch_phase(card: str) -> None:
           f"{busy_b:.3f} ms ({100 * busy_b / wall_b:.1f}%); single wall {wall_s:.3f} ms, "
           f"device busy {busy_s:.3f} ms ({100 * busy_s / wall_s:.1f}%)  [{card}]")
     print(f"chip_smoke: phase y took {time.perf_counter() - t0:.1f} s")
+    return dict(step=step, state=bst, n=n, stepped=stepped,
+                mean=float(wb.reduce([stepped], mean_body_height)))
 
 
 DEMO_SCENE = {"entities": [
@@ -1797,6 +1839,30 @@ def band_bars(img, ref, n_bands: int):
     return float(np.percentile(diff, 99)), float(diff.mean())
 
 
+def count_launches(fn, devices):
+    """fn() with K1-K4's launch counts set to 0 just before it and read just
+    after every device in `devices` is idle -> (fn's result, {kernel:
+    launches})."""
+    from garden_tpu_torch.render import raster
+    kernels = {"raster_shade": raster.rasterize_visibility_shaded,
+               "depth_super": raster.depth_super, "depth_grid": raster.depth_grid,
+               "depth_dense": raster.depth_dense}
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    sync_all(devices)
+    return out, {k: f.launches for k, f in kernels.items()}
+
+
+def join_launches(results: dict, path: str, launch: dict) -> None:
+    """Each launched kernel's count on `path` joins its launches_by_path."""
+    for k, v in launch.items():
+        if v:
+            by = results[k].setdefault("launches_by_path", {})
+            by[path] = v
+            results[k]["launches"] = sum(by.values())
+
+
 def parallel_cli_phases(card: str, results: dict, t_start: float) -> None:
     """Phases z.1-z.3: split-frame bands, the scene preview of the command
     line and the full demo, with the kernels they launch."""
@@ -1809,26 +1875,10 @@ def parallel_cli_phases(card: str, results: dict, t_start: float) -> None:
     from garden_tpu_torch.core.config import ShadowConfig
     from garden_tpu_torch.entry import build
     from garden_tpu_torch.parallel.frame_tiles import FrameTiles, band_constants
-    from garden_tpu_torch.render import raster
 
-    kernels = {"raster_shade": raster.rasterize_visibility_shaded,
-               "depth_super": raster.depth_super, "depth_grid": raster.depth_grid,
-               "depth_dense": raster.depth_dense}
     t_phase = time.perf_counter()
-
-    def counted(fn):
-        for k in kernels.values():
-            k.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        return out, {k: f.launches for k, f in kernels.items()}
-
-    def join(path: str, launch: dict) -> None:
-        for k, v in launch.items():
-            if v:
-                by = results[k].setdefault("launches_by_path", {})
-                by[path] = v
-                results[k]["launches"] = sum(by.values())
+    counted = lambda fn: count_launches(fn, ["cuda"])
+    join = lambda path, launch: join_launches(results, path, launch)
 
     # z.1 small: 4 bands on the card against the same bands on the CPU
     small = {}
@@ -1866,6 +1916,17 @@ def parallel_cli_phases(card: str, results: dict, t_start: float) -> None:
     check(launch["raster_shade"] == 4 and launch["depth_super"] == 4
           and launch["depth_grid"] == 4, "phase z.1: K1, K2, K3 did not run once a band")
     join("frame bands (4 bands, 1 frame)", launch)
+    if torch.cuda.device_count() >= 2:
+        # the same bands over distinct cards, stitched on cuda:0
+        cards = [torch.device("cuda", b % torch.cuda.device_count()) for b in range(4)]
+        ftd = FrameTiles(step.renderer.config, step.renderer.scene_host, 4, overlap=16,
+                         devices=cards)
+        img_d, _ = ftd.render(step.scene, mats, step.constants, ftd.initial_state())
+        same = torch.equal(img_d.cpu(), img.cpu())
+        print(f"phase z.1: the 4 bands on {[str(c) for c in cards]}: image equal in every "
+              f"bit to the bands on one card: {same}")
+        check(same, "phase z.1: the bands on distinct cards differ from one card's")
+        del ftd, img_d
     # each band's K1 on its cropped camera (334 rows at 1080p, not a multiple
     # of K1's 32-row tile) and K2/K3 on the cascades fitted to that band
     for b in range(ft.n_bands):
@@ -1926,6 +1987,231 @@ def parallel_cli_phases(card: str, results: dict, t_start: float) -> None:
         join("full demo (3 frames)", launch)
         check_frame(*summary["last"], "phase z.3 (last frame)", results, "dense")
     print(f"chip_smoke: phase z took {time.perf_counter() - t_phase:.1f} s; phases 1-z "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+
+MC_STEPS = 3            # steps of each flagship instance in phase mc.2
+TOL_MC_MEAN = 1e-6      # mc.1's sharded reduce against the one-device reduce (relative)
+TOL_MC_PROCS = 1e-5     # mc.4's two-process mean on the card against the CPU's
+
+
+def multichip_devices() -> list:
+    """Phase mc's devices: every visible card when there are at least 2,
+    else cuda:0 twice (two shards on one card)."""
+    import torch
+    count = torch.cuda.device_count()
+    if count >= 2:
+        return [torch.device("cuda", i) for i in range(count)]
+    return [torch.device("cuda", 0)] * 2
+
+
+def sync_all(devices) -> None:
+    import torch
+    for d in sorted(set(devices), key=str):
+        torch.cuda.synchronize(d)
+
+
+def wall_ms(fn, devices, reps: int, warmup: int = 1) -> float:
+    """Median host milliseconds of fn() from all `devices` idle to all idle
+    again (CUDA events time one card only)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        sync_all(devices)
+        t0 = time.perf_counter()
+        fn()
+        sync_all(devices)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def state_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for _, x in tree_leaves(tree))
+
+
+def unbatch(tree):
+    """A shard of one world without its world axis."""
+    return {k: unbatch(v) for k, v in tree.items()} if isinstance(tree, dict) else tree[0]
+
+
+def multichip_phases(card: str, results: dict, batch: dict, t_start: float) -> None:
+    """Phases mc.1-mc.4: the world batch sharded over cards, flagship
+    instances one per card, the multichip dryrun and two processes."""
+    import importlib.util
+    import socket
+    import warnings
+    import torch
+    from garden_tpu_torch.entry import (DRYRUN_OVERRIDES, DRYRUN_SIZE, build,
+                                        dryrun_multichip)
+    from garden_tpu_torch.parallel.worlds import WorldBatch
+
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    devices = multichip_devices()
+    print(f"phase mc: {count} card(s) visible; devices {[str(d) for d in devices]}"
+          + ("" if count >= 2 else " (one card: each shard or instance on cuda:0)")
+          + f"  [{card}]")
+    counted = lambda fn: count_launches(fn, devices)
+    join = lambda path, launch: join_launches(results, path, launch)
+
+    # mc.1: phase y's bench worlds sharded over the devices
+    n, step = batch["n"], batch["step"]
+    wb = WorldBatch(step, n, devices=devices)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*performance drop.*")
+        for d in set(wb.devices):
+            torch.cuda.reset_peak_memory_stats(d)
+        shards = wb.step(wb.replicate(batch["state"], vary_fn=lift_bodies))
+        sync_all(wb.devices)
+        peak = {str(d): torch.cuda.max_memory_allocated(d) / 2 ** 30
+                for d in sorted(set(wb.devices), key=str)}
+        ref = dict(tree_leaves(batch["stepped"]))
+        differ = []
+        for k, shard in enumerate(shards):
+            part = {key: v[k * wb.per:(k + 1) * wb.per] for key, v in ref.items()}
+            differ += [f"shard {k}{key}" for key in same_trees(dict(tree_leaves(shard)), part)]
+        mean = float(wb.reduce(shards, mean_body_height))
+        rel = abs(mean - batch["mean"]) / abs(batch["mean"])
+        one = WorldBatch(step, n, devices=[devices[0]])
+        one_state = [batch["stepped"]]
+        sharded_ms = wall_ms(lambda: wb.step(shards), wb.devices, reps=5)
+        one_ms = wall_ms(lambda: one.step(one_state), [devices[0]], reps=5)
+    print(f"phase mc.1: {n} bench worlds as {len(wb.devices)} shards of {wb.per} on "
+          f"{[str(d) for d in wb.devices]}: against phase y's one-device batch, leaves "
+          f"differing {differ or 'none'}; mean body height {mean!r} against {batch['mean']!r} "
+          f"(relative {rel:.3g}, bar {TOL_MC_MEAN}); peak memory per card (GiB) {peak}")
+    check(not differ, "phase mc.1: a sharded world differs from the one-device batch")
+    check(rel <= TOL_MC_MEAN, "phase mc.1: the sharded reduce differs")
+    print(f"phase mc.1: sharded step median {sharded_ms:.4f} ms = {sharded_ms / n:.4f} ms "
+          f"per world-step; one-device batch {one_ms:.4f} ms = {one_ms / n:.4f} ms per "
+          f"world-step (host clock, every card idle before and after)  [{card}, {count} "
+          f"card(s)]")
+    del wb, shards, one, one_state
+
+    # mc.2: flagship instances, one per entry of the device list
+    fstep, fstate = build(N_BODIES, WIDTH, HEIGHT, grid_dim=64, device=devices[0])
+    sync_all(devices)
+    base = torch.cuda.memory_allocated(devices[0])
+    torch.cuda.reset_peak_memory_stats(devices[0])
+    fstep(fstate)
+    sync_all(devices)
+    per_inst = state_bytes(fstate) + torch.cuda.max_memory_allocated(devices[0]) - base
+    half = torch.cuda.get_device_properties(devices[0]).total_memory // 2
+    inst_devices = list(devices)
+    while len(inst_devices) > 1 and max(inst_devices.count(d) for d in inst_devices) \
+            * per_inst > half:
+        inst_devices.pop()
+    m = len(inst_devices)
+    print(f"phase mc.2: one flagship instance reckoned {per_inst / 2 ** 30:.3f} GiB (state + "
+          f"step peak); {m} instances on {[str(d) for d in inst_devices]} (at most half a "
+          f"card's {2 * half / 2 ** 30:.1f} GiB on each)")
+
+    def lift_pile(s, i):
+        return dict(s, physics=lift_bodies(s["physics"], i))
+
+    insts = [fstep.to(d) for d in inst_devices]
+    wbf = WorldBatch(insts, m, devices=inst_devices)
+    states = wbf.replicate(fstate, vary_fn=lift_pile)
+
+    def run_steps():
+        out = None
+        cur = states
+        for _ in range(MC_STEPS):
+            out = wbf.step(cur)
+            cur = [st for st, _ in out]
+        return out
+
+    out, launch = counted(run_steps)
+    print(f"phase mc.2: {m} instances x {MC_STEPS} steps: launches {launch}")
+    check(all(launch[k] == m * MC_STEPS for k in ("raster_shade", "depth_super",
+                                                  "depth_grid")),
+          "phase mc.2: K1, K2, K3 did not run once per instance per step")
+    join(f"flagship instances ({m} x {MC_STEPS} steps)", launch)
+    for i, (st, img) in enumerate(out):
+        alone = lift_pile(fstate, torch.tensor(i, dtype=torch.int32, device=devices[0]))
+        for _ in range(MC_STEPS):
+            alone, alone_img = fstep(alone)
+        differ = same_trees(unbatch(st), alone)
+        same_img = torch.equal(img[0].cpu(), alone_img.cpu())
+        finite = not all_finite(st["physics"])
+        print(f"phase mc.2: instance {i} on {inst_devices[i]} against it alone on "
+              f"{devices[0]}: state leaves differing {differ or 'none'}; image same bits "
+              f"{same_img}; physics finite {finite}")
+        check(not differ and same_img and finite,
+              f"phase mc.2: instance {i} differs from the instance alone")
+        phys = unbatch(st["physics"])
+        check_frame(insts[i].renderer, insts[i].scene, insts[i].instance_matrices(phys),
+                    insts[i].constants, f"phase mc.2: instance {i} on {inst_devices[i]}",
+                    results, "split")
+    cur = [st for st, _ in out]
+    all_ms = wall_ms(lambda: wbf.step(cur), inst_devices, reps=3)
+    one_ms = wall_ms(lambda: fstep(fstate), [devices[0]], reps=3)
+    print(f"phase mc.2: one step of {m} instances median {all_ms:.4f} ms; one instance "
+          f"alone {one_ms:.4f} ms, x {m} = {m * one_ms:.4f} ms (host clock)  [{card}, "
+          f"{count} card(s)]")
+    del fstep, fstate, insts, wbf, states, out, cur
+
+    # mc.3: the multichip entry point; each instance against the tiny step
+    # run once alone, and K1, K4 on each instance's inputs on its own card
+    (mstates, images), launch = counted(lambda: dryrun_multichip(len(devices),
+                                                                  devices=devices))
+    bad = [p for s in mstates for p in all_finite(s)]
+    print(f"phase mc.3: dryrun_multichip({len(devices)}): images {tuple(images.shape)} on "
+          f"{images.device}; non-finite state leaves {bad or 'none'}; launches {launch}")
+    check(tuple(images.shape) == (len(devices), 32, 64, 3) and images.dtype == torch.uint8
+          and not bad, "phase mc.3: the dryrun's output is malformed")
+    check(launch["raster_shade"] == len(devices) and launch["depth_dense"] == len(devices),
+          "phase mc.3: K1 and K4 did not run once per instance")
+    join(f"dryrun_multichip ({len(devices)} instances, 1 step)", launch)
+    tstep, tstate = build(**DRYRUN_SIZE, cfg_overrides=DRYRUN_OVERRIDES, device=devices[0])
+    alone, alone_img = tstep(tstate)
+    for i, d in enumerate(devices):
+        differ = same_trees(unbatch(mstates[i]), alone)
+        same_img = torch.equal(images[i].cpu(), alone_img.cpu())
+        print(f"phase mc.3: instance {i} on {d} against the tiny step alone on "
+              f"{devices[0]}: state leaves differing {differ or 'none'}; image same bits "
+              f"{same_img}")
+        check(not differ and same_img, f"phase mc.3: instance {i} differs from the step alone")
+        on_d = tstep.to(d)
+        check_frame(on_d.renderer, on_d.scene,
+                    on_d.instance_matrices(unbatch(mstates[i]["physics"])), on_d.constants,
+                    f"phase mc.3: instance {i} on {d}", results, "dense")
+    del mstates, images, tstep, tstate, alone, alone_img
+
+    # mc.4: two processes over gloo, each rank on its own card where there are two
+    root = Path(__file__).resolve().parent
+    worker = root / "tests" / "torch_multihost_worker.py"
+    spec = importlib.util.spec_from_file_location("torch_multihost_worker", worker)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    _, _, on_cpu = mod.mean_height("cpu")
+    ranks = ["cuda:0", "cuda:1"] if count >= 2 else ["cuda:0"] * 2
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(worker), str(r), f"tcp://localhost:{port}",
+                               ranks[r]], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, cwd=root) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    vals = []
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        found = [line for line in text.splitlines() if line.startswith(f"proc {r}: OK")]
+        print(f"phase mc.4: rank {r} on {ranks[r]}: rc {p.returncode}; "
+              f"{found[0] if found else text[-2000:]}")
+        check(p.returncode == 0 and found, f"phase mc.4: rank {r} failed")
+        vals.append(float(found[0].split("mean_y=")[1].split()[0]))
+    print(f"phase mc.4: two processes over gloo in {time.perf_counter() - t0:.1f} s: mean_y "
+          f"{vals} against the CPU's {on_cpu!r} (bar {TOL_MC_PROCS})")
+    check(all(abs(v - on_cpu) <= TOL_MC_PROCS for v in vals),
+          "phase mc.4: the two-process mean differs from the CPU's")
+    print(f"chip_smoke: phase mc took {time.perf_counter() - t_phase:.1f} s; phases 1-mc "
           f"{time.perf_counter() - t_start:.1f} s")
 
 
@@ -2499,8 +2785,9 @@ def main() -> int:
     pass_set_phases(card, results, t_start)
     feature_phases(card, results, t_start)
     engine_phases(card, results, t_start)
-    world_batch_phase(card)
+    batch = world_batch_phase(card)
     parallel_cli_phases(card, results, t_start)
+    multichip_phases(card, results, batch, t_start)
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():

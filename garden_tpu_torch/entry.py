@@ -48,19 +48,25 @@ and a focused input box emitted through `render.text.FontAtlas` (the
 committed `DEFAULT_GLYPHS`, no PIL). One engine frame is one Engine step
 (Input, Update, Output), the bake of the world matrices and the flagship's
 deferred frame.
+
+`dryrun_multichip(n, devices)` is the reference's multichip dryrun: a tiny
+combined step, one world and one frame on each of n devices through
+`parallel.worlds.WorldBatch`, each device's step a `CombinedStep.to` copy.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from garden_tpu_torch.core import math3d as m3
 from garden_tpu_torch.core.config import (QUALITY_PRESETS, EngineConfig, PhysicsConfig,
                                           RenderConfig, SLICE_OVERRIDES, ShadowConfig)
 from garden_tpu_torch.engine import Engine
+from garden_tpu_torch.parallel.worlds import WorldBatch
 from garden_tpu_torch.physics import scenes
 from garden_tpu_torch.physics import shapes as psh
 from garden_tpu_torch.physics import world as pw
@@ -82,7 +88,8 @@ from garden_tpu_torch.systems.transform import TransformSystem, bake_world_matri
 __all__ = ["CombinedStep", "DENSE_SHADOW_OVERRIDES", "EngineFrame", "FEATURE_BOXES",
            "FEATURE_OVERRIDES", "GLASS_BOXES", "GLASS_OVERRIDES", "SLICE_OVERRIDES",
            "TEMPORAL_OVERRIDES", "ULTRA_OVERRIDES", "build", "build_bench_frame",
-           "build_engine_frame", "build_feature_frame", "build_forward"]
+           "build_engine_frame", "build_feature_frame", "build_forward",
+           "dryrun_multichip"]
 
 # the reference-parity shadow preset: the dense depth raster over a
 # 6144x2048 atlas of 128x128 tiles
@@ -164,6 +171,20 @@ class CombinedStep:
         phys = self.physics(state["physics"])
         out = self.render(self.instance_matrices(phys), state["frame"])
         return {"physics": phys, "frame": out["frame_state"]}, out["image"]
+
+    def to(self, device) -> "CombinedStep":
+        """This step on `device`: a renderer of its own there (as FrameTiles
+        builds one per band device), the scene, constants and the frame's
+        optional inputs copied there. A state for it is moved with `.to`
+        leaf by leaf (WorldBatch.replicate does)."""
+        renderer = DeferredRenderer(self.renderer.config, self.renderer.scene_host, device)
+        move = lambda tree: tree_map(
+            lambda x: x.to(renderer.device) if isinstance(x, torch.Tensor) else x, tree)
+        step = CombinedStep(self.pcfg, self.present_types, renderer, renderer.device_scene(),
+                            move(self.constants), self.n_instances)
+        step.environment, step.ui_atlas, step.ui_sprites = move(
+            (self.environment, self.ui_atlas, self.ui_sprites))
+        return step
 
 
 def flagship_world(n_bodies: int, grid_dim: int = 16, cell_size: float = 2.0
@@ -265,6 +286,37 @@ def build(n_bodies: int, width: int, height: int, grid_dim: int = 16,
         scene.add_instance(cube_mesh, material=rows[box_materials[k % len(box_materials)]])
     return _combined_step(w.device_state(device), pcfg, w.shapes.present_types(), rcfg,
                           scene, _flagship_camera(side, width, height, device), device)
+
+
+# the reference's multichip dryrun: its tiny combined step, shadows scaled
+# to the frame (the dense atlas: max_active_tiles unset), clouds off
+DRYRUN_SIZE = dict(n_bodies=32, width=64, height=32, grid_dim=8, tile_size=128)
+DRYRUN_OVERRIDES = dict(shadow=ShadowConfig(map_size=128, resolve_step=1), use_clouds=False)
+
+
+def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None
+                     ) -> Tuple[List[Dict[str, Any]], torch.Tensor]:
+    """The twin of `__graft_entry__.dryrun_multichip`: the tiny combined
+    step (DRYRUN_SIZE, DRYRUN_OVERRIDES), one world and one frame on each of
+    `n_devices` devices through WorldBatch, stepped once. `devices` defaults
+    to the first n_devices cards and may repeat a device (["cpu"] * n runs
+    on the CPU). -> (each device's stepped state, with a world axis of 1,
+    images (n_devices, 32, 64, 3) uint8 on devices[0])."""
+    if devices is None:
+        visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if visible < n_devices:
+            raise RuntimeError(f"dryrun_multichip: {n_devices} cards needed, {visible} "
+                               "visible; name the devices to run elsewhere")
+        devices = [torch.device("cuda", i) for i in range(n_devices)]
+    devices = [torch.device(d) for d in devices]
+    if len(devices) != n_devices:
+        raise ValueError(f"dryrun_multichip: {len(devices)} devices for {n_devices}")
+    step, state = build(**DRYRUN_SIZE, cfg_overrides=DRYRUN_OVERRIDES, device=devices[0])
+    wb = WorldBatch([step] + [step.to(d) for d in devices[1:]], n_devices, devices=devices)
+    out = wb.step(wb.replicate(state))
+    images = torch.cat([img.to(devices[0]) for _, img in out])
+    print(f"dryrun_multichip: {n_devices} devices OK, image batch {tuple(images.shape)}")
+    return [s for s, _ in out], images
 
 
 def build_forward(n_bodies: int, width: int, height: int, grid_dim: int = 16, *,

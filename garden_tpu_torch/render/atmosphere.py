@@ -71,7 +71,7 @@ def sun_transmittance(height_km: Tensor, cos_zenith: Tensor) -> Tensor:
     return torch.where(blocked[..., None], 0.0, torch.exp(-tau))
 
 
-def transmittance_lut(size: Tuple[int, int] = (64, 256), device="cpu") -> Tensor:
+def transmittance_lut(size: Tuple[int, int] = (64, 256), device="cuda") -> Tensor:
     """The 256x64 transmittance LUT (size[0], size[1], 3): rows altitude in
     [0, R_TOP - R_GROUND] km, columns sun zenith cosine in [-0.2, 1]."""
     hgrid = torch.linspace(0.0, R_TOP - R_GROUND, size[0], device=device)
@@ -80,7 +80,7 @@ def transmittance_lut(size: Tuple[int, int] = (64, 256), device="cpu") -> Tensor
     return sun_transmittance(h, mu)
 
 
-def multi_scatter_lut(size: int = 32, dirs: int = 64, device="cpu") -> Tensor:
+def multi_scatter_lut(size: int = 32, dirs: int = 64, device="cuda") -> Tensor:
     """The 32x32 multiple-scattering LUT (size, size, 3): rows altitude in
     [0, R_TOP - R_GROUND] km, columns sun zenith cosine in [-1, 1]; the
     isotropic multi-scatter transfer Psi = L2 / (1 - f_ms) from a

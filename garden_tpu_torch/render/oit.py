@@ -160,17 +160,16 @@ def oit_cuda(records: Tensor, tile_tris: Tensor, counts: Tensor,
                        dev, "oit")
     accum = torch.empty((height, width, 4), device=dev)
     reveal = torch.empty((height, width), device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     # shared memory: the band's opaque depth, then the surviving records
     smem = raster._smem_bytes("oit", cap, tile * rows * 4)
     raster._call(cuda_build.load("blend_raster").oit_launch,
                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                 + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p],
-                 "oit",
+                 + [ctypes.c_void_p] * 3 + [ctypes.c_int],
+                 "oit", dev,
                  raster._ptr(records), raster._ptr(tile_tris), raster._ptr(counts),
                  raster._ptr(opaque_depth), cap, n_tiles, tiles_x, tile, width,
                  height, tile // rows, raster._ptr(accum), raster._ptr(reveal),
-                 raster._kept_ptr(kept), smem, ctypes.c_void_p(stream))
+                 raster._kept_ptr(kept), smem)
     rasterize_oit.launches += 1
     return accum, reveal
 

@@ -589,10 +589,15 @@ def _ptr(x: Tensor):
     return ctypes.c_void_p(x.data_ptr())
 
 
-def _call(fn, argtypes, kernel: str, *args) -> None:
+def _call(fn, argtypes, kernel: str, dev: torch.device, *args) -> None:
+    """Launch `fn(*args, stream)` on card `dev`, on its current stream. The
+    launch runs under `dev`'s device guard, so the kernel (and the
+    shared-memory limit the C entry point sets for it) goes to the card
+    that holds the tensors, whatever the current device."""
     fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
-    err = fn(*args)
+    fn.argtypes = argtypes + [ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
 
@@ -616,15 +621,14 @@ def raster_shade_cuda(edge: Tensor, shade: Tensor, tile_tris: Tensor,
         raise ValueError("raster_shade: shading records need >= 36 channels")
     vis = _vis_outputs(height, width, dev)
     planes = torch.empty((GBUF_PLANES, height, width), device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     _call(cuda_build.load("raster_shade").raster_shade_launch,
-          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 7,
-          "raster_shade",
+          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 6,
+          "raster_shade", dev,
           _ptr(edge), _ptr(shade), _ptr(tile_tris), _ptr(counts), _ptr(big_list),
           big_list.shape[0], tile_tris.shape[1], shade.shape[1],
           n_tiles, tiles_x, tile, tile_h, width, height, smem,
           *[_ptr(vis[k]) for k in ("depth", "tri_id", "b0", "b1")], _ptr(planes),
-          _kept_ptr(kept), ctypes.c_void_p(stream))
+          _kept_ptr(kept))
     rasterize_visibility_shaded.launches += 1
     return vis, planes
 
@@ -745,15 +749,14 @@ def visibility_cuda(edge: Tensor, tile_tris: Tensor, counts: Tensor,
     if big_list.shape[0] % TRI_BLOCK or tile_tris.shape[1] % TRI_BLOCK:
         raise ValueError("visibility: lists must have 16k slots")
     vis = _vis_outputs(height, width, dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     _call(cuda_build.load("raster_shade").visibility_launch,
-          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 6,
-          "visibility",
+          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 5,
+          "visibility", dev,
           _ptr(edge), _ptr(tile_tris), _ptr(counts), _ptr(big_list),
           big_list.shape[0], tile_tris.shape[1], n_tiles,
           tiles_x, tile, tile_h, width, height, smem,
           *[_ptr(vis[k]) for k in ("depth", "tri_id", "b0", "b1")],
-          _kept_ptr(kept), ctypes.c_void_p(stream))
+          _kept_ptr(kept))
     rasterize_visibility.launches += 1
     return vis
 
@@ -945,18 +948,17 @@ def blend_cuda(records: Tensor, tile_tris: Tensor, counts: Tensor,
     bands = _blend_pixels("sorted_blend", tile, tile_h, (8, 16)) // 8
     rects = _rects(atlas_bounds, dev)
     out = torch.empty_like(hdr)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     # shared memory: the band's hdr rows and opaque depth, then the records
     smem = _smem_bytes("sorted_blend", n_big + cap, tile * tile_h // bands * 4 * 4)
     _call(cuda_build.load("blend_raster").sorted_blend_launch,
           [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
           + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_void_p],
-          "sorted_blend",
+             ctypes.c_int],
+          "sorted_blend", dev,
           _ptr(records), _ptr(tile_tris), _ptr(counts), _ptr(big_list),
           _ptr(opaque_depth), _ptr(hdr), cap, n_big, n_tiles, tiles_x, tile, tile_h,
           width, height, bands, _ptr(rects), len(atlas_bounds), _ptr(out),
-          _kept_ptr(kept), smem, ctypes.c_void_p(stream))
+          _kept_ptr(kept), smem)
     rasterize_sorted_blend.launches += 1
     return out
 
@@ -1436,7 +1438,7 @@ def warp_keep(records: Tensor, lists: Tensor, counts: Tensor, width: int,
 def _depth_kernel_setup(kernel: str, records: Tensor, tile: int, tile_h: int,
                         atlas_bounds: tuple):
     """Checks shared by the depth kernels' wrappers; -> (library, rects
-    tensor (n, 4) as x0 x1 y0 y1, number of rects, stream)."""
+    tensor (n, 4) as x0 x1 y0 y1, number of rects)."""
     from garden_tpu_torch import cuda_build
 
     dev = records.device
@@ -1450,9 +1452,8 @@ def _depth_kernel_setup(kernel: str, records: Tensor, tile: int, tile_h: int,
         raise ValueError(f"{kernel}: a {tile}x{tile_h} tile is not a kernel shape "
                          f"(the width must divide {DEPTH_THREADS} and each thread "
                          "takes 4..64 pixels)")
-    stream = torch.cuda.current_stream(dev).cuda_stream
     return (cuda_build.load("depth_raster"), _rects(atlas_bounds, dev),
-            len(atlas_bounds), stream)
+            len(atlas_bounds))
 
 
 def _smem_bytes(kernel: str, slots: int, extra: int = 0) -> int:
@@ -1482,7 +1483,7 @@ def depth_super_cuda(records: Tensor, sup_tris: Tensor, sup_counts: Tensor,
     output as `depth_super_plain`. With `kept` (tiles,) int32, the kernel
     also writes each tile's number of slots that pass its cull (the row
     sums of `tile_slot_keep(..., form="edge")` over `super_lists`)."""
-    lib, rects, n_rects, stream = _depth_kernel_setup(
+    lib, rects, n_rects = _depth_kernel_setup(
         "depth_super", records, tile, tile_h, atlas_bounds)
     sup_x, sup_y, sups_x = sup_grid
     tiles_x, tiles_y, n_tiles = _grid(width, height, tile, tile_h)
@@ -1496,10 +1497,10 @@ def depth_super_cuda(records: Tensor, sup_tris: Tensor, sup_counts: Tensor,
     depth = torch.empty((tiles_y * tile_h, tiles_x * tile), device=dev)
     _call(lib.depth_super_launch, [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
           + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_void_p], "depth_super",
+             ctypes.c_int], "depth_super", dev,
           _ptr(records), _ptr(sup_tris), _ptr(sup_counts), cap, n_tiles, tiles_x,
           tile, tile_h, sup_x, sup_y, sups_x, _ptr(rects), n_rects, _ptr(depth),
-          _kept_ptr(kept), _smem_bytes("depth_super", cap), ctypes.c_void_p(stream))
+          _kept_ptr(kept), _smem_bytes("depth_super", cap))
     depth_super.launches += 1
     return depth
 
@@ -1513,7 +1514,7 @@ def depth_grid_cuda(depth: Tensor, records: Tensor, act_ids: Tensor,
     `kept` (rows,) int32, the kernel also writes each active row's number
     of slots that pass its cull (the row sums of `tile_slot_keep(...,
     form="edge", tiles=act_ids)`)."""
-    lib, rects, n_rects, stream = _depth_kernel_setup(
+    lib, rects, n_rects = _depth_kernel_setup(
         "depth_grid", records, tile, tile_h, atlas_bounds)
     tiles_x, tiles_y, _ = _grid(width, height, tile, tile_h)
     rows, cap = tile_tris.shape
@@ -1532,10 +1533,10 @@ def depth_grid_cuda(depth: Tensor, records: Tensor, act_ids: Tensor,
     _check_kept(kept, rows, dev, "depth_grid")
     _call(lib.depth_grid_launch, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
           + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_void_p], "depth_grid",
+             ctypes.c_int], "depth_grid", dev,
           _ptr(records), _ptr(act_ids), _ptr(act_cnt), _ptr(tile_tris), _ptr(bound),
           cap, rows, tiles_x, tile, tile_h, _ptr(rects), n_rects, _ptr(depth),
-          _kept_ptr(kept), _smem_bytes("depth_grid", cap), ctypes.c_void_p(stream))
+          _kept_ptr(kept), _smem_bytes("depth_grid", cap))
     depth_grid.launches += 1
     return depth
 
@@ -1548,7 +1549,7 @@ def depth_dense_cuda(records: Tensor, tile_tris: Tensor, counts: Tensor,
     output as `depth_dense_plain`. With `kept` (tiles,) int32, the kernel
     also writes each tile's number of slots that pass its cull (the row
     sums of `tile_slot_keep(..., form="edge")`)."""
-    lib, rects, n_rects, stream = _depth_kernel_setup(
+    lib, rects, n_rects = _depth_kernel_setup(
         "depth_dense", records, tile, tile_h, atlas_bounds)
     tiles_x, tiles_y, n_tiles = _grid(width, height, tile, tile_h)
     cap = tile_tris.shape[1]
@@ -1567,11 +1568,11 @@ def depth_dense_cuda(records: Tensor, tile_tris: Tensor, counts: Tensor,
     depth = torch.empty((tiles_y * tile_h, tiles_x * tile), device=dev)
     _call(lib.depth_dense_launch, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
           + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_void_p], "depth_dense",
+             ctypes.c_int], "depth_dense", dev,
           _ptr(records), _ptr(tile_tris), _ptr(counts), _ptr(big_list), _ptr(bound),
           cap, n_big, n_tiles, tiles_x, tile, tile_h,
           _ptr(rects), n_rects, _ptr(depth), _kept_ptr(kept),
-          _smem_bytes("depth_dense", n_big + cap), ctypes.c_void_p(stream))
+          _smem_bytes("depth_dense", n_big + cap))
     depth_dense.launches += 1
     return depth
 

@@ -1055,12 +1055,12 @@ def test_world_batch_on_card(cuda):
     for dev in ("cpu", cuda):
         state, cfg, types = scenes.mixed_world(dev)
         step = lambda s: pw.step(s, cfg, 1.0 / 60.0, types)
-        wb = WorldBatch(step, 2, device=dev)
+        wb = WorldBatch(step, 2, devices=[dev])
         with warnings.catch_warnings():
             warnings.filterwarnings("error", message=".*performance drop.*")
-            batched = wb.replicate(state, vary_fn=lift)
+            (batched,) = wb.replicate(state, vary_fn=lift)
             for _ in range(5):
-                batched = wb.step(batched)
+                (batched,) = wb.step([batched])
         out[str(dev)] = batched["bodies"]["pos"]
         if dev == cuda:
             for i in range(2):
@@ -1093,3 +1093,78 @@ def test_frame_tiles_on_card(cuda):
     rows = [r for r in range(128) if r not in seam]
     diff = np.abs(img[rows] - ref[rows])
     assert np.percentile(diff, 99) <= 2 and diff.mean() < 0.5
+
+
+def _cards(n):
+    """The first n visible cards, or a skip with the reason."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA cards, {torch.cuda.device_count()} visible")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+@pytest.mark.parametrize("layout", ["one card", "two cards"])
+def test_world_batch_shards_on_cards(layout):
+    """Four worlds of the mixed world as two shards of two, on one card
+    (cuda:0 twice) or on two cards, 5 steps: every leaf equal to the
+    one-device batch's on cuda:0; the reduce within 1e-6 of it."""
+    import warnings
+    from garden_tpu_torch.parallel.worlds import WorldBatch
+    from garden_tpu_torch.physics import scenes, world as pw
+    cards = _cards(1 if layout == "one card" else 2)
+    devices = cards * 2 if layout == "one card" else cards
+
+    def lift(s, i):
+        b = s["bodies"]
+        return dict(s, bodies=dict(b, pos=b["pos"] + 0.05 * i.float()))
+
+    state, cfg, types = scenes.mixed_world(cards[0])
+    step = lambda s: pw.step(s, cfg, 1.0 / 60.0, types)
+    out = {}
+    for name, devs in (("one", [cards[0]]), ("sharded", devices)):
+        wb = WorldBatch(step, 4, devices=devs)
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message=".*performance drop.*")
+            batched = wb.replicate(state, vary_fn=lift)
+            for _ in range(5):
+                batched = wb.step(batched)
+        y = wb.reduce(batched, lambda s: s["bodies"]["pos"][:, 1].mean())
+        out[name] = (batched, y)
+    (one,), y_one = out["one"]
+    shards, y = out["sharded"]
+    assert [s["bodies"]["pos"].device for s in shards] == devices
+    for i, leaf in enumerate(_tensor_leaves(one)):
+        got = torch.cat([_tensor_leaves(s)[i].to(cards[0]) for s in shards])
+        assert torch.equal(got, leaf), i
+    assert y.device == devices[0]
+    assert abs(y.item() - y_one.item()) <= 1e-6 * abs(y_one.item())
+
+
+def test_kernels_launch_on_their_tensors_card():
+    """With cuda:0 current, K1 and K4 on tensors of cuda:1 run there and
+    equal their plain versions there; a tiny combined step on each of two
+    cards gives the same image bits."""
+    from garden_tpu_torch import entry
+    cards = _cards(2)
+    torch.cuda.set_device(cards[0])
+    w, h = 320, 200
+    setup, rec = _scene(3, 60, w, h, False)
+    bins = raster.bin_triangles(setup, w, h, 128, 96, max_big=32, tile_h=32, foot=2,
+                                foot_y=2)
+    to = lambda x: {k: v.to(cards[1]) for k, v in x.items()} if isinstance(x, dict) \
+        else x.to(cards[1])
+    args = raster.kernel_args(to(setup), to(rec), *[to(b) for b in bins], w, h, 128, 32)
+    kvis, kg = raster.raster_shade_cuda(*args)
+    pvis, pg = raster.raster_shade_plain(*args)
+    assert kvis["tri_id"].device == cards[1]
+    for k in ("tri_id", "depth", "b0", "b1"):
+        assert torch.equal(kvis[k], pvis[k]), k
+    assert (kg - pg).abs().max().item() <= 2e-5
+    before = {k: getattr(raster, k).launches for k in ("rasterize_visibility_shaded",
+                                                       "depth_dense")}
+    states, images = entry.dryrun_multichip(2, devices=cards)
+    assert {k: getattr(raster, k).launches - n for k, n in before.items()} == {
+        "rasterize_visibility_shaded": 2, "depth_dense": 2}
+    assert images.device == cards[0] and torch.equal(images[0], images[1])
+    assert states[1]["physics"]["bodies"]["pos"].device == cards[1]

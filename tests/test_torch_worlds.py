@@ -17,24 +17,21 @@ import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
 
 import warnings
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from garden_tpu.core import math3d as jm
-from garden_tpu.core.config import PhysicsConfig as JPhysicsConfig
 from garden_tpu.ops import blur as jblur
 from garden_tpu.parallel import frame_tiles as jft
-from garden_tpu.parallel.worlds import WorldBatch as JWorldBatch
 from garden_tpu.physics import world as jpw
 from garden_tpu.render import csm as jcsm
 from garden_tpu.render import mesh as jmesh
 from garden_tpu.utils import checkpoint as jcheckpoint
 from garden_tpu_torch.convert import from_jax
 from garden_tpu_torch.core import math3d as tm
-from garden_tpu_torch.core.config import PhysicsConfig, RenderConfig
+from garden_tpu_torch.core.config import RenderConfig
 from garden_tpu_torch.ops import blur as tblur
 from garden_tpu_torch.parallel import frame_tiles as tft
 from garden_tpu_torch.parallel.worlds import WorldBatch
@@ -44,9 +41,10 @@ from garden_tpu_torch.render import mesh as tmesh
 from garden_tpu_torch.render.deferred import DeferredRenderer
 from garden_tpu_torch.systems.camera import common_constants
 from garden_tpu_torch.utils import checkpoint as tcheckpoint
+from torch_world_cases import jax_batch, leaves as _leaves, lift as _lift, port_world
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-N_WORLDS, STEPS, DT = 8, 30, 1.0 / 60.0
+N_WORLDS, STEPS = 8, 30
 RNG = np.random.default_rng(11)
 
 
@@ -153,61 +151,26 @@ def test_transform_triangles_matches_jax():
 # -- WorldBatch ------------------------------------------------------------------
 
 
-def _world(pw, cfg_cls):
-    """tests/test_parallel.py's world: a plane and one sphere, 16 slots."""
-    cfg = cfg_cls(max_bodies=16, grid_dim=8)
-    w = pw.PhysicsWorld(cfg)
-    w.add_body(w.shapes.plane((0, 1, 0), 0.0), motion=pw.STATIC)
-    w.add_body(w.shapes.sphere(0.5), position=(0, 3, 0))
-    return w, cfg, w.shapes.present_types()
-
-
-def _lift(s, i):
-    """World i starts 0.1 * i higher (the reference test's vary_fn)."""
-    b = s["bodies"]
-    at = torch.zeros(b["pos"].shape, dtype=torch.bool)
-    at[1, 1] = True
-    pos = torch.where(at, b["pos"] + 0.1 * i.float(), b["pos"])
-    return dict(s, bodies=dict(b, pos=pos))
-
-
 @pytest.fixture(scope="module")
 def jax_worlds():
     """JAX's WorldBatch over the 8 CPU devices, 30 steps (built once)."""
-    w, cfg, types = _world(jpw, JPhysicsConfig)
-    wb = JWorldBatch(lambda s: jpw.step(s, cfg, DT, types), n_worlds=N_WORLDS)
-
-    def vary(s, i):
-        b = s["bodies"]
-        return dict(s, bodies=dict(b, pos=b["pos"].at[1, 1].add(0.1 * i.astype(jnp.float32))))
-
-    batched = wb.replicate(w.device_state(), vary_fn=vary)
-    for _ in range(STEPS):
-        batched = wb.step(batched)
-    return jax.device_get(batched)
+    return jax_batch(N_WORLDS, STEPS)
 
 
 @pytest.fixture(scope="module")
 def port_worlds():
-    w, cfg, types = _world(tpw, PhysicsConfig)
-    step = lambda s: tpw.step(s, cfg, DT, types)
-    wb = WorldBatch(step, N_WORLDS, device="cpu")
+    state, step = port_world()
+    wb = WorldBatch(step, N_WORLDS, devices=["cpu"])
     with warnings.catch_warnings():
         warnings.filterwarnings("error", message=".*performance drop.*")
-        batched = wb.replicate(w.device_state("cpu"), vary_fn=_lift)
+        batched = wb.replicate(state, vary_fn=_lift)
         for _ in range(STEPS):
             batched = wb.step(batched)
-    return wb, batched, w.device_state("cpu"), step
-
-
-def _leaves(tree, path=""):
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k], f"{path}/{k}")]
-    return [(path, tree)]
+    return wb, batched, state, step
 
 
 def test_world_batch_matches_jax(jax_worlds, port_worlds):
-    wb, batched, _, _ = port_worlds
+    wb, (batched,), _, _ = port_worlds       # one device: a list of one shard
     ref = dict(_leaves(jax_worlds))
     got = dict(_leaves(batched))
     assert set(got) == set(ref)
@@ -224,7 +187,7 @@ def test_world_batch_matches_jax(jax_worlds, port_worlds):
 
 def test_world_batch_equals_the_unbatched_step(port_worlds):
     """Worlds 0, 3 and 7 stepped alone give the batch's bits."""
-    wb, batched, state, step = port_worlds
+    wb, (batched,), state, step = port_worlds
     for i in (0, 3, 7):
         s = _lift(state, torch.tensor(i, dtype=torch.int32))
         for _ in range(STEPS):
@@ -235,17 +198,17 @@ def test_world_batch_equals_the_unbatched_step(port_worlds):
 
 
 def test_world_batch_reduce_stack_and_world(port_worlds):
-    wb, batched, state, _ = port_worlds
-    y = batched["bodies"]["pos"][:, 1, 1]
+    wb, shards, state, _ = port_worlds
+    y = shards[0]["bodies"]["pos"][:, 1, 1]
     fn = lambda s: s["bodies"]["pos"][1, 1]
-    assert abs(float(wb.reduce(batched, fn)) - float(y.mean())) < 1e-5
-    assert float(wb.reduce(batched, fn, "sum")) == pytest.approx(float(y.sum()), abs=1e-5)
-    assert float(wb.reduce(batched, fn, "max")) == float(y.max())
-    assert float(wb.reduce(batched, fn, "min")) == float(y.min())
-    w0 = wb.world(batched, 0)
+    assert abs(float(wb.reduce(shards, fn)) - float(y.mean())) < 1e-5
+    assert float(wb.reduce(shards, fn, "sum")) == pytest.approx(float(y.sum()), abs=1e-5)
+    assert float(wb.reduce(shards, fn, "max")) == float(y.max())
+    assert float(wb.reduce(shards, fn, "min")) == float(y.min())
+    w0 = wb.world(shards, 0)
     assert isinstance(w0["bodies"]["pos"], np.ndarray) and w0["bodies"]["pos"].shape == (16, 3)
-    np.testing.assert_array_equal(w0["bodies"]["pos"], batched["bodies"]["pos"][0].numpy())
-    stacked = wb.stack([state] * N_WORLDS)
+    np.testing.assert_array_equal(w0["bodies"]["pos"], shards[0]["bodies"]["pos"][0].numpy())
+    (stacked,) = wb.stack([state] * N_WORLDS)
     for key, leaf in _leaves(stacked):
         assert tuple(leaf.shape) == (N_WORLDS,) + tuple(dict(_leaves(state))[key].shape)
 
