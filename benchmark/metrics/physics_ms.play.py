@@ -1,0 +1,9 @@
+"""physics_ms.play: host ms of CombinedStep.physics, the device synchronized
+before and after, the mean over the traced run's stage-by-stage steps."""
+
+import statistics
+
+
+def read(run):
+    ms = run.spans.get("physics")
+    return statistics.fmean(ms) if ms else None
