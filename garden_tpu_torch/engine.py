@@ -10,7 +10,7 @@ tick-rate cap; signal handlers stop the loop cleanly.
 
 The tick's `delta_time` stays a Python float, applied to float32 tensors
 with float32 semantics: no host-to-device copy a tick. Each subscriber runs
-inside a `torch.profiler` range named after it (`stage_name`, e.g.
+inside a span (`utils.profiler.span`) named after it (`stage_name`, e.g.
 "PhysicsSystem.update"), so traces show the tick by system.
 """
 
@@ -21,11 +21,10 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
-from torch.profiler import record_function
 
 from garden_tpu_torch.core.config import EngineConfig
 from garden_tpu_torch.core.ecs import World
-from garden_tpu_torch.utils import checkpoint
+from garden_tpu_torch.utils import checkpoint, profiler
 
 
 def _require_device(device) -> torch.device:
@@ -95,7 +94,7 @@ class Engine:
                    "tick": state["tick"]}
             for event in ("Input", "Update", "Output"):
                 for fn in events.subscribers(event):
-                    with record_function(stage_name(fn)):
+                    with profiler.span(stage_name(fn)):
                         state = fn(state, ctx)
                 if checkpoint.guards_enabled():
                     checkpoint.check_finite(state, f"after {event}")

@@ -84,6 +84,7 @@ from garden_tpu_torch.systems.link import LinkSystem
 from garden_tpu_torch.systems.physics import PhysicsSystem
 from garden_tpu_torch.systems.spawner import SpawnerSystem
 from garden_tpu_torch.systems.transform import TransformSystem, bake_world_matrices
+from garden_tpu_torch.utils import profiler
 
 __all__ = ["CombinedStep", "DENSE_SHADOW_OVERRIDES", "EngineFrame", "FEATURE_BOXES",
            "FEATURE_OVERRIDES", "GLASS_BOXES", "GLASS_OVERRIDES", "SLICE_OVERRIDES",
@@ -132,7 +133,9 @@ BENCH_LOD_QUANTILE = 0.1
 
 class CombinedStep:
     """One physics step, instance matrices from the body poses, one frame.
-    Its parts are exposed so callers can time or inspect each stage."""
+    Its parts are exposed so callers can time or inspect each stage; each
+    runs in a span of its name (`physics`, `instance_matrices`, `render`),
+    the whole step in the span `step`."""
 
     def __init__(self, pcfg: PhysicsConfig, present_types: frozenset,
                  renderer: DeferredRenderer, scene: Dict[str, torch.Tensor],
@@ -150,26 +153,32 @@ class CombinedStep:
         self.ui_sprites: Optional[Dict[str, Any]] = None
 
     def physics(self, phys: Dict[str, Any]) -> Dict[str, Any]:
-        return pw.step(phys, self.pcfg, 1.0 / 60.0, self.present_types)
+        with profiler.span("physics"):
+            out = pw.step(phys, self.pcfg, 1.0 / 60.0, self.present_types)
+            pw.count_contacts(out)
+        return out
 
     def instance_matrices(self, phys: Dict[str, Any]) -> torch.Tensor:
         """Instance 0 is the static ground; instances 1.. track bodies 1.."""
-        n = self.n_instances
-        pos, quat = phys["bodies"]["pos"][:n], phys["bodies"]["quat"][:n]
-        mats = m3.compose_trs(pos, quat, torch.ones_like(pos))
-        mats[0] = torch.eye(4, device=mats.device)
+        with profiler.span("instance_matrices"):
+            n = self.n_instances
+            pos, quat = phys["bodies"]["pos"][:n], phys["bodies"]["quat"][:n]
+            mats = m3.compose_trs(pos, quat, torch.ones_like(pos))
+            mats[0] = torch.eye(4, device=mats.device)
         return mats
 
     def render(self, inst_mats: torch.Tensor, frame: Dict[str, torch.Tensor],
                prev_inst_matrices: Optional[torch.Tensor] = None) -> Dict[str, Any]:
-        return self.renderer.render(self.scene, inst_mats, self.constants, frame,
-                                    ui_atlas=self.ui_atlas, ui_sprites=self.ui_sprites,
-                                    prev_inst_matrices=prev_inst_matrices,
-                                    environment=self.environment)
+        with profiler.span("render"):
+            return self.renderer.render(self.scene, inst_mats, self.constants, frame,
+                                        ui_atlas=self.ui_atlas, ui_sprites=self.ui_sprites,
+                                        prev_inst_matrices=prev_inst_matrices,
+                                        environment=self.environment)
 
     def __call__(self, state: Dict[str, Any]) -> Tuple[Dict[str, Any], torch.Tensor]:
-        phys = self.physics(state["physics"])
-        out = self.render(self.instance_matrices(phys), state["frame"])
+        with profiler.span("step"):
+            phys = self.physics(state["physics"])
+            out = self.render(self.instance_matrices(phys), state["frame"])
         return {"physics": phys, "frame": out["frame_state"]}, out["image"]
 
     def to(self, device) -> "CombinedStep":

@@ -54,6 +54,9 @@ import torch
 import torch.distributed as dist
 from torch.utils._pytree import tree_map
 
+from garden_tpu_torch.physics.world import count_contacts
+from garden_tpu_torch.utils import profiler
+
 State = Any
 
 # reducer -> (how a shard's values combine, the all-reduce op across ranks)
@@ -155,11 +158,15 @@ class WorldBatch:
         """Each shard through its step, issued shard after shard under its
         own device with no wait in between; -> the list of the shards'
         outputs (a step returning (state, image) gives (states, images)
-        per shard)."""
+        per shard). The whole runs in the span `worlds.step`, each shard's
+        issue in a span `shard` whose device is its card; a shard span
+        counts the contact rows of its output (`count_contacts`)."""
         out = []
-        for fn, dev, shard in zip(self._steps, self.devices, batched):
-            with _device_guard(dev):
-                out.append(fn(shard))
+        with profiler.span("worlds.step"):
+            for k, (fn, dev, shard) in enumerate(zip(self._steps, self.devices, batched)):
+                with _device_guard(dev), profiler.span("shard", device=dev, shard=k):
+                    out.append(fn(shard))
+                    count_contacts(out[-1])
         return out
 
     def reduce(self, batched: List[State], fn: Callable, reducer: str = "mean") -> Any:

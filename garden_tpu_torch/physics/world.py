@@ -8,8 +8,8 @@ cascade-lag clamping and keeps the previous pose for `interpolated_pose`.
 `collide` has the reference's two branches: where the active pair budget
 covers every candidate pair, the candidate layout is the solver layout;
 otherwise the first `active_pair_budget` touching pairs of each row are
-compacted into it. Each stage runs inside a `torch.profiler` range named
-as the reference's `jax.named_scope`.
+compacted into it. Each stage runs inside a span (`utils.profiler.span`)
+named as the reference's `jax.named_scope`.
 """
 
 from __future__ import annotations
@@ -18,12 +18,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from garden_tpu_torch.core import math3d as m3
 from garden_tpu_torch.core.config import PhysicsConfig
 from garden_tpu_torch.physics import broadphase, constraints, narrowphase, solver
 from garden_tpu_torch.physics import shapes as sh
+from garden_tpu_torch.utils import profiler
 
 Tensor = torch.Tensor
 
@@ -204,7 +204,7 @@ def candidates(state: Dict[str, Any], config: PhysicsConfig):
     aabb_min = aabb_min - margin[:, None]
     aabb_max = aabb_max + margin[:, None]
     dynamic = b["motion"] == DYNAMIC
-    with record_function("broadphase"):
+    with profiler.span("broadphase"):
         cand_idx, cand_valid = broadphase.find_candidates(
             b["pos"], aabb_min, aabb_max, active=b["has"], dynamic=dynamic,
             layer=b["layer"], layer_table=state["layer_table"], is_global=is_global,
@@ -224,7 +224,7 @@ def collide(state: Dict[str, Any], config: PhysicsConfig,
     n, k = cand_idx.shape
     pair_i = torch.arange(n, dtype=torch.int32, device=cand_idx.device)
     pair_i = pair_i[:, None].expand(n, k).reshape(-1)
-    with record_function("narrowphase"):
+    with profiler.span("narrowphase"):
         man = narrowphase.generate_contacts(
             b["pos"], b["quat"], stype, params, pair_i, cand_idx.reshape(-1),
             cand_valid.reshape(-1), margin=margin, present_types=present_types,
@@ -246,7 +246,7 @@ def collide(state: Dict[str, Any], config: PhysicsConfig,
             "pair_partner": cand_idx,
             "partner": torch.repeat_interleave(cand_idx, mp, dim=1),
         }
-    with record_function("contact_compact"):
+    with profiler.span("contact_compact"):
         # the first k_act touching pairs of each row, in candidate order
         # (globals first); a kept pair keeps its whole manifold
         pair_ok = torch.any(man["valid"].reshape(n, k, mp), dim=-1)
@@ -288,13 +288,13 @@ def step(state: Dict[str, Any], config: PhysicsConfig,
     b = dict(b, linvel=linvel, angvel=angvel)
     state = dict(state, bodies=b)
 
-    with record_function("collide"):
+    with profiler.span("collide"):
         contacts = collide(state, config, present_types)
 
     # pair-level warm start: a pair keeps its impulses when the same partner
     # sits in its row again; the points transfer positionally
     mp = narrowphase.MAX_POINTS
-    with record_function("warm_match"):
+    with profiler.span("warm_match"):
         n_b, k_act = contacts["pair_partner"].shape
         pair_ok = torch.any(contacts["valid"].reshape(n_b, k_act, mp), dim=-1)
         new_key = torch.where(pair_ok, contacts["pair_partner"],
@@ -311,7 +311,7 @@ def step(state: Dict[str, Any], config: PhysicsConfig,
 
     # with the position solve active, contact Baumgarte is off
     vel_baumgarte = 0.0 if config.position_iterations > 0 else config.baumgarte
-    with record_function("solve_velocity"):
+    with profiler.span("solve_velocity"):
         linvel, angvel, warm_c = solver.solve_velocity(
             b, contacts, dt, iterations=config.solver_iterations,
             baumgarte=vel_baumgarte, slop=config.penetration_slop,
@@ -325,14 +325,14 @@ def step(state: Dict[str, Any], config: PhysicsConfig,
 
     # joint constraints (Fixed/Point)
     if "constraints" in state:
-        with record_function("constraints"):
+        with profiler.span("constraints"):
             linvel, angvel = constraints.solve_constraints(
                 dict(b, linvel=linvel, angvel=angvel), state["constraints"], dt,
                 iterations=config.solver_iterations // 2 + 1,
                 baumgarte=config.baumgarte)
 
     # integrate (semi-implicit Euler; kinematic bodies keep their velocity)
-    with record_function("integrate"):
+    with profiler.span("integrate"):
         moving = (((b["motion"] == DYNAMIC) | (b["motion"] == KINEMATIC))
                   & b["has"])[:, None]
         pos = b["pos"] + torch.where(moving, linvel * dt, torch.zeros_like(linvel))
@@ -341,7 +341,7 @@ def step(state: Dict[str, Any], config: PhysicsConfig,
     # split-impulse penetration correction, from the collide-time depths
     # adjusted by the integration displacement
     if config.position_iterations > 0:
-        with record_function("solve_position"):
+        with profiler.span("solve_position"):
             pos = solver.solve_position(
                 pos, b, contacts, contacts["pen"],
                 iterations=config.position_iterations,
@@ -350,7 +350,7 @@ def step(state: Dict[str, Any], config: PhysicsConfig,
                 pos = constraints.project_positions(
                     pos, dict(b, quat=quat), state["constraints"],
                     iterations=config.position_iterations)
-    with record_function("sleep_misc"):
+    with profiler.span("sleep_misc"):
         b = dict(b, pos=pos, quat=quat,
                  linvel=torch.where(dyn3, linvel, b["linvel"]),
                  angvel=torch.where(dyn3, angvel, b["angvel"]))
@@ -377,6 +377,34 @@ def step(state: Dict[str, Any], config: PhysicsConfig,
                                torch.full_like(contacts["partner"], -1))
     return dict(state, bodies=b, warm=warm, grounded=grounded,
                 touching=touching, time=state["time"] + dt)
+
+
+def count_contacts(out: Any) -> None:
+    """While a span records, charge it with the contact rows of the physics
+    state in a step's output `out` (the state, or a dict or tuple holding
+    it, batched or not): `touching_pairs`, the row entries of
+    `warm["key"] >= 0` over all worlds, and `pair_slots`, the row slots
+    there (bodies x K_act x worlds). A device reduction, never a read-back;
+    nothing inside a vmap."""
+    if not profiler.recording():
+        return
+    key = _warm_key(out)
+    if key is not None:
+        profiler.count("touching_pairs", (key >= 0).sum())
+        profiler.count("pair_slots", key.numel())
+
+
+def _warm_key(tree: Any) -> Optional[Tensor]:
+    if isinstance(tree, dict):
+        if isinstance(tree.get("warm"), dict) and "key" in tree["warm"]:
+            return tree["warm"]["key"]
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for x in tree:
+            key = _warm_key(x)
+            if key is not None:
+                return key
+    return None
 
 
 def _select_tree(did: Tensor, new: Any, old: Any) -> Any:

@@ -24,7 +24,6 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from garden_tpu_torch.core import math3d as m3
 from garden_tpu_torch.core.config import RenderConfig
@@ -33,6 +32,7 @@ from garden_tpu_torch.ops.blur import decimate2x, upsample2x_to
 from garden_tpu_torch.render import (atmosphere, bloom, clouds, csm, fxaa, gbuffer,
                                      hbao, hiz, ibl, lighting, mesh, oit, raster, smaa,
                                      sprites, ssgi, ssr, tonemap)
+from garden_tpu_torch.utils import profiler
 
 Tensor = torch.Tensor
 
@@ -136,7 +136,7 @@ class DeferredRenderer:
         inst = torch.clamp(ti, min=0).long()
         vis_t = visible[inst] & (ti >= 0)
         if self.any_lods:
-            with record_function("lod"):
+            with profiler.span("lod"):
                 level = self.lod_levels(scene, inst_matrices, constants)
                 vis_t = vis_t & (scene["tri_lod"] == level[inst])
         return scene["tri_valid"] & vis_t
@@ -157,7 +157,7 @@ class DeferredRenderer:
         tri_valid = self.cull_instances(scene, inst_matrices, constants)
         if not self.config.use_occlusion_culling:
             return tri_valid
-        with record_function("hiz"):
+        with profiler.span("hiz"):
             occluded = self.occluded_instances(scene, inst_matrices, constants,
                                                frame_state["prev_depth"])
             return tri_valid & ~occluded[torch.clamp(scene["tri_instance"], min=0).long()]
@@ -388,7 +388,7 @@ class DeferredRenderer:
         SSGI inputs -> HDR (H, W, 3) float32."""
         extra = dict(reflection=reflection, reflection_conf=reflection_conf, gi=gi)
         if environment is not None:
-            with record_function("environment"):
+            with profiler.span("environment"):
                 return self._environment_lighting(g, constants, shadow, ao, environment,
                                                   extra)
         if self.config.use_atmosphere:
@@ -556,10 +556,10 @@ class DeferredRenderer:
         the post chain's HDR, the adapted average luminance)."""
         ldr, hdr, avg_lum = self.tone(hdr, constants, frame_state)
         if self.config.use_fxaa:
-            with record_function("aa"):
+            with profiler.span("aa"):
                 ldr = self.antialias(ldr)
         if ui_atlas is not None and ui_sprites is not None:
-            with record_function("ui"):
+            with profiler.span("ui"):
                 ldr = sprites.composite_sprites(ldr, ui_atlas, ui_sprites)
         return tonemap.to_uint8(ldr), hdr, avg_lum
 
@@ -583,7 +583,7 @@ class DeferredRenderer:
         did not run)."""
         cfg = self.config
         disocclusion = None
-        with record_function("raster"):
+        with profiler.span("raster"):
             geo, vis, g = self.gbuffer_pass(scene, inst_matrices, constants, frame_state,
                                             prev_inst_matrices)
             if cfg.use_velocity and "prev_depth" in frame_state:
@@ -591,45 +591,45 @@ class DeferredRenderer:
                                                  frame_state["prev_depth"])
         shadow = trans_atlas = None
         if cfg.use_shadows:
-            with record_function("csm_render"):
+            with profiler.span("csm_render"):
                 light, splits = self.shadow_light(constants)
                 atlas, trans_atlas = self.shadow_atlas(scene, geo["planes"], light)
-            with record_function("csm_resolve"):
+            with profiler.span("csm_resolve"):
                 shadow = self.shadow_factor(g, constants, atlas, light, splits,
                                             trans_atlas)
         ao = None
         if cfg.use_hbao:
-            with record_function("hbao"):
+            with profiler.span("hbao"):
                 ao = self.ambient_occlusion(g, constants)
         ssr_rgb = ssr_conf = gi = None
         if cfg.use_ssr and "prev_hdr" in frame_state:
-            with record_function("ssr"):
+            with profiler.span("ssr"):
                 ssr_rgb, ssr_conf = self.reflections(g, vis["depth"], frame_state, constants)
         if cfg.use_ssgi and "prev_hdr" in frame_state:
-            with record_function("ssgi"):
+            with profiler.span("ssgi"):
                 gi = self.bounce(g, vis["depth"], frame_state, constants)
-        with record_function("sky_lighting"):
+        with profiler.span("sky_lighting"):
             if (environment is None and cfg.use_atmosphere and cfg.use_clouds
                     and shadow is not None):
-                with record_function("clouds"):
+                with profiler.span("clouds"):
                     shadow = self.cloud_shadow(g, constants, shadow)
             hdr = self.shade(g, constants, shadow, ao, ssr_rgb, ssr_conf, gi,
                              environment)
         reveal = refract_id = trans_depth = None
         if cfg.use_oit and self.any_translucent:
-            with record_function("oit"):
+            with profiler.span("oit"):
                 hdr, reveal = self.oit_pass(scene, geo, constants, vis["depth"], hdr)
         if self.any_refract:
-            with record_function("refraction"):
+            with profiler.span("refraction"):
                 hdr, refract_id = self.refraction_pass(scene, geo, constants, hdr)
         if self.any_sorted:
-            with record_function("sorted"):
+            with profiler.span("sorted"):
                 hdr = self.sorted_pass(scene, geo, constants, vis["depth"], hdr)
         if cfg.use_trans_depth and self.any_nonopaque:
-            with record_function("trans_depth"):
+            with profiler.span("trans_depth"):
                 trans_depth = self.trans_depth_pass(scene, geo, constants)
         lit = hdr          # float32, before bloom: next frame's SSR and SSGI read it
-        with record_function("post"):
+        with profiler.span("post"):
             image, hdr, avg_lum = self.post(hdr, constants, frame_state, ui_atlas,
                                             ui_sprites)
         state = {"avg_luminance": avg_lum}
@@ -688,7 +688,7 @@ class DeferredRenderer:
         rays_h = decimate2x(rays)
         sky_h = atmosphere.sky_radiance(rays_h, to_light)
         if cfg.use_clouds:
-            with record_function("clouds"):
+            with profiler.span("clouds"):
                 crgb, calpha = clouds.render_clouds(rays_h, to_light, time=constants["time"])
                 sky_h = clouds.composite_clouds(sky_h, crgb, calpha)
         sky = upsample2x_to(sky_h, h, w)

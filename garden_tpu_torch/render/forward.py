@@ -12,11 +12,11 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
-from torch.profiler import record_function
 
 from garden_tpu_torch.core import math3d as m3
 from garden_tpu_torch.core.config import RenderConfig
 from garden_tpu_torch.render import gbuffer, lighting, mesh, raster, tonemap
+from garden_tpu_torch.utils import profiler
 
 Tensor = torch.Tensor
 
@@ -42,15 +42,15 @@ class ForwardRenderer:
         "depth", "tri_id"}, and "hdr" with use_hdr."""
         cfg = self.config
         w, h = cfg.width, cfg.height
-        with record_function("raster"):
+        with profiler.span("raster"):
             world_pos, world_nrm = mesh.transform_vertices(scene, inst_matrices)
             clip = m3.apply_mat4_h(constants["view_proj"], world_pos)
             vis, setup = raster.render_pass(clip, scene["indices"], scene["tri_valid"],
                                             w, h, cfg.tile_size, cfg.max_tris_per_tile)
-        with record_function("gbuffer"):
+        with profiler.span("gbuffer"):
             g = gbuffer.shade_gbuffer(vis, setup, scene, world_pos, world_nrm,
                                       constants=constants)
-        with record_function("lighting"):
+        with profiler.span("lighting"):
             hdr = lighting.resolve(g, constants)
         ldr = tonemap.tone_map(hdr, torch.tensor(exposure, device=hdr.device))
         out = {"image": tonemap.to_uint8(ldr), "depth": vis["depth"],

@@ -11,7 +11,10 @@ Port of `garden_tpu.render.raster`'s main-view and cascade paths:
    short "big" list that every tile draws first; with `priority`, lists
    come out in exact back-to-front order. `bin_triangles_corner` (one
    sorted entry per caster, lists assembled from four neighbour runs) and
-   `bin_big_supertiles` bin the cascade atlas.
+   `bin_big_supertiles` bin the cascade atlas. While a span records
+   (`utils.profiler`), each binning charges it with its (tile, triangle)
+   pairs, `tile_pairs`, and those its `max_per_tile`, active-tile or
+   big-list caps cut off, `tile_pairs_dropped`.
 3. `rasterize_visibility_shaded`: per tile, scan the big list and then the
    tile's own list, keep the nearest hit per pixel, and finish the
    G-buffer planes from the winner's shading record. On a CUDA tensor this
@@ -37,6 +40,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from garden_tpu_torch.utils import profiler
 
 Tensor = torch.Tensor
 
@@ -189,9 +194,22 @@ def bin_triangles(setup: Dict[str, Tensor], width: int, height: int, tile: int,
     tile_tris = torch.where(ok, tile_pay, -1).int()
     counts = torch.clamp(end - start, max=max_per_tile).int()
     big_list = torch.where(slots < big_cnt, big_pay, -1).int()
+    if profiler.recording():
+        # every small triangle's tile entries (key < n_tiles) and one entry
+        # a big triangle; kept: the clamped lists (of the active tiles) and
+        # the big list's slots
+        _count_pairs(edges[n_tiles] + big_cnt,
+                     counts.sum() + torch.clamp(big_cnt, max=max_big))
     if act_ids is not None:
         return tile_tris, counts, big_list, act_ids
     return tile_tris, counts, big_list
+
+
+def _count_pairs(pairs: Tensor, kept: Tensor) -> None:
+    """Charge the recording span with a binning's (tile, triangle) pairs
+    (a big-list entry counts as one) and those its caps dropped."""
+    profiler.count("tile_pairs", pairs)
+    profiler.count("tile_pairs_dropped", pairs - kept)
 
 
 def merge_big_list(tile_tris: Tensor, counts: Tensor, big_list: Tensor
@@ -317,6 +335,10 @@ def bin_triangles_corner(setup: Dict[str, Tensor], width: int, height: int,
     slots = torch.arange(max_big, device=dev)
     big_pay = pay_sorted[torch.clamp(edges[n_tiles] + slots, 0, t - 1)]
     big_list = torch.where(slots < big_cnt, big_pay, -1).int()
+    if profiler.recording():
+        # a small triangle belongs to the nx x ny tiles of its footprint
+        _count_pairs(torch.where(small, nx * ny, 0).sum() + big_cnt,
+                     counts.sum() + torch.clamp(big_cnt, max=max_big))
     if act_ids is not None:
         return tile_tris, counts, big_list, act_ids
     return tile_tris, counts, big_list
@@ -377,6 +399,8 @@ def bin_big_supertiles(setup: Dict[str, Tensor], big_list: Tensor, width: int,
     gather = torch.clamp(gather, 0, pay_sorted.shape[0] - 1)
     sup_tris = torch.where(in_range, pay_sorted[gather], -1).int()
     sup_counts = torch.clamp(end - start, max=cap).int()
+    if profiler.recording():
+        _count_pairs((end - start).sum(), sup_counts.sum())
     return sup_tris, sup_counts, (sup_x, sup_y, sups_x)
 
 

@@ -16,12 +16,13 @@ values.
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from garden_tpu_torch.assets.images import save_png
+from garden_tpu_torch.utils import profiler
 
 
 def host(tree):
@@ -173,11 +174,12 @@ def physics_stats(state: Dict) -> Dict[str, int]:
     return stats
 
 
-def dump_debug_sheet(out: Dict, state: Optional[Dict], profiler,
+def dump_debug_sheet(out: Dict, state: Optional[Dict], spans: Optional[List[Dict]],
                      directory: str, scene: Dict = None) -> Dict:
     """The full `--debug` dump: contact sheet + cascade atlas + stats text
-    + per-pass ms table from a FrameProfiler (editor observability parity,
-    SURVEY.md section 7)."""
+    + per-pass ms table, the mean host ms of each span name in `spans`
+    (`utils.profiler.recorded()`), where given (editor observability
+    parity, SURVEY.md section 7)."""
     os.makedirs(directory, exist_ok=True)
     out, state = host(out), host(state)
     contact_sheet(out, os.path.join(directory, "gbuffer_sheet.png"))
@@ -186,8 +188,9 @@ def dump_debug_sheet(out: Dict, state: Optional[Dict], profiler,
         report["physics"] = physics_stats(state)
         dump_physics_top_view(
             state, os.path.join(directory, "physics_top.png"))
-    if profiler is not None:
-        report["passes_ms"] = profiler.report()
+    if spans is not None:
+        report["passes_ms"] = "\n".join(
+            f"  {name}: {ms:.2f} ms" for name, ms in sorted(profiler.host_ms(spans).items()))
     with open(os.path.join(directory, "stats.txt"), "w") as f:
         for k, v in report.items():
             f.write(f"[{k}]\n{v}\n\n")

@@ -187,21 +187,29 @@ def test_compilation_cache_sets_the_build_dir(tmp_path):
 
 
 def test_profiler_trace_zone_and_pass_timer(tmp_path):
+    """`trace` writes the Chrome trace and the spans of its session; a
+    span is a range of the trace, and the debug sheet's pass table reads
+    the spans' host ms."""
     x = torch.arange(64.0)
     with profiler.trace(str(tmp_path / "trace")) as prof:
-        with profiler.zone("garden_zone"):
-            y = (x * 2).sum()
+        for _ in range(3):
+            with profiler.span("garden_zone"):
+                with profiler.span("sum"):
+                    y = (x * 2).sum()
+    assert float(y) == 4032.0
     names = {e.name for e in prof.events()}
-    assert "garden_zone" in names
+    assert {"garden_zone", "sum"} <= names
     with open(tmp_path / "trace" / profiler.TRACE_FILE, encoding="utf-8") as f:
         assert "garden_zone" in json.dumps(json.load(f))
-    fp = profiler.FrameProfiler(smoothing=0.5)
-    for _ in range(3):
-        with fp.pass_timer("sum", result={"y": [y]}):
-            y = (x * 3).sum()
-        fp.frame_mark()
-    assert fp.averages["sum"] > 0 and fp.frame_ms > 0 and fp.fps > 0
-    assert "sum:" in fp.report() and fp.report().startswith("frame:")
+    with open(tmp_path / "trace" / profiler.SPANS_FILE, encoding="utf-8") as f:
+        spans = json.load(f)
+    assert [s["name"] for s in spans] == ["garden_zone", "sum"] * 3
+    assert len({s["step"] for s in spans}) == 3
+    ms = profiler.host_ms(spans)
+    assert ms["garden_zone"] >= ms["sum"] > 0
+    with profiler.span("untraced"):
+        pass
+    assert "untraced" not in {s["name"] for s in profiler.recorded()}
 
 
 def test_protocol_bytes_match():

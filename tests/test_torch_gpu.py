@@ -19,7 +19,8 @@ equal the row sums of the cull's plain twin (`raster.tile_slot_keep`; for
 the row bands of K1 and K5 over `raster.band_args`, of K7
 `oit.band_keep`, of K2 over `raster.super_lists`, of K3 with
 tiles=act_ids), at two tile shapes and at a frame size that is not a
-multiple of the tile.
+multiple of the tile. The tracer (`utils/profiler`) counts the card's host
+synchronizations per span, and its contact and binning counters add none.
 """
 
 import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
@@ -1168,3 +1169,65 @@ def test_kernels_launch_on_their_tensors_card():
         "rasterize_visibility_shaded": 2, "depth_dense": 2}
     assert images.device == cards[0] and torch.equal(images[0], images[1])
     assert states[1]["physics"]["bodies"]["pos"].device == cards[1]
+
+
+def test_tracer_counts_syncs_and_its_counters_add_none_on_card(cuda):
+    """On the card a root span counts host synchronizations into the
+    innermost open span and restores the sync debug mode on exit; a traced
+    physics step and binning count the same syncs with their counters as
+    without (the counters add reductions, never a read-back); the
+    recorder's times lie within RANGE_SLACK_NS of kineto's events."""
+    import statistics
+    from torch.profiler import ProfilerActivity, profile
+    from garden_tpu_torch import entry
+    from garden_tpu_torch.utils import profiler
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    mode = torch.cuda.get_sync_debug_mode()
+    with profile(activities=acts):
+        with profiler.span("root"):
+            x = torch.tensor([1.0, 2.0], device=cuda)            # a pageable copy
+            with profiler.span("inner"):
+                assert x.sum().item() == 3.0                      # a read-back
+    root, inner = profiler.recorded()[-2:]
+    assert (root["name"], root["counters"]["syncs"]) == ("root", 1)
+    assert (inner["name"], inner["counters"]["syncs"]) == ("inner", 1)
+    assert root["device"] == inner["device"] == torch.cuda.current_device()
+    assert torch.cuda.get_sync_debug_mode() == mode
+
+    world, pcfg, _ = entry.flagship_world(28, grid_dim=8)
+    step = entry.CombinedStep(pcfg, world.shapes.present_types(), None, None, None, 28)
+    state = world.device_state(cuda)
+    for _ in range(8):
+        state = step.physics(state)
+    setup, _ = _scene(3, 60, 320, 200, False)
+    setup = {k: v.to(cuda) for k, v in setup.items()}
+
+    def traced(counting):
+        with pytest.MonkeyPatch.context() as mp:
+            if not counting:
+                mp.setattr(profiler, "recording", lambda: False)
+            first = profiler.RECORDER.next_step
+            with profile(activities=acts) as prof:
+                step.physics(state)
+                with profiler.span("bin"):
+                    raster.bin_triangles(setup, 320, 200, 128, 96, max_big=32,
+                                         tile_h=32, foot=2, foot_y=2)
+            torch.cuda.synchronize()
+        return [s for s in profiler.recorded() if s["step"] >= first], prof
+
+    with_counters, prof = traced(True)
+    without, _ = traced(False)
+    assert [s["name"] for s in with_counters] == [s["name"] for s in without]
+    assert ([s["counters"]["syncs"] for s in with_counters]
+            == [s["counters"]["syncs"] for s in without])
+    phys, binned = with_counters[0], with_counters[-1]
+    assert phys["name"] == "physics" and phys["counters"]["pair_slots"] > 0
+    assert binned["name"] == "bin" and binned["counters"]["tile_pairs"] > 0
+    kin = {e.name(): e for e in prof.profiler.kineto_results.events()
+           if e.is_user_annotation() and e.device_type() == torch.autograd.DeviceType.CPU}
+    edges = []
+    for s in with_counters:
+        e = kin[s["name"]]
+        edges += [abs(e.start_ns() - s["start_ns"]),
+                  abs(e.start_ns() + e.duration_ns() - s["end_ns"])]
+    assert statistics.median(edges) <= 20_000, edges

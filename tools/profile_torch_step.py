@@ -25,7 +25,7 @@ main raster with its hiz, csm_render, csm_resolve, hbao, ssr, ssgi,
 sky_lighting with its clouds and environment, oit, refraction, sorted,
 trans_depth and post with its aa and ui; lod inside the cull; nested
 ranges count inside their parent too; device
-time counts the hand kernels, see `stage_times`) and the
+time counts the hand kernels, see `stage_ms`) and the
 operators with the most device time; the profiler adds host overhead to
 every launch. `--trace` also writes a Chrome trace. `--physics` profiles
 the physics step alone on bench.py's world (10,240 bodies, half spheres;
@@ -41,8 +41,6 @@ stages.
 """
 
 import argparse
-import bisect
-import collections
 import statistics
 import subprocess
 import sys
@@ -51,38 +49,20 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+from benchmark import trace  # noqa: E402
 
-def stage_times(prof, names):
-    """{name: (host ns, device ns)} summed over every occurrence of each
-    named record_function range. A range's device time is that of the
-    kernels and copies whose launch (a `cuda*` or `cu*` API call) starts
-    inside it, matched to the launch by CUPTI's correlation id. The
-    profiler's own `device_time_total` follows the operator tree instead,
-    and so misses every kernel launched outside a PyTorch operator, as the
-    port's hand kernels are (through ctypes)."""
-    from torch.autograd import DeviceType
-    events = prof.profiler.kineto_results.events()
-    dev_ns = collections.Counter()
-    for e in events:
-        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
-            dev_ns[e.correlation_id()] += e.duration_ns()
-    launches = sorted((e.start_ns(), dev_ns[e.correlation_id()]) for e in events
-                      if e.device_type() == DeviceType.CPU and e.name().startswith("cu")
-                      and e.correlation_id() in dev_ns)
-    starts = [t for t, _ in launches]
-    prefix = [0]
-    for _, ns in launches:
-        prefix.append(prefix[-1] + ns)
-    out = {}
-    for e in events:
-        if (e.device_type() != DeviceType.CPU or not e.is_user_annotation()
-                or e.name() not in names):
-            continue
-        lo = bisect.bisect_left(starts, e.start_ns())
-        hi = bisect.bisect_right(starts, e.start_ns() + e.duration_ns())
-        host, dev = out.get(e.name(), (0, 0))
-        out[e.name()] = (host + e.duration_ns(), dev + prefix[hi] - prefix[lo])
-    return {n: out[n] for n in names if n in out}
+
+def stage_ms(prof, names, steps: int):
+    """{name: (host ms, device ms) per step}, in the order of `names`, of
+    each named range summed over its occurrences
+    (`benchmark.trace.stage_times`: a range's device time is that of the
+    kernels and copies whose launch starts inside it, matched by CUPTI's
+    correlation id, so the hand kernels, which launch through ctypes
+    outside any PyTorch operator, count; the profiler's own
+    `device_time_total` misses them)."""
+    got = trace.stage_times(*trace.from_profiler(prof), names)
+    return {n: (got[n][0] / 1e6 / steps, got[n][1] / 1e6 / steps)
+            for n in names if n in got}
 
 
 RENDER_STAGES = ("raster", "lod", "hiz", "csm_render", "csm_resolve", "hbao", "ssr",
@@ -109,37 +89,35 @@ def profile_physics(step, state, steps: int):
                 state = step(state)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
-    stages = {n: (h / 1e6 / steps, d / 1e6 / steps)
-              for n, (h, d) in stage_times(prof, PHYSICS_STAGES).items()}
+    stages = stage_ms(prof, PHYSICS_STAGES, steps)
     return wall, stages["physics"][1], stages
 
 
 def profile_step(step, state, steps: int, temporal: bool = False):
     """Profile `steps` combined steps from `state`: the physics, the
-    instance matrices and the render, each in a range of its own (with
-    `temporal` the renderer also gets the previous step's instance
-    matrices). Returns (wall ms per step, device busy ms per step, {stage:
-    (host ms, device ms) per step}, the profiler); busy counts the kernels
-    and copies launched inside the three top-level ranges."""
+    instance matrices and the render, each in the span the step opens
+    (`physics`, `instance_matrices`, `render`), the instance matrices in a
+    range "instances" too (with `temporal` the renderer also gets the
+    previous step's instance matrices). Returns (wall ms per step, device
+    busy ms per step, {stage: (host ms, device ms) per step}, the
+    profiler); busy counts the kernels and copies launched inside the
+    three top-level ranges."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     prev = step.instance_matrices(state["physics"])
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            with record_function("physics"):
-                phys = step.physics(state["physics"])
+            phys = step.physics(state["physics"])
             with record_function("instances"):
                 mats = step.instance_matrices(phys)
-            with record_function("render"):
-                out = step.render(mats, state["frame"], prev if temporal else None)
+            out = step.render(mats, state["frame"], prev if temporal else None)
             state, prev = {"physics": phys, "frame": out["frame_state"]}, mats
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
     # device time of each stage: the kernels and copies launched inside the
     # stage's range; the rest of the wall time the device sits idle
-    stages = {n: (h / 1e6 / steps, d / 1e6 / steps) for n, (h, d) in stage_times(
-        prof, ("physics", "instances", "render") + RENDER_STAGES).items()}
+    stages = stage_ms(prof, ("physics", "instances", "render") + RENDER_STAGES, steps)
     busy = sum(stages[n][1] for n in ("physics", "instances", "render") if n in stages)
     return wall, busy, stages, prof
 
@@ -157,8 +135,7 @@ def profile_forward(fwd, scene, mats, constants, steps: int):
                 fwd.render(scene, mats, constants)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
-    stages = {n: (h / 1e6 / steps, d / 1e6 / steps)
-              for n, (h, d) in stage_times(prof, ("frame",) + FORWARD_STAGES).items()}
+    stages = stage_ms(prof, ("frame",) + FORWARD_STAGES, steps)
     return wall, stages["frame"][1], stages
 
 
@@ -188,8 +165,7 @@ def profile_engine(frame, state, steps: int):
             state = dict(state, frame=out["frame_state"])
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
-    stages = {n: (h / 1e6 / steps, d / 1e6 / steps) for n, (h, d) in stage_times(
-        prof, ENGINE_STAGES + PHYSICS_STAGES[1:] + RENDER_STAGES).items()}
+    stages = stage_ms(prof, ENGINE_STAGES + PHYSICS_STAGES[1:] + RENDER_STAGES, steps)
     busy = sum(stages[n][1] for n in ("tick", "bake", "render") if n in stages)
     return wall, busy, stages, prof
 
