@@ -58,11 +58,12 @@ def reflect(v: Tensor, n: Tensor) -> Tensor:
 def constant(values, device, dtype=torch.float32) -> Tensor:
     """A tensor of Python values (nested tuples) on `device`, built once per
     device and reused: a copy from host memory at every call would hold the
-    host until the card has drained its queue. Callers must not write to it."""
+    host until the card has drained its queue. Callers must not write to it.
+    None is ever freed: a captured CUDA graph reads it at its address."""
     return _constant(values, str(torch.device(device)), dtype)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _constant(values, device: str, dtype) -> Tensor:
     return torch.tensor(values, dtype=dtype, device=device)
 

@@ -56,6 +56,7 @@ combined step, one world and one frame on each of n devices through
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -85,6 +86,7 @@ from garden_tpu_torch.systems.physics import PhysicsSystem
 from garden_tpu_torch.systems.spawner import SpawnerSystem
 from garden_tpu_torch.systems.transform import TransformSystem, bake_world_matrices
 from garden_tpu_torch.utils import profiler
+from garden_tpu_torch.utils.cuda_graph import GraphedStep
 
 __all__ = ["CombinedStep", "DENSE_SHADOW_OVERRIDES", "EngineFrame", "FEATURE_BOXES",
            "FEATURE_OVERRIDES", "GLASS_BOXES", "GLASS_OVERRIDES", "SLICE_OVERRIDES",
@@ -135,7 +137,10 @@ class CombinedStep:
     """One physics step, instance matrices from the body poses, one frame.
     Its parts are exposed so callers can time or inspect each stage; each
     runs in a span of its name (`physics`, `instance_matrices`, `render`),
-    the whole step in the span `step`."""
+    the whole step in the span `step`. On a card the physics step replays
+    a CUDA graph of `physics.world.step` (`utils.cuda_graph.GraphedStep`,
+    one a state layout; the first call of a layout runs eagerly, the
+    second captures), so a replayed `physics` span opens no stage spans."""
 
     def __init__(self, pcfg: PhysicsConfig, present_types: frozenset,
                  renderer: DeferredRenderer, scene: Dict[str, torch.Tensor],
@@ -151,10 +156,12 @@ class CombinedStep:
         self.environment: Optional[torch.Tensor] = None
         self.ui_atlas: Optional[torch.Tensor] = None
         self.ui_sprites: Optional[Dict[str, Any]] = None
+        self.physics_step = GraphedStep(functools.partial(
+            pw.step, config=pcfg, dt=1.0 / 60.0, present_types=present_types))
 
     def physics(self, phys: Dict[str, Any]) -> Dict[str, Any]:
         with profiler.span("physics"):
-            out = pw.step(phys, self.pcfg, 1.0 / 60.0, self.present_types)
+            out = self.physics_step(phys)
             pw.count_contacts(out)
         return out
 

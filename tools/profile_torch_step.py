@@ -16,8 +16,9 @@ matrices; `--features`: the feature frame, `entry.build_feature_frame`:
 slot-binned cascades, textures, the environment map and the HUD;
 `--bench-frame`: bench.py's world with LOD spheres,
 `entry.build_bench_frame`) and warms it up. First, without the profiler, it prints the median wall
-time (host clock, synchronized) of the physics step, the render and the
-whole step over 10 runs each. Then it profiles `--steps` steps with
+time (host clock, synchronized) of the physics step (as the combined step
+replays it, and as the eager `world.step`), the render and the whole step
+over 10 runs each. Then it profiles `--steps` steps with
 torch.profiler and prints the wall time per step, the device's busy time
 (kernel and copy time, and its share of the wall time), the host and
 device time of each stage (physics, instance matrices, and the render's
@@ -25,7 +26,9 @@ main raster with its hiz, csm_render, csm_resolve, hbao, ssr, ssgi,
 sky_lighting with its clouds and environment, oit, refraction, sorted,
 trans_depth and post with its aa and ui; lod inside the cull; nested
 ranges count inside their parent too; device
-time counts the hand kernels, see `stage_ms`) and the
+time counts the hand kernels, see `stage_ms`), the physics stages of the
+eager step (`profile_physics`: on a card the combined step replays its
+physics as a CUDA graph, which opens no stage range) and the
 operators with the most device time; the profiler adds host overhead to
 every launch. `--trace` also writes a Chrome trace. `--physics` profiles
 the physics step alone on bench.py's world (10,240 bodies, half spheres;
@@ -76,8 +79,10 @@ PHYSICS_STAGES = ("physics", "collide", "broadphase", "narrowphase", "contact_co
 
 def profile_physics(step, state, steps: int):
     """Profile `steps` calls of step(state) -> state, each inside a
-    "physics" range; the port's physics step opens the other stage ranges
-    itself. Returns (wall ms per step, device busy ms per step, {stage:
+    "physics" range. `step` is the eager physics step (`physics.world.step`
+    with its config bound, `eager_physics`), which opens the other stage
+    ranges itself; `CombinedStep.physics` replays a CUDA graph on a card and
+    opens none. Returns (wall ms per step, device busy ms per step, {stage:
     (host ms, device ms) per step}); busy counts the kernels and copies
     launched inside the "physics" ranges."""
     import torch
@@ -91,6 +96,13 @@ def profile_physics(step, state, steps: int):
         wall = (time.perf_counter() - t0) * 1e3 / steps
     stages = stage_ms(prof, PHYSICS_STAGES, steps)
     return wall, stages["physics"][1], stages
+
+
+def eager_physics(step):
+    """The combined step's physics as an eager `physics.world.step`, which
+    opens its stage ranges (the combined step replays it as a graph)."""
+    from garden_tpu_torch.physics import world as pw
+    return lambda s: pw.step(s, step.pcfg, 1.0 / 60.0, step.present_types)
 
 
 def profile_step(step, state, steps: int, temporal: bool = False):
@@ -281,10 +293,11 @@ def main() -> int:
         return statistics.median(times)
     mats = step.instance_matrices(state["physics"])
     phys_ms = wall_ms(lambda: step.physics(state["physics"]))
+    eager_ms = wall_ms(lambda: eager_physics(step)(state["physics"]))
     render_ms = wall_ms(lambda: step.render(mats, state["frame"]))
     step_ms = wall_ms(lambda: step(state))
-    print(f"no profiler, median of 10: physics {phys_ms:.3f} ms, render "
-          f"{render_ms:.3f} ms, combined step {step_ms:.3f} ms")
+    print(f"no profiler, median of 10: physics {phys_ms:.3f} ms (eager {eager_ms:.3f}), "
+          f"render {render_ms:.3f} ms, combined step {step_ms:.3f} ms")
 
     prof_ms, busy_ms, stages, prof = profile_step(step, state, args.steps, args.temporal)
     print(f"profiled: wall per step {prof_ms:.3f} ms; device busy {busy_ms:.3f} ms "
@@ -292,6 +305,9 @@ def main() -> int:
     for name, (host, dev) in stages.items():
         indent = "" if name in ("physics", "instances", "render") else "  "
         print(f"{indent}stage {name}: host {host:.3f} ms, device {dev:.3f} ms per step")
+    _, _, phys_stages = profile_physics(eager_physics(step), state["physics"], args.steps)
+    for name, (host, dev) in phys_stages.items():
+        print(f"  eager physics stage {name}: host {host:.3f} ms, device {dev:.3f} ms per step")
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25,
                                     max_name_column_width=60))
     if args.trace:
