@@ -16,7 +16,13 @@ the atmosphere and FXAA off.
 glass step: the flagship frame whose boxes take, in rotation, opaque,
 weighted-blended OIT, sorted (back-to-front) and refractive materials, with
 the trans-depth pass on, so one frame runs every non-opaque pass and the
-translucent shadow map.
+translucent shadow map. `cfg_overrides=WORLD_SIM_OVERRIDES` adds the
+volumetric clouds and their shadow to the glass step: with
+`box_materials=GLASS_BOXES` and `camera=WORLD_SIM_CAMERA`, a camera low
+enough that the upper half of the frame is sky, it is the combined world
+sim (10K bodies under a cloudy sky, every non-opaque pass, the split
+shadow atlas). `build` takes any camera as `camera=(eye, target)`; the
+default is the flagship's, which sees no sky.
 
 `cfg_overrides=ULTRA_OVERRIDES` is the `ultra` quality preset: volumetric
 clouds with their shadow, SSR and SSGI, and the dense 3x2048 shadow atlas
@@ -90,7 +96,8 @@ from garden_tpu_torch.utils.cuda_graph import GraphedStep
 
 __all__ = ["CombinedStep", "DENSE_SHADOW_OVERRIDES", "EngineFrame", "FEATURE_BOXES",
            "FEATURE_OVERRIDES", "GLASS_BOXES", "GLASS_OVERRIDES", "SLICE_OVERRIDES",
-           "TEMPORAL_OVERRIDES", "ULTRA_OVERRIDES", "build", "build_bench_frame",
+           "TEMPORAL_OVERRIDES", "ULTRA_OVERRIDES", "WORLD_SIM_CAMERA",
+           "WORLD_SIM_OVERRIDES", "build", "build_bench_frame",
            "build_engine_frame", "build_feature_frame", "build_forward",
            "dryrun_multichip"]
 
@@ -109,6 +116,12 @@ _REFRACT = rmesh.Material(base_color=(0.9, 1.0, 0.9), roughness=0.1,
 GLASS_BOXES = (BOX_MATERIAL, _OIT, BOX_MATERIAL, _SORTED, BOX_MATERIAL, _REFRACT,
                BOX_MATERIAL, BOX_MATERIAL)
 GLASS_OVERRIDES = dict(use_trans_depth=True)
+# the glass step under the clouds; the flagship camera's top row points
+# 0.2 deg below the horizon, so none of its half-res sky rays reaches the
+# cloud layer (mu > 0.02): WORLD_SIM_CAMERA, at the pile's mid-height in
+# front of it, sees sky on 54% of them and still frames the whole pile
+WORLD_SIM_OVERRIDES = dict(GLASS_OVERRIDES, use_clouds=True)
+WORLD_SIM_CAMERA = ((0.0, 6.0, 45.0), (0.0, 9.0, 0.0))
 
 ULTRA_OVERRIDES = dict(QUALITY_PRESETS["ultra"])
 TEMPORAL_OVERRIDES = dict(use_velocity=True, use_occlusion_culling=True, aa_mode="smaa")
@@ -245,12 +258,18 @@ def _render_config(width: int, height: int, tile_size: int, max_vertices: int,
     return RenderConfig(**rkwargs)
 
 
-def _flagship_camera(side: int, width: int, height: int, device) -> Dict[str, torch.Tensor]:
+def _flagship_camera(side: int, width: int, height: int, device,
+                     camera: Optional[Tuple[Sequence[float], Sequence[float]]] = None
+                     ) -> Dict[str, torch.Tensor]:
     """The flagship's constants: a camera above and in front of a pile
-    `side` bodies wide, looking at the origin, and its sun."""
+    `side` bodies wide, looking at the origin, or at `camera` (eye,
+    target) when given, and its sun."""
     vec = lambda *c: torch.tensor(c, dtype=torch.float32, device=device)
-    eye = vec(0.0, side * 0.9 + 4.0, side * 1.6 + 8.0)
-    view = m3.look_at(eye, vec(0.0, 0.0, 0.0), vec(0.0, 1.0, 0.0))
+    if camera is None:
+        eye, target = vec(0.0, side * 0.9 + 4.0, side * 1.6 + 8.0), vec(0.0, 0.0, 0.0)
+    else:
+        eye, target = (vec(*(float(c) for c in p)) for p in camera)
+    view = m3.look_at(eye, target, vec(0.0, 1.0, 0.0))
     proj = m3.perspective_reverse_z(1.0, width / height, 0.1, device=device)
     return common_constants(eye, view, proj, vec(0.4, -0.7, -0.5),
                             (width, height), 0.0, 1.0 / 60.0)
@@ -270,12 +289,15 @@ def build(n_bodies: int, width: int, height: int, grid_dim: int = 16,
           cell_size: float = 2.0, tile_size: int = 128,
           cfg_overrides: Optional[dict] = None, *, device,
           box_materials: Optional[Tuple[rmesh.Material, ...]] = None,
-          textures: Sequence[np.ndarray] = ()
+          textures: Sequence[np.ndarray] = (),
+          camera: Optional[Tuple[Sequence[float], Sequence[float]]] = None
           ) -> Tuple[CombinedStep, Dict[str, Any]]:
     """The combined step and its initial state on `device`. Dynamic box k
     takes box_materials[k % len(box_materials)] (default: the flagship's
     one material); `textures` (square RGBA images of one size) fill the
-    scene's texture array, in order, for Material.base_texture."""
+    scene's texture array, in order, for Material.base_texture; `camera`
+    (eye, target), world points, places the camera (default: the
+    flagship's, above and in front of the pile, looking at the origin)."""
     w, pcfg, side = flagship_world(n_bodies, grid_dim, cell_size)
     n_dyn = n_bodies - 1
     cube_mesh = rmesh.cube(0.45)
@@ -301,7 +323,8 @@ def build(n_bodies: int, width: int, height: int, grid_dim: int = 16,
     for k in range(n_dyn):
         scene.add_instance(cube_mesh, material=rows[box_materials[k % len(box_materials)]])
     return _combined_step(w.device_state(device), pcfg, w.shapes.present_types(), rcfg,
-                          scene, _flagship_camera(side, width, height, device), device)
+                          scene, _flagship_camera(side, width, height, device, camera),
+                          device)
 
 
 # the reference's multichip dryrun: its tiny combined step, shadows scaled

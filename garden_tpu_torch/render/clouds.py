@@ -7,6 +7,11 @@ scrolled by the wind; lighting is Beer-Lambert toward the sun (two taps
 along the light ray) with a powder term and an ambient floor. The result
 is composited over the sky by alpha. `cloud_shadow` attenuates sunlight at
 ground points by the density where their sun ray meets the cloud base.
+
+While a profiler records, `render_clouds` charges the open span with
+`cloud_rays`, the rays it marches, and `cloud_rays_up`, those above the
+horizon (mu > 0.02; a 0-d device tensor): every ray is marched, and only
+those see the layer.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 
 from garden_tpu_torch.core import math3d as m3
 from garden_tpu_torch.ops import noise
+from garden_tpu_torch.utils import profiler
 
 Tensor = torch.Tensor
 
@@ -51,6 +57,9 @@ def render_clouds(view_dir: Tensor, sun_dir_to_light: Tensor, camera_height: flo
 
     mu = v[..., 1]
     up = mu > 0.02                      # only above the horizon
+    if profiler.recording():
+        profiler.count("cloud_rays", up.numel())
+        profiler.count("cloud_rays_up", up.sum())
     mu_safe = torch.where(up, torch.clamp(mu, min=0.02), 1.0)
     # a Python number over a tensor divides truly here, as in the reference
     # (`number / tensor` would multiply by the reciprocal)

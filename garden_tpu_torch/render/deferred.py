@@ -611,7 +611,7 @@ class DeferredRenderer:
         with profiler.span("sky_lighting"):
             if (environment is None and cfg.use_atmosphere and cfg.use_clouds
                     and shadow is not None):
-                with profiler.span("clouds"):
+                with profiler.span("cloud_shadow"):
                     shadow = self.cloud_shadow(g, constants, shadow)
             hdr = self.shade(g, constants, shadow, ao, ssr_rgb, ssr_conf, gi,
                              environment)

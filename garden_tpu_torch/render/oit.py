@@ -10,7 +10,9 @@ in front, `raster.merge_big_list`). CUDA tensors launch the hand-written
 kernel in `csrc/blend_raster.cu`; CPU tensors take `oit_plain`, the same
 computation in PyTorch. The kernel runs each tile as row bands of
 `OIT_PIXELS` pixels a thread and culls each band's slots exactly;
-`band_keep` is that cull's plain twin.
+`band_keep` is that cull's plain twin. While a span records, the call
+counts the band grid's slots and those the cull keeps
+(`raster.launch_counted`).
 """
 
 from __future__ import annotations
@@ -192,7 +194,12 @@ def rasterize_oit(setup: Dict[str, Tensor], tri_colors: Tensor, tile_tris: Tenso
     `launches` counts kernel launches."""
     args = oit_args(setup, tri_colors, tile_tris, counts, opaque_depth, width,
                     height, tile)
-    return raster._on_device("rasterize_oit", args[0], oit_cuda, oit_plain)(*args)
+
+    def cull():
+        lists, n = band_lists(*args[1:3], width, height, tile)
+        return (args[0], lists, n, lists[0, :0], width, height, tile, band_rows(tile),
+                (), "vertex")
+    return raster.launch_counted("rasterize_oit", args, oit_cuda, oit_plain, cull)
 
 
 rasterize_oit.launches = 0

@@ -24,7 +24,10 @@ Port of `garden_tpu.render.raster`'s main-view and cascade paths:
    visibility, same source; `visibility_plain`).
 4. `rasterize_sorted_blend`: source-over blend of one rgba per triangle in
    bin order (kernel sorted_blend in `csrc/blend_raster.cu`;
-   `blend_plain`).
+   `blend_plain`). While a span records, it, `rasterize_visibility` and
+   `oit.rasterize_oit` charge it with `blend_slots`, the (row, slot) pairs
+   their kernel tests on its cull grid, and `blend_slots_kept`, those its
+   exact cull keeps (`launch_counted`).
 5. `rasterize_depth`: the max-reduce depth raster, dense (kernel
    depth_dense) or split (depth_super, then depth_grid), from
    `csrc/depth_raster.cu`, each with its plain version.
@@ -807,8 +810,8 @@ def rasterize_visibility(setup: Dict[str, Tensor], tile_tris: Tensor,
     `visibility_plain`; `launches` counts kernel launches."""
     args = visibility_args(setup, tile_tris, counts, big_list, width, height,
                            tile, tile_h)
-    return _on_device("rasterize_visibility", args[0], visibility_cuda,
-                      visibility_plain)(*args)
+    return launch_counted("rasterize_visibility", args, visibility_cuda, visibility_plain,
+                          lambda: (*band_args(args)[:8], (), "edge"))
 
 
 rasterize_visibility.launches = 0
@@ -1011,8 +1014,8 @@ def rasterize_sorted_blend(setup: Dict[str, Tensor], tri_rgba: Tensor,
     tensors take `blend_plain`; `launches` counts kernel launches."""
     args = blend_args(setup, tri_rgba, tile_tris, counts, big_list, opaque_depth,
                       hdr, width, height, tile, atlas_bounds, tri_atlas, tile_h)
-    return _on_device("rasterize_sorted_blend", args[0], blend_cuda,
-                      blend_plain)(*args)
+    return launch_counted("rasterize_sorted_blend", args, blend_cuda, blend_plain,
+                          lambda: (*args[:4], *args[6:11], "vertex"))
 
 
 rasterize_sorted_blend.launches = 0
@@ -1607,6 +1610,39 @@ def _on_device(name: str, x: Tensor, cuda_fn, plain_fn):
     if x.device.type == "cpu":
         return plain_fn
     raise ValueError(f"{name}: no path for device {x.device}")
+
+
+def named_slots(lists: Tensor, counts: Tensor, big_list: Tensor) -> Tensor:
+    """0-d int64: the (row, slot) pairs a culled kernel tests over the rows
+    of `lists`: each row's scanned slots (its used 16-slot blocks) that name
+    a triangle, and the big list's named slots once a row. `tile_slot_keep`
+    keeps a subset of them."""
+    slot = torch.arange(lists.shape[1], device=lists.device)
+    scanned = slot[None, :] < _blocks_of(counts)[:, None] * TRI_BLOCK
+    return (scanned & (lists >= 0)).sum() + (big_list >= 0).sum() * lists.shape[0]
+
+
+def launch_counted(name: str, args: tuple, cuda_fn, plain_fn, cull):
+    """`_on_device(name, args[0], cuda_fn, plain_fn)(*args)`; while a span
+    records, also the slot counters of a culled blend-family kernel (K5,
+    K6, K7): `blend_slots`, `named_slots` over its cull grid (`cull()`, the
+    arguments of `tile_slot_keep`), and `blend_slots_kept`, the slots its
+    cull keeps, 0-d device tensors. On a card the kernel writes its own
+    per-row kept counts (its `kept` output, passed only while recording);
+    elsewhere they are the plain twin's, `tile_slot_keep`'s mask."""
+    fn = _on_device(name, args[0], cuda_fn, plain_fn)
+    if not profiler.recording():
+        return fn(*args)
+    c = cull()
+    if fn is cuda_fn:
+        kept = torch.zeros(c[1].shape[0], dtype=torch.int32, device=args[0].device)
+        out = fn(*args, kept=kept)
+    else:
+        out = fn(*args)
+        kept = tile_slot_keep(*c)
+    profiler.count("blend_slots", named_slots(*c[1:4]))
+    profiler.count("blend_slots_kept", kept.sum())
+    return out
 
 
 def depth_super(records: Tensor, *args) -> Tensor:

@@ -2,8 +2,8 @@
 """Profile the PyTorch port's combined step on one CUDA card.
 
     python3 tools/profile_torch_step.py [--steps 3]
-        [--slice | --glass | --ultra | --temporal | --physics | --forward |
-         --features | --bench-frame | --engine] [--trace trace.json]
+        [--slice | --glass | --ultra | --temporal | --world-sim | --physics |
+         --forward | --features | --bench-frame | --engine] [--trace trace.json]
 
 Builds the full-size combined step (10,240 bodies, 1920x1080) with the
 flagship's passes (`--slice`: the first slice's pass set, SLICE_OVERRIDES;
@@ -12,7 +12,9 @@ whose frame adds the OIT, refraction, sorted and trans-depth passes and
 the translucent shadow map; `--ultra`: the ultra preset, ULTRA_OVERRIDES:
 clouds, SSR, SSGI and the dense atlas; `--temporal`: TEMPORAL_OVERRIDES,
 velocity, Hi-Z and SMAA, the renderer given the previous step's instance
-matrices; `--features`: the feature frame, `entry.build_feature_frame`:
+matrices; `--world-sim`: the combined world sim, the glass step under the
+clouds (WORLD_SIM_OVERRIDES, GLASS_BOXES) seen from WORLD_SIM_CAMERA, which
+sees sky; `--features`: the feature frame, `entry.build_feature_frame`:
 slot-binned cascades, textures, the environment map and the HUD;
 `--bench-frame`: bench.py's world with LOD spheres,
 `entry.build_bench_frame`) and warms it up. First, without the profiler, it prints the median wall
@@ -23,7 +25,7 @@ torch.profiler and prints the wall time per step, the device's busy time
 (kernel and copy time, and its share of the wall time), the host and
 device time of each stage (physics, instance matrices, and the render's
 main raster with its hiz, csm_render, csm_resolve, hbao, ssr, ssgi,
-sky_lighting with its clouds and environment, oit, refraction, sorted,
+sky_lighting with its cloud_shadow, clouds and environment, oit, refraction, sorted,
 trans_depth and post with its aa and ui; lod inside the cull; nested
 ranges count inside their parent too; device
 time counts the hand kernels, see `stage_ms`), the physics stages of the
@@ -69,8 +71,8 @@ def stage_ms(prof, names, steps: int):
 
 
 RENDER_STAGES = ("raster", "lod", "hiz", "csm_render", "csm_resolve", "hbao", "ssr",
-                 "ssgi", "sky_lighting", "clouds", "environment", "oit", "refraction",
-                 "sorted", "trans_depth", "post", "aa", "ui")
+                 "ssgi", "sky_lighting", "cloud_shadow", "clouds", "environment", "oit",
+                 "refraction", "sorted", "trans_depth", "post", "aa", "ui")
 FORWARD_STAGES = ("raster", "gbuffer", "lighting")
 PHYSICS_STAGES = ("physics", "collide", "broadphase", "narrowphase", "contact_compact",
                   "warm_match", "solve_velocity", "constraints", "integrate",
@@ -198,6 +200,9 @@ def main() -> int:
                        help="profile the ultra preset (ULTRA_OVERRIDES)")
     which.add_argument("--temporal", action="store_true",
                        help="profile the temporal pass set (TEMPORAL_OVERRIDES)")
+    which.add_argument("--world-sim", action="store_true",
+                       help="profile the combined world sim (WORLD_SIM_OVERRIDES, "
+                            "GLASS_BOXES, WORLD_SIM_CAMERA)")
     which.add_argument("--forward", action="store_true",
                        help="profile the forward renderer over the flagship scene")
     which.add_argument("--features", action="store_true",
@@ -217,7 +222,8 @@ def main() -> int:
     print(f"card: {card.splitlines()[0]}")
 
     from garden_tpu_torch.entry import (GLASS_BOXES, GLASS_OVERRIDES, SLICE_OVERRIDES,
-                                        TEMPORAL_OVERRIDES, ULTRA_OVERRIDES, build,
+                                        TEMPORAL_OVERRIDES, ULTRA_OVERRIDES,
+                                        WORLD_SIM_CAMERA, WORLD_SIM_OVERRIDES, build,
                                         build_bench_frame, build_engine_frame,
                                         build_feature_frame, build_forward)
     if args.physics:
@@ -269,6 +275,9 @@ def main() -> int:
         name, kw = "ultra", dict(cfg_overrides=ULTRA_OVERRIDES)
     elif args.temporal:
         name, kw = "temporal", dict(cfg_overrides=TEMPORAL_OVERRIDES)
+    elif args.world_sim:
+        name, kw = "world sim", dict(cfg_overrides=WORLD_SIM_OVERRIDES, box_materials=GLASS_BOXES,
+                                     camera=WORLD_SIM_CAMERA)
     elif args.features:
         name, kw, builder = "feature frame", dict(grid_dim=64), build_feature_frame
     elif args.bench_frame:
