@@ -76,8 +76,8 @@ o. time the bench world's physics step and its stages (collide, broadphase,
    (`tools/profile_torch_step.profile_physics`);
 then the ultra and temporal pass sets (plain PyTorch passes around K1-K4):
 p. the ultra preset (`ULTRA_OVERRIDES`: clouds, SSR, SSGI, the dense
-   3x2048 atlas with a 5x5 PCF) at full size for 3 steps: K1 and K4 once a
-   step, K2 and K3 never; from step 2 on SSR confidence above 0 on some
+   3x2048 atlas with a 5x5 PCF) at full size for 3 steps: K1, K4, the cloud
+   march and the cloud shadow once a step, K2 and K3 never; from step 2 on SSR confidence above 0 on some
    visible pixels, GI above 0, cloud alpha above 0 over the sky (the
    frame's sky above the clouds' horizon, where it has any, and a dome of
    sky rays: the flagship camera's top row looks just below the horizon)
@@ -98,6 +98,13 @@ s. timings: the ultra and temporal steps and renders, their ssr, ssgi,
    clouds, hiz and aa stages, potato and low at full size, and the ultra
    step under the profiler (device busy share, stage host and device
    times); the run's time before phase p and after phase s;
+cl. the cloud kernels (`csrc/clouds.cu`) at the world sim's shapes: the
+   518,400 half-res view rays of `entry.WORLD_SIM_CAMERA` at 1920x1080 and
+   the ground points under them: the march and the shadow each equal to
+   its plain version on the card (every value, NaN as NaN), the rays at
+   or below the clouds' horizon 0, one launch a call (the kernels line
+   takes their launches from phase p); each kernel's
+   device time, one call of its plain version, and its bound;
 then the rest of render (plain PyTorch around K1-K5):
 t. the forward renderer (`entry.build_forward`: the flagship scene and
    camera, `raster.render_pass` on 128x128 tiles) for one frame: K5 once
@@ -242,8 +249,12 @@ KERNELS = {   # name -> (route, source, the TPU kernel it replaces)
                      "garden_tpu/render/raster.py:1076"),
     "oit": ("cuda", "garden_tpu_torch/csrc/blend_raster.cu",
             "garden_tpu/render/oit.py:31"),
+    "cloud_march": ("cuda", "garden_tpu_torch/csrc/clouds.cu",
+                    "none: garden_tpu/render/clouds.py:render_clouds is jnp ops"),
+    "cloud_shadow": ("cuda", "garden_tpu_torch/csrc/clouds.cu",
+                     "none: garden_tpu/render/clouds.py:cloud_shadow is jnp ops"),
 }
-SOURCES = ["raster_shade", "depth_raster", "blend_raster"]
+SOURCES = ["raster_shade", "depth_raster", "blend_raster", "clouds"]
 TOL_GBUF = 2e-5            # K1's G-buffer planes (rsqrt may differ by an ulp)
 # physics on the card against the CPU: positions after 3 steps of the bench
 # world from BENCH_SETTLE steps in (as phase 5b), and its normal impulses then
@@ -293,6 +304,18 @@ OPS_DEPTH_EDGE, OPS_DEPTH_INSIDE = 13, 9
 # e2's 2 subtracts and its test) = 37; the rect lookup over three rects 15,
 # its miss and inside tests 9 -> +24.
 OPS_CULL_VERTEX, OPS_CULL_EDGE, OPS_CULL_RECT = 36, 37, 24
+# The cloud kernels' operations, counted from their plain versions as
+# benchmark/metrics/clouds_roofline_pct.sim.py counts them: a density
+# evaluation 3,993 (int64 ops emulating the uint32 hash: the kernel's
+# native uint32 avalanche takes 6 of its 13 ops, over 97 hashes, and
+# skips the dead (g == 12) | (g == 14) test and 24 subtractions of 0,
+# ~3,240 in all, so these bounds read ~19% high); a march step three of them and 48 more, only on the
+# rays above the horizon, and 69 a ray for its set-up, tints and fade; a
+# shadow point two and 17. A ray or point reads 12 bytes; the march writes
+# 16 a ray, the shadow 4 a point.
+OPS_DENSITY = 3993
+OPS_MARCH_STEP, OPS_MARCH_RAY = 3 * OPS_DENSITY + 48, 69
+OPS_SHADOW_POINT = 2 * OPS_DENSITY + 17
 SPIN_CYCLES = 4_000_000    # ~2 ms of the card's clock, ahead of a timed kernel
 
 
@@ -1018,7 +1041,8 @@ def pass_set_phases(card: str, results: dict, t_start: float) -> None:
 
     kernels = {"raster_shade": raster.rasterize_visibility_shaded,
                "depth_super": raster.depth_super, "depth_grid": raster.depth_grid,
-               "depth_dense": raster.depth_dense}
+               "depth_dense": raster.depth_dense, "cloud_march": clouds.render_clouds,
+               "cloud_shadow": clouds.cloud_shadow}
 
     def zero_counts():
         for fn in kernels.values():
@@ -1046,8 +1070,11 @@ def pass_set_phases(card: str, results: dict, t_start: float) -> None:
     ulaunch = {k: fn.launches for k, fn in kernels.items()}
     print(f"phase p: 3 ultra steps, launches {ulaunch}")
     check(ulaunch == {"raster_shade": 3, "depth_super": 0, "depth_grid": 0,
-                      "depth_dense": 3},
-          "phase p: the ultra step did not run K1 and K4 once per step (and K2, K3 never)")
+                      "depth_dense": 3, "cloud_march": 3, "cloud_shadow": 3},
+          "phase p: the ultra step did not run K1, K4 and the cloud kernels once per "
+          "step (and K2, K3 never)")
+    for k in ("cloud_march", "cloud_shadow"):
+        results[k] = dict(launches=ulaunch[k], launches_by_path={"ultra (3 steps)": ulaunch[k]})
     to_light = -uc["light_dir"]
     dome, ground = dome_rays(64, "cuda"), ground_grid(64, 10.0, "cuda")
     for i, (umats, frame_in, uout) in enumerate(frames[1:], start=2):
@@ -1099,8 +1126,9 @@ def pass_set_phases(card: str, results: dict, t_start: float) -> None:
     tlaunch = {k: fn.launches for k, fn in kernels.items()}
     print(f"phase q: 3 temporal steps, launches {tlaunch}")
     check(tlaunch == {"raster_shade": 3, "depth_super": 3, "depth_grid": 3,
-                      "depth_dense": 0},
-          "phase q: the temporal step did not run K1, K2 and K3 once per step")
+                      "depth_dense": 0, "cloud_march": 0, "cloud_shadow": 0},
+          "phase q: the temporal step did not run K1, K2 and K3 once per step "
+          "(and K4 and the cloud kernels never)")
     # K1 on the last step's inputs, the velocity planes (16, 17) live
     targs = raster.kernel_args(**trend.raster_inputs(
         tstep.scene, tmats, tc, frame_state=tframe, prev_inst_matrices=tprev))
@@ -1209,6 +1237,56 @@ def pass_set_phases(card: str, results: dict, t_start: float) -> None:
     for name, (host, dev) in stages.items():
         print(f"phase s:   stage {name}: host {host:.3f} ms, device {dev:.3f} ms per step")
     print(f"chip_smoke: phases 1-s took {time.perf_counter() - t_start:.1f} s")
+
+
+def cloud_phase(card: str, results: dict) -> None:
+    """Phase cl: the cloud march and shadow kernels at the world sim's
+    shapes against their plain versions, their device time, one call of
+    each plain version, and their bounds, into `results` (whose launches
+    phase p counted on the ultra step)."""
+    import torch
+    from garden_tpu_torch.core import math3d as m3
+    from garden_tpu_torch.entry import world_sim_cloud_inputs
+    from garden_tpu_torch.render import clouds
+    rays_h, sun, t, ground = world_sim_cloud_inputs("cuda", WIDTH, HEIGHT)
+    up = m3.normalize(rays_h)[..., 1] > 0.02
+    n_up, n_rays, n_ground = int(up.sum()), up.numel(), ground.shape[0] * ground.shape[1]
+    march0, shadow0 = clouds.render_clouds.launches, clouds.cloud_shadow.launches
+    rgb, alpha = clouds.render_clouds(rays_h, sun, time=t)
+    shadow = clouds.cloud_shadow(ground, sun, time=t)
+    launches = {"cloud_march": clouds.render_clouds.launches - march0,
+                "cloud_shadow": clouds.cloud_shadow.launches - shadow0}
+    p_rgb, p_alpha = clouds.render_clouds_plain(rays_h, sun, time=t)
+    p_shadow = clouds.cloud_shadow_plain(ground, sun, time=t)
+    torch.cuda.synchronize()
+    err = {"cloud_march": max(max_diff(rgb, p_rgb), max_diff(alpha, p_alpha)),
+           "cloud_shadow": max_diff(shadow, p_shadow)}
+    print(f"phase cl: {n_up} of {n_rays} rays above the horizon; launches {launches}; "
+          f"max |d| {err}; same bits: rgb {same_bits(rgb, p_rgb)}, alpha "
+          f"{same_bits(alpha, p_alpha)}, shadow {same_bits(shadow, p_shadow)}")
+    check(launches == {"cloud_march": 1, "cloud_shadow": 1},
+          "phase cl: a cloud kernel did not launch once a call")
+    check(torch.equal(rgb, p_rgb) and torch.equal(alpha, p_alpha),
+          "phase cl: the march differs from its plain version")
+    check(torch.equal(shadow, p_shadow), "phase cl: the shadow differs from its plain version")
+    check(bool((rgb[~up] == 0).all() and (alpha[~up] == 0).all()),
+          "phase cl: a ray below the clouds' horizon drew a cloud")
+    check(0 < n_up < n_rays and float(alpha[up].max()) > 0.05 and float(shadow.min()) < 1.0,
+          "phase cl: the clouds drew nothing")
+    steps = 10
+    bounds = {"cloud_march": bound(n_up * (steps * OPS_MARCH_STEP + OPS_MARCH_RAY),
+                                   n_rays * (12 + 16)),
+              "cloud_shadow": bound(n_ground * OPS_SHADOW_POINT, n_ground * (12 + 4))}
+    ms = {"cloud_march": kernel_ms(lambda: clouds.render_clouds(rays_h, sun, time=t)),
+          "cloud_shadow": kernel_ms(lambda: clouds.cloud_shadow(ground, sun, time=t))}
+    plain = {"cloud_march": cuda_ms(lambda: clouds.render_clouds_plain(rays_h, sun, time=t),
+                                    reps=3),
+             "cloud_shadow": cuda_ms(lambda: clouds.cloud_shadow_plain(ground, sun, time=t),
+                                     reps=3)}
+    for k in ms:
+        print(f"phase cl: {k} kernel, device median {ms[k]:.4f} ms, plain {plain[k]:.4f} ms, "
+              f"bound {bounds[k]}  [{card}]")
+        results[k].update(max_abs_err=err[k], ms=ms[k], plain_ms=plain[k], **bounds[k])
 
 
 def rel_diff(a, b) -> float:
@@ -2783,6 +2861,7 @@ def main() -> int:
         results[k]["launches_by_path"] = {path: n}
     physics_phases(card)
     pass_set_phases(card, results, t_start)
+    cloud_phase(card, results)
     feature_phases(card, results, t_start)
     engine_phases(card, results, t_start)
     batch = world_batch_phase(card)

@@ -77,7 +77,8 @@ from garden_tpu_torch.parallel.worlds import WorldBatch
 from garden_tpu_torch.physics import scenes
 from garden_tpu_torch.physics import shapes as psh
 from garden_tpu_torch.physics import world as pw
-from garden_tpu_torch.render import atmosphere, ibl
+from garden_tpu_torch.ops.blur import decimate2x
+from garden_tpu_torch.render import atmosphere, ibl, lighting
 from garden_tpu_torch.render import mesh as rmesh
 from garden_tpu_torch.render import sprites as rsprites
 from garden_tpu_torch.render import text as rtext
@@ -99,7 +100,7 @@ __all__ = ["CombinedStep", "DENSE_SHADOW_OVERRIDES", "EngineFrame", "FEATURE_BOX
            "TEMPORAL_OVERRIDES", "ULTRA_OVERRIDES", "WORLD_SIM_CAMERA",
            "WORLD_SIM_OVERRIDES", "build", "build_bench_frame",
            "build_engine_frame", "build_feature_frame", "build_forward",
-           "dryrun_multichip"]
+           "dryrun_multichip", "world_sim_cloud_inputs"]
 
 # the reference-parity shadow preset: the dense depth raster over a
 # 6144x2048 atlas of 128x128 tiles
@@ -273,6 +274,19 @@ def _flagship_camera(side: int, width: int, height: int, device,
     proj = m3.perspective_reverse_z(1.0, width / height, 0.1, device=device)
     return common_constants(eye, view, proj, vec(0.4, -0.7, -0.5),
                             (width, height), 0.0, 1.0 / 60.0)
+
+
+def world_sim_cloud_inputs(device, width: int = 1920, height: int = 1080):
+    """The cloud march's and shadow's inputs in the world sim's frame:
+    its half-res view rays (height / 2, width / 2, 3), its sun (toward the
+    light) and time, and the ground points under the rays: where a ray
+    meets the plane y = 0, or 2 km along it when it does not."""
+    c = _flagship_camera(0, width, height, device, camera=WORLD_SIM_CAMERA)
+    rays = lighting.view_rays({"depth": torch.zeros(height, width, device=device)}, c)
+    rays_h = decimate2x(rays)
+    eye = c["camera_pos"]
+    dist = torch.where(rays_h[..., 1] < -1e-3, -eye[1] / rays_h[..., 1], 2000.0)
+    return rays_h, -c["light_dir"], c["time"], eye + rays_h * dist[..., None]
 
 
 def _combined_step(phys_state, pcfg: PhysicsConfig, present_types: frozenset,

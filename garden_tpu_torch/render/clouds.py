@@ -8,20 +8,31 @@ along the light ray) with a powder term and an ambient floor. The result
 is composited over the sky by alpha. `cloud_shadow` attenuates sunlight at
 ground points by the density where their sun ray meets the cloud base.
 
-While a profiler records, `render_clouds` charges the open span with
-`cloud_rays`, the rays it marches, and `cloud_rays_up`, those above the
-horizon (mu > 0.02; a 0-d device tensor): every ray is marched, and only
-those see the layer.
+`render_clouds` and `cloud_shadow` launch the hand-written kernels of
+`csrc/clouds.cu` (one thread a ray, the noise in registers) on CUDA
+tensors and take their plain versions, `render_clouds_plain` and
+`cloud_shadow_plain`, on CPU tensors; the kernels give the plain versions'
+bits on the card. Each wrapper's `launches` counts its kernel launches.
+
+While a profiler records, each call charges the open span with
+`cloud_calls` 1 and `cloud_kernel_calls` 1 when the kernel ran (0 on the
+CPU), and `render_clouds` with `cloud_rays`, the rays it marches, and
+`cloud_rays_up`, those above the horizon (mu > 0.02; a 0-d device
+tensor): every ray is marched, and only those see the layer.
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from garden_tpu_torch.core import math3d as m3
 from garden_tpu_torch.ops import noise
+from garden_tpu_torch.render import raster
 from garden_tpu_torch.utils import profiler
 
 Tensor = torch.Tensor
@@ -44,12 +55,12 @@ def _density(p: Tensor, time: Tensor, coverage: float, seed: int = 0) -> Tensor:
     return torch.clamp(shaped - (1.0 - shaped) * detail * 0.3, 0.0, 1.0)
 
 
-def render_clouds(view_dir: Tensor, sun_dir_to_light: Tensor, camera_height: float = 0.2,
-                  time: Tensor = None, base_km: float = 1.2, top_km: float = 2.4,
-                  coverage: float = 0.45, steps: int = 10, seed: int = 0
-                  ) -> Tuple[Tensor, Tensor]:
-    """(cloud rgb (..., 3), alpha (...,)) for sky-ray directions (..., 3);
-    `time` is a float32 scalar tensor (None: 0)."""
+def render_clouds_plain(view_dir: Tensor, sun_dir_to_light: Tensor,
+                        camera_height: float = 0.2, time: Tensor = None,
+                        base_km: float = 1.2, top_km: float = 2.4,
+                        coverage: float = 0.45, steps: int = 10, seed: int = 0
+                        ) -> Tuple[Tensor, Tensor]:
+    """`render_clouds` in PyTorch ops, on any device."""
     dev = view_dir.device
     v = m3.normalize(view_dir)
     l = m3.normalize(sun_dir_to_light)
@@ -107,15 +118,30 @@ def render_clouds(view_dir: Tensor, sun_dir_to_light: Tensor, camera_height: flo
     return rgb, alpha * fade
 
 
+def render_clouds(view_dir: Tensor, sun_dir_to_light: Tensor, camera_height: float = 0.2,
+                  time: Tensor = None, base_km: float = 1.2, top_km: float = 2.4,
+                  coverage: float = 0.45, steps: int = 10, seed: int = 0
+                  ) -> Tuple[Tensor, Tensor]:
+    """(cloud rgb (..., 3), alpha (...,)) for sky-ray directions (..., 3);
+    `time` is a float32 scalar tensor (None: 0). CUDA tensors launch the
+    march kernel (`render_clouds_cuda`), CPU tensors take
+    `render_clouds_plain`."""
+    fn = _dispatch("render_clouds", view_dir, render_clouds_cuda, render_clouds_plain)
+    return fn(view_dir, sun_dir_to_light, camera_height, time, base_km, top_km,
+              coverage, steps, seed)
+
+
+render_clouds.launches = 0
+
+
 def composite_clouds(sky: Tensor, rgb: Tensor, alpha: Tensor) -> Tensor:
     return sky * (1.0 - alpha[..., None]) + rgb * alpha[..., None]
 
 
-def cloud_shadow(positions: Tensor, sun_dir_to_light: Tensor, time: Tensor = None,
-                 base_km: float = 1.2, coverage: float = 0.45, seed: int = 0) -> Tensor:
-    """Sun transmittance through the cloud layer at ground points (..., 3)
-    -> (...,): each point's sun ray is followed to the cloud base and
-    attenuated by the density there."""
+def cloud_shadow_plain(positions: Tensor, sun_dir_to_light: Tensor, time: Tensor = None,
+                       base_km: float = 1.2, coverage: float = 0.45, seed: int = 0
+                       ) -> Tensor:
+    """`cloud_shadow` in PyTorch ops, on any device."""
     dev = positions.device
     l = m3.normalize(sun_dir_to_light)
     time = m3.constant(0.0, dev) if time is None else time.float()
@@ -126,3 +152,121 @@ def cloud_shadow(positions: Tensor, sun_dir_to_light: Tensor, time: Tensor = Non
     dens = _density(p, time, coverage, seed)
     dens = 0.7 * dens + 0.3 * _density(p + l * 400.0, time, coverage, seed)
     return torch.exp(-dens * 2.5)
+
+
+def cloud_shadow(positions: Tensor, sun_dir_to_light: Tensor, time: Tensor = None,
+                 base_km: float = 1.2, coverage: float = 0.45, seed: int = 0) -> Tensor:
+    """Sun transmittance through the cloud layer at ground points (..., 3)
+    -> (...,): each point's sun ray is followed to the cloud base and
+    attenuated by the density there. CUDA tensors launch the shadow kernel
+    (`cloud_shadow_cuda`), CPU tensors take `cloud_shadow_plain`."""
+    fn = _dispatch("cloud_shadow", positions, cloud_shadow_cuda, cloud_shadow_plain)
+    return fn(positions, sun_dir_to_light, time, base_km, coverage, seed)
+
+
+cloud_shadow.launches = 0
+
+
+def _dispatch(name: str, x: Tensor, cuda_fn, plain_fn):
+    """The path for `x`'s device; charges `cloud_calls` and
+    `cloud_kernel_calls` while recording."""
+    fn = raster._on_device(name, x, cuda_fn, plain_fn)
+    if profiler.recording():
+        profiler.count("cloud_calls", 1)
+        profiler.count("cloud_kernel_calls", int(fn is cuda_fn))
+    return fn
+
+
+# -- the kernels (csrc/clouds.cu) ----------------------------------------------
+
+def _f32(x: float) -> float:
+    """A Python number as a float32 op sees it."""
+    return float(np.float32(x))
+
+
+def _recip(x: float) -> float:
+    """PyTorch's reciprocal of a Python divisor on the card: a tensor
+    divided by a Python number is multiplied by float32(1) / float32(x)."""
+    return float(np.float32(1.0) / np.float32(x))
+
+
+def _sun_and_time(sun_dir_to_light: Tensor, time: Tensor, dev, kernel: str
+                  ) -> Tuple[Tensor, Tensor]:
+    """The sun direction (3,) and time (1 element) as the kernels read
+    them, on `dev`."""
+    time = m3.constant(0.0, dev) if time is None else time.float()
+    sun = sun_dir_to_light.contiguous()
+    raster._check("sun_dir_to_light", sun, torch.float32, (3,), dev, kernel)
+    if time.device != dev or time.numel() != 1:
+        raise ValueError(f"{kernel}: time must be one element on {dev}, got "
+                         f"{tuple(time.shape)} on {time.device}")
+    return sun, time.contiguous()
+
+
+def _rays(x: Tensor, name: str, kernel: str) -> Tuple[Tensor, tuple, int]:
+    """(x contiguous, its leading shape, its count) for a (..., 3) float32
+    tensor on the card."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel} needs CUDA tensors, got {dev}")
+    shape = tuple(x.shape[:-1])
+    n = math.prod(shape)
+    x = x.contiguous()
+    raster._check(name, x, torch.float32, (*shape, 3), dev, kernel)
+    if 3 * n >= 2 ** 31:
+        raise ValueError(f"{kernel}: {n} rays are more than the kernel indexes")
+    return x, shape, n
+
+
+def render_clouds_cuda(view_dir: Tensor, sun_dir_to_light: Tensor,
+                       camera_height: float = 0.2, time: Tensor = None,
+                       base_km: float = 1.2, top_km: float = 2.4,
+                       coverage: float = 0.45, steps: int = 10, seed: int = 0
+                       ) -> Tuple[Tensor, Tensor]:
+    """Launch the cloud march (csrc/clouds.cu: cloud_march_launch); the
+    inputs, outputs and counters of `render_clouds_plain`, in its bits.
+    While recording, the kernel counts the rays above the horizon."""
+    from garden_tpu_torch import cuda_build
+
+    view, shape, n = _rays(view_dir, "view_dir", "cloud_march")
+    dev = view.device
+    sun, time = _sun_and_time(sun_dir_to_light, time, dev, "cloud_march")
+    rgb = torch.empty((*shape, 3), device=dev)
+    alpha = torch.empty(shape, device=dev)
+    up = torch.zeros((), dtype=torch.int64, device=dev) if profiler.recording() else None
+    raster._call(cuda_build.load("clouds").cloud_march_launch,
+                 [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_float] * 7
+                 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3,
+                 "cloud_march", dev,
+                 raster._ptr(view), raster._ptr(sun), raster._ptr(time), n,
+                 _f32(camera_height), _f32(base_km), _f32(base_km - camera_height),
+                 _f32(top_km - camera_height), _recip(top_km - base_km), _recip(steps),
+                 _f32(1.0 - coverage * 1.6), steps, seed, raster._ptr(rgb),
+                 raster._ptr(alpha), ctypes.c_void_p(None if up is None else up.data_ptr()))
+    render_clouds.launches += 1
+    if up is not None:
+        profiler.count("cloud_rays", n)
+        profiler.count("cloud_rays_up", up)
+    return rgb, alpha
+
+
+def cloud_shadow_cuda(positions: Tensor, sun_dir_to_light: Tensor, time: Tensor = None,
+                      base_km: float = 1.2, coverage: float = 0.45, seed: int = 0
+                      ) -> Tensor:
+    """Launch the cloud shadow (csrc/clouds.cu: cloud_shadow_launch); the
+    inputs and output of `cloud_shadow_plain`, in its bits."""
+    from garden_tpu_torch import cuda_build
+
+    pos, shape, n = _rays(positions, "positions", "cloud_shadow")
+    dev = pos.device
+    sun, time = _sun_and_time(sun_dir_to_light, time, dev, "cloud_shadow")
+    out = torch.empty(shape, device=dev)
+    raster._call(cuda_build.load("clouds").cloud_shadow_launch,
+                 [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_float] * 2
+                 + [ctypes.c_int] + [ctypes.c_void_p],
+                 "cloud_shadow", dev,
+                 raster._ptr(pos), raster._ptr(sun), raster._ptr(time), n,
+                 _f32(base_km * 1000.0), _f32(1.0 - coverage * 1.6), seed,
+                 raster._ptr(out))
+    cloud_shadow.launches += 1
+    return out
