@@ -1,10 +1,19 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build, load and launch the port's hand-written CUDA kernels.
 
-Each kernel lives in `csrc/<name>.cu` with a plain C interface. On first
-use, `load(name)` compiles it with nvcc for Hopper (`sm_90a`) into
-`_build/` beside this file and loads the shared library with ctypes. The
-library file name carries a hash of the source, the headers beside it and
-the flags, so an edited kernel is rebuilt. A failed build raises; nothing falls back.
+This module is the port's one door to the C side. `KERNELS` names each
+kernel's source and the argument types of its `extern "C" int
+<kernel>_launch(...)` entry point. Each source `csrc/<name>.cu` has a plain
+C interface. On first use, `load(name)` compiles it with nvcc for Hopper
+(`sm_90a`) into `_build/` beside this file, loads the shared library with
+ctypes and declares its entry points' signatures. The library file name
+carries a hash of the source, the headers beside it and the flags, so an
+edited kernel is rebuilt. A failed build raises; nothing falls back.
+
+`launch(kernel, dev, *args)` runs an entry point on `dev`'s current stream
+and counts it in `launches`. `on_device` picks a wrapper's path by its
+tensor's device: a CPU tensor takes the plain version, a CUDA tensor
+launches or raises. `check`, `check_kept`, `ptr` and `kept_ptr` are the
+wrappers' checks and pointer arguments.
 """
 
 from __future__ import annotations
@@ -19,6 +28,8 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
@@ -28,6 +39,23 @@ BUILD_DIR = _HERE / "_build"
 # values by an ulp and flips pixels on triangle edges.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# kernel -> (source in csrc/, argument types of <kernel>_launch before its
+# trailing stream pointer); every pointer is passed as a void pointer
+KERNELS = {
+    "raster_shade": ("raster_shade", (_P,) * 5 + (_I,) * 10 + (_P,) * 6),
+    "visibility": ("raster_shade", (_P,) * 4 + (_I,) * 9 + (_P,) * 5),
+    "sorted_blend": ("blend_raster", (_P,) * 6 + (_I,) * 9 + (_P, _I, _P, _P, _I)),
+    "oit": ("blend_raster", (_P,) * 4 + (_I,) * 7 + (_P,) * 3 + (_I,)),
+    "depth_super": ("depth_raster", (_P,) * 3 + (_I,) * 8 + (_P, _I, _P, _P, _I)),
+    "depth_grid": ("depth_raster", (_P,) * 5 + (_I,) * 5 + (_P, _I, _P, _P, _I)),
+    "depth_dense": ("depth_raster", (_P,) * 5 + (_I,) * 6 + (_P, _I, _P, _P, _I)),
+    "cloud_march": ("clouds", (_P,) * 3 + (_I,) + (_F,) * 7 + (_I,) * 2 + (_P,) * 3),
+    "cloud_shadow": ("clouds", (_P,) * 3 + (_I,) + (_F,) * 2 + (_I, _P)),
+}
+SOURCES = sorted({source for source, _ in KERNELS.values()})
+launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)   # successful launches a kernel
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -92,10 +120,71 @@ def build_all(names, verbose: bool = False) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built on first use."""
+    """The loaded library of csrc/<name>.cu, built on first use, with the
+    signatures of its entry points in `KERNELS` declared."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build(name)))
+            for kernel, (source, argtypes) in KERNELS.items():
+                if source == name:
+                    fn = getattr(lib, f"{kernel}_launch")
+                    fn.restype = ctypes.c_int
+                    fn.argtypes = [*argtypes, ctypes.c_void_p]
             _libs[name] = lib
         return lib
+
+
+def launch(kernel: str, dev: torch.device, *args) -> None:
+    """Launch `<kernel>_launch(*args, stream)` on card `dev`, on its current
+    stream, and count it in `launches`. The launch runs under `dev`'s device
+    guard, so the kernel (and the shared-memory limit the C entry point
+    sets for it) goes to the card that holds the tensors, whatever the
+    current device."""
+    fn = getattr(load(KERNELS[kernel][0]), f"{kernel}_launch")
+    with torch.cuda.device(dev):
+        err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+    with _lock:
+        launches[kernel] += 1
+
+
+def on_device(name: str, x: torch.Tensor, cuda_fn, plain_fn):
+    """The path of wrapper `name` for `x`'s device: `cuda_fn` on a card,
+    `plain_fn` on the CPU; any other device raises."""
+    if x.device.type == "cuda":
+        return cuda_fn
+    if x.device.type == "cpu":
+        return plain_fn
+    raise ValueError(f"{name}: no path for device {x.device}")
+
+
+def check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple, device,
+          kernel: str) -> None:
+    """Raise unless argument `name` of `kernel` is a contiguous `dtype`
+    tensor of `shape` on `device`."""
+    if x.device != device:
+        raise ValueError(f"{kernel}: {name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{kernel}: {name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} has shape {tuple(x.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{kernel}: {name} is not contiguous")
+
+
+def check_kept(kept: torch.Tensor, n_rows: int, dev, kernel: str) -> None:
+    """`check` of an optional (n_rows,) int32 `kept` output."""
+    if kept is not None:
+        check("kept", kept, torch.int32, (n_rows,), dev, kernel)
+
+
+def ptr(x: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def kept_ptr(kept: torch.Tensor) -> ctypes.c_void_p:
+    """A pointer to an optional output; null for None."""
+    return ctypes.c_void_p(None if kept is None else kept.data_ptr())

@@ -12,7 +12,7 @@ ground points by the density where their sun ray meets the cloud base.
 `csrc/clouds.cu` (one thread a ray, the noise in registers) on CUDA
 tensors and take their plain versions, `render_clouds_plain` and
 `cloud_shadow_plain`, on CPU tensors; the kernels give the plain versions'
-bits on the card. Each wrapper's `launches` counts its kernel launches.
+bits on the card; `cuda_build.launches` counts their launches.
 
 While a profiler records, each call charges the open span with
 `cloud_calls` 1 and `cloud_kernel_calls` 1 when the kernel ran (0 on the
@@ -23,7 +23,6 @@ tensor): every ray is marched, and only those see the layer.
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Tuple
 
@@ -31,8 +30,8 @@ import numpy as np
 import torch
 
 from garden_tpu_torch.core import math3d as m3
+from garden_tpu_torch.cuda_build import check, kept_ptr, launch, on_device, ptr
 from garden_tpu_torch.ops import noise
-from garden_tpu_torch.render import raster
 from garden_tpu_torch.utils import profiler
 
 Tensor = torch.Tensor
@@ -131,9 +130,6 @@ def render_clouds(view_dir: Tensor, sun_dir_to_light: Tensor, camera_height: flo
               coverage, steps, seed)
 
 
-render_clouds.launches = 0
-
-
 def composite_clouds(sky: Tensor, rgb: Tensor, alpha: Tensor) -> Tensor:
     return sky * (1.0 - alpha[..., None]) + rgb * alpha[..., None]
 
@@ -164,13 +160,10 @@ def cloud_shadow(positions: Tensor, sun_dir_to_light: Tensor, time: Tensor = Non
     return fn(positions, sun_dir_to_light, time, base_km, coverage, seed)
 
 
-cloud_shadow.launches = 0
-
-
 def _dispatch(name: str, x: Tensor, cuda_fn, plain_fn):
     """The path for `x`'s device; charges `cloud_calls` and
     `cloud_kernel_calls` while recording."""
-    fn = raster._on_device(name, x, cuda_fn, plain_fn)
+    fn = on_device(name, x, cuda_fn, plain_fn)
     if profiler.recording():
         profiler.count("cloud_calls", 1)
         profiler.count("cloud_kernel_calls", int(fn is cuda_fn))
@@ -196,7 +189,7 @@ def _sun_and_time(sun_dir_to_light: Tensor, time: Tensor, dev, kernel: str
     them, on `dev`."""
     time = m3.constant(0.0, dev) if time is None else time.float()
     sun = sun_dir_to_light.contiguous()
-    raster._check("sun_dir_to_light", sun, torch.float32, (3,), dev, kernel)
+    check("sun_dir_to_light", sun, torch.float32, (3,), dev, kernel)
     if time.device != dev or time.numel() != 1:
         raise ValueError(f"{kernel}: time must be one element on {dev}, got "
                          f"{tuple(time.shape)} on {time.device}")
@@ -212,7 +205,7 @@ def _rays(x: Tensor, name: str, kernel: str) -> Tuple[Tensor, tuple, int]:
     shape = tuple(x.shape[:-1])
     n = math.prod(shape)
     x = x.contiguous()
-    raster._check(name, x, torch.float32, (*shape, 3), dev, kernel)
+    check(name, x, torch.float32, (*shape, 3), dev, kernel)
     if 3 * n >= 2 ** 31:
         raise ValueError(f"{kernel}: {n} rays are more than the kernel indexes")
     return x, shape, n
@@ -226,24 +219,16 @@ def render_clouds_cuda(view_dir: Tensor, sun_dir_to_light: Tensor,
     """Launch the cloud march (csrc/clouds.cu: cloud_march_launch); the
     inputs, outputs and counters of `render_clouds_plain`, in its bits.
     While recording, the kernel counts the rays above the horizon."""
-    from garden_tpu_torch import cuda_build
-
     view, shape, n = _rays(view_dir, "view_dir", "cloud_march")
     dev = view.device
     sun, time = _sun_and_time(sun_dir_to_light, time, dev, "cloud_march")
     rgb = torch.empty((*shape, 3), device=dev)
     alpha = torch.empty(shape, device=dev)
     up = torch.zeros((), dtype=torch.int64, device=dev) if profiler.recording() else None
-    raster._call(cuda_build.load("clouds").cloud_march_launch,
-                 [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_float] * 7
-                 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3,
-                 "cloud_march", dev,
-                 raster._ptr(view), raster._ptr(sun), raster._ptr(time), n,
-                 _f32(camera_height), _f32(base_km), _f32(base_km - camera_height),
-                 _f32(top_km - camera_height), _recip(top_km - base_km), _recip(steps),
-                 _f32(1.0 - coverage * 1.6), steps, seed, raster._ptr(rgb),
-                 raster._ptr(alpha), ctypes.c_void_p(None if up is None else up.data_ptr()))
-    render_clouds.launches += 1
+    launch("cloud_march", dev, ptr(view), ptr(sun), ptr(time), n, _f32(camera_height),
+           _f32(base_km), _f32(base_km - camera_height), _f32(top_km - camera_height),
+           _recip(top_km - base_km), _recip(steps), _f32(1.0 - coverage * 1.6), steps,
+           seed, ptr(rgb), ptr(alpha), kept_ptr(up))
     if up is not None:
         profiler.count("cloud_rays", n)
         profiler.count("cloud_rays_up", up)
@@ -255,18 +240,10 @@ def cloud_shadow_cuda(positions: Tensor, sun_dir_to_light: Tensor, time: Tensor 
                       ) -> Tensor:
     """Launch the cloud shadow (csrc/clouds.cu: cloud_shadow_launch); the
     inputs and output of `cloud_shadow_plain`, in its bits."""
-    from garden_tpu_torch import cuda_build
-
     pos, shape, n = _rays(positions, "positions", "cloud_shadow")
     dev = pos.device
     sun, time = _sun_and_time(sun_dir_to_light, time, dev, "cloud_shadow")
     out = torch.empty(shape, device=dev)
-    raster._call(cuda_build.load("clouds").cloud_shadow_launch,
-                 [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_float] * 2
-                 + [ctypes.c_int] + [ctypes.c_void_p],
-                 "cloud_shadow", dev,
-                 raster._ptr(pos), raster._ptr(sun), raster._ptr(time), n,
-                 _f32(base_km * 1000.0), _f32(1.0 - coverage * 1.6), seed,
-                 raster._ptr(out))
-    cloud_shadow.launches += 1
+    launch("cloud_shadow", dev, ptr(pos), ptr(sun), ptr(time), n, _f32(base_km * 1000.0),
+           _f32(1.0 - coverage * 1.6), seed, ptr(out))
     return out

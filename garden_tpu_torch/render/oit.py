@@ -10,18 +10,18 @@ in front, `raster.merge_big_list`). CUDA tensors launch the hand-written
 kernel in `csrc/blend_raster.cu`; CPU tensors take `oit_plain`, the same
 computation in PyTorch. The kernel runs each tile as row bands of
 `OIT_PIXELS` pixels a thread and culls each band's slots exactly;
-`band_keep` is that cull's plain twin. While a span records, the call
-counts the band grid's slots and those the cull keeps
-(`raster.launch_counted`).
+`raster.tile_slot_keep(*cull_args(args))` is that cull's plain twin. While
+a span records, the call counts the band grid's slots and those the cull
+keeps (`raster.launch_counted`).
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Tuple
 
 import torch
 
+from garden_tpu_torch.cuda_build import check, check_kept, kept_ptr, launch, ptr
 from garden_tpu_torch.render import raster
 
 Tensor = torch.Tensor
@@ -67,15 +67,15 @@ def band_lists(tile_tris: Tensor, counts: Tensor, width: int, height: int,
     return raster._pad_slots(lists), n.int().contiguous()
 
 
-def band_keep(records: Tensor, tile_tris: Tensor, counts: Tensor, width: int,
-              height: int, tile: int) -> Tensor:
-    """The OIT kernel's cull: `raster.tile_slot_keep(..., form="vertex")`
-    over the band grid's lists (`band_lists`), with an empty big list ->
-    (bands, C16) bool; the kernel's `kept` is its row sums."""
+def cull_args(args: tuple) -> tuple:
+    """The arguments of `raster.tile_slot_keep` that give the cull of
+    oit_cuda called with `args`: the band grid's lists (`band_lists`) and
+    an empty big list, in vertex form. The mask, (bands, C16) bool, is the
+    kernel's cull; its row sums are the kernel's `kept`."""
+    records, tile_tris, counts, _, width, height, tile = args
     lists, n = band_lists(tile_tris, counts, width, height, tile)
-    empty = torch.zeros((0,), dtype=torch.int32, device=lists.device)
-    return raster.tile_slot_keep(records, lists, n, empty, width, height, tile,
-                                 band_rows(tile), (), "vertex")
+    return (records, lists, n, lists[0, :0], width, height, tile, band_rows(tile), (),
+            "vertex")
 
 
 def oit_plain(records: Tensor, tile_tris: Tensor, counts: Tensor,
@@ -86,7 +86,7 @@ def oit_plain(records: Tensor, tile_tris: Tensor, counts: Tensor,
     included), accumulating in front of the opaque depth (padded past the
     frame with 2.0). -> (accum (H, W, 4), reveal (H, W)). With `keep`
     (bands, C16) bool on the band grid, a band takes only the slots it
-    marks: with `band_keep`'s mask the result is the same, which the tests
+    marks: with its cull's mask (`cull_args`) the result is the same, which the tests
     hold; the renderer never passes it. With `work` (a one-element list),
     adds to work[0] the (slot, pixel) pairs inside the frame whose pixel
     lies inside the triangle the slot names: the only pairs whose depth,
@@ -142,37 +142,27 @@ def oit_cuda(records: Tensor, tile_tris: Tensor, counts: Tensor,
     """Launch the OIT kernel (csrc/blend_raster.cu); same inputs and outputs
     as `oit_plain`. With `kept` (bands,) int32 on the band grid, the kernel
     also writes each band's number of slots that pass its cull (the row
-    sums of `band_keep`)."""
-    from garden_tpu_torch import cuda_build
-
+    sums of `tile_slot_keep(*cull_args(...))`)."""
     dev = records.device
     if dev.type != "cuda":
         raise ValueError(f"oit_cuda needs CUDA tensors, got {dev}")
     tiles_x, _, n_tiles = raster._grid(width, height, tile, tile)
     cap = tile_tris.shape[1]
-    raster._check("records", records, torch.float32,
-                  (records.shape[0], raster.EDGE_WIDTH), dev, "oit")
-    raster._check("tile_tris", tile_tris, torch.int32, (n_tiles, cap), dev, "oit")
-    raster._check("counts", counts, torch.int32, (n_tiles,), dev, "oit")
-    raster._check("opaque_depth", opaque_depth, torch.float32, (height, width),
-                  dev, "oit")
+    check("records", records, torch.float32, (records.shape[0], raster.EDGE_WIDTH), dev,
+          "oit")
+    check("tile_tris", tile_tris, torch.int32, (n_tiles, cap), dev, "oit")
+    check("counts", counts, torch.int32, (n_tiles,), dev, "oit")
+    check("opaque_depth", opaque_depth, torch.float32, (height, width), dev, "oit")
     # OIT_PIXELS a thread: a 128x128 tile runs as sixteen 128x8 bands
     rows = band_rows(tile)
-    raster._check_kept(kept, tiles_x * raster._grid(width, height, tile, rows)[1],
-                       dev, "oit")
+    check_kept(kept, tiles_x * raster._grid(width, height, tile, rows)[1], dev, "oit")
     accum = torch.empty((height, width, 4), device=dev)
     reveal = torch.empty((height, width), device=dev)
     # shared memory: the band's opaque depth, then the surviving records
     smem = raster._smem_bytes("oit", cap, tile * rows * 4)
-    raster._call(cuda_build.load("blend_raster").oit_launch,
-                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                 + [ctypes.c_void_p] * 3 + [ctypes.c_int],
-                 "oit", dev,
-                 raster._ptr(records), raster._ptr(tile_tris), raster._ptr(counts),
-                 raster._ptr(opaque_depth), cap, n_tiles, tiles_x, tile, width,
-                 height, tile // rows, raster._ptr(accum), raster._ptr(reveal),
-                 raster._kept_ptr(kept), smem)
-    rasterize_oit.launches += 1
+    launch("oit", dev, ptr(records), ptr(tile_tris), ptr(counts), ptr(opaque_depth), cap,
+           n_tiles, tiles_x, tile, width, height, tile // rows, ptr(accum), ptr(reveal),
+           kept_ptr(kept), smem)
     return accum, reveal
 
 
@@ -190,19 +180,10 @@ def rasterize_oit(setup: Dict[str, Tensor], tri_colors: Tensor, tile_tris: Tenso
                   tile: int) -> Tuple[Tensor, Tensor]:
     """OIT accumulation of (T, 4) rgba triangles over merged per-tile lists
     (square tiles) -> (accum (H, W, 4) = [sum rgb w | sum w], reveal (H, W)).
-    CUDA tensors launch the OIT kernel, CPU tensors take `oit_plain`;
-    `launches` counts kernel launches."""
+    CUDA tensors launch the OIT kernel, CPU tensors take `oit_plain`."""
     args = oit_args(setup, tri_colors, tile_tris, counts, opaque_depth, width,
                     height, tile)
-
-    def cull():
-        lists, n = band_lists(*args[1:3], width, height, tile)
-        return (args[0], lists, n, lists[0, :0], width, height, tile, band_rows(tile),
-                (), "vertex")
-    return raster.launch_counted("rasterize_oit", args, oit_cuda, oit_plain, cull)
-
-
-rasterize_oit.launches = 0
+    return raster.launch_counted("rasterize_oit", args, oit_cuda, oit_plain, cull_args)
 
 
 def composite(hdr_opaque: Tensor, accum: Tensor, reveal: Tensor) -> Tensor:

@@ -27,7 +27,8 @@ Port of `garden_tpu.render.raster`'s main-view and cascade paths:
    `blend_plain`). While a span records, it, `rasterize_visibility` and
    `oit.rasterize_oit` charge it with `blend_slots`, the (row, slot) pairs
    their kernel tests on its cull grid, and `blend_slots_kept`, those its
-   exact cull keeps (`launch_counted`).
+   exact cull keeps (`launch_counted`). `cull_args` states each kernel's
+   cull grid as the arguments of `tile_slot_keep`, its plain twin.
 5. `rasterize_depth`: the max-reduce depth raster, dense (kernel
    depth_dense) or split (depth_super, then depth_grid), from
    `csrc/depth_raster.cu`, each with its plain version.
@@ -37,13 +38,14 @@ Depth is reverse-Z: larger is nearer, 0 is empty.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from garden_tpu_torch.cuda_build import (check, check_kept, kept_ptr, launch, on_device,
+                                         ptr)
 from garden_tpu_torch.utils import profiler
 
 Tensor = torch.Tensor
@@ -592,41 +594,11 @@ def visibility_plain(edge: Tensor, tile_tris: Tensor, counts: Tensor,
             for k, v in out.items()}
 
 
-def _check(name: str, x: Tensor, dtype: torch.dtype, shape: tuple, device,
-           kernel: str = "raster_shade"):
-    if x.device != device:
-        raise ValueError(f"{kernel}: {name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise ValueError(f"{kernel}: {name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{kernel}: {name} has shape {tuple(x.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{kernel}: {name} is not contiguous")
-
-
 _THREADS = 256
 _MAX_SMEM = 232448     # per-block shared memory limit on Hopper
 # pixels of one block of the raster_shade and visibility kernels (256
 # threads of 4, csrc kPixels): a tile runs as row bands of this many
 RASTER_BAND = 1024
-
-
-def _ptr(x: Tensor):
-    return ctypes.c_void_p(x.data_ptr())
-
-
-def _call(fn, argtypes, kernel: str, dev: torch.device, *args) -> None:
-    """Launch `fn(*args, stream)` on card `dev`, on its current stream. The
-    launch runs under `dev`'s device guard, so the kernel (and the
-    shared-memory limit the C entry point sets for it) goes to the card
-    that holds the tensors, whatever the current device."""
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes + [ctypes.c_void_p]
-    with torch.cuda.device(dev):
-        err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
 
 
 def raster_shade_cuda(edge: Tensor, shade: Tensor, tile_tris: Tensor,
@@ -638,25 +610,20 @@ def raster_shade_cuda(edge: Tensor, shade: Tensor, tile_tris: Tensor,
     on the grid of its row bands, the kernel also writes each band's number
     of slots that pass its cull (the row sums of `tile_slot_keep(...,
     form="edge")` over `band_args`)."""
-    from garden_tpu_torch import cuda_build
-
     dev, tiles_x, n_tiles, smem = _raster_checks(
         "raster_shade", edge, tile_tris, counts, big_list, width, height, tile,
         tile_h, kept)
-    _check("shade", shade, torch.float32, (edge.shape[0], shade.shape[1]), dev)
+    check("shade", shade, torch.float32, (edge.shape[0], shade.shape[1]), dev,
+          "raster_shade")
     if shade.shape[1] < 36:
         raise ValueError("raster_shade: shading records need >= 36 channels")
     vis = _vis_outputs(height, width, dev)
     planes = torch.empty((GBUF_PLANES, height, width), device=dev)
-    _call(cuda_build.load("raster_shade").raster_shade_launch,
-          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 6,
-          "raster_shade", dev,
-          _ptr(edge), _ptr(shade), _ptr(tile_tris), _ptr(counts), _ptr(big_list),
-          big_list.shape[0], tile_tris.shape[1], shade.shape[1],
-          n_tiles, tiles_x, tile, tile_h, width, height, smem,
-          *[_ptr(vis[k]) for k in ("depth", "tri_id", "b0", "b1")], _ptr(planes),
-          _kept_ptr(kept))
-    rasterize_visibility_shaded.launches += 1
+    launch("raster_shade", dev, ptr(edge), ptr(shade), ptr(tile_tris), ptr(counts),
+           ptr(big_list), big_list.shape[0], tile_tris.shape[1], shade.shape[1],
+           n_tiles, tiles_x, tile, tile_h, width, height, smem,
+           *[ptr(vis[k]) for k in ("depth", "tri_id", "b0", "b1")], ptr(planes),
+           kept_ptr(kept))
     return vis, planes
 
 
@@ -699,15 +666,15 @@ def _raster_checks(kernel: str, edge: Tensor, tile_tris: Tensor, counts: Tensor,
         raise ValueError(f"{kernel}_cuda needs CUDA tensors, got {dev}")
     tiles_x, _, n_tiles = _grid(width, height, tile, tile_h)
     cap, n_big = tile_tris.shape[1], big_list.shape[0]
-    _check("edge", edge, torch.float32, (edge.shape[0], EDGE_WIDTH), dev, kernel)
-    _check("tile_tris", tile_tris, torch.int32, (n_tiles, cap), dev, kernel)
-    _check("counts", counts, torch.int32, (n_tiles,), dev, kernel)
-    _check("big_list", big_list, torch.int32, (n_big,), dev, kernel)
+    check("edge", edge, torch.float32, (edge.shape[0], EDGE_WIDTH), dev, kernel)
+    check("tile_tris", tile_tris, torch.int32, (n_tiles, cap), dev, kernel)
+    check("counts", counts, torch.int32, (n_tiles,), dev, kernel)
+    check("big_list", big_list, torch.int32, (n_big,), dev, kernel)
     if _THREADS % tile or (tile * tile_h) % RASTER_BAND:
         raise ValueError(f"{kernel}: a {tile}x{tile_h} tile is not a kernel "
                          f"shape (the width must divide {_THREADS} and the "
                          f"pixels be a multiple of {RASTER_BAND})")
-    _check_kept(kept, _grid(width, height, tile, RASTER_BAND // tile)[2], dev, kernel)
+    check_kept(kept, _grid(width, height, tile, RASTER_BAND // tile)[2], dev, kernel)
     n_slots = -(-(n_big + cap) // TRI_BLOCK) * TRI_BLOCK
     smem = n_slots * (EDGE_WIDTH + 1) * 4
     if smem > _MAX_SMEM:
@@ -749,15 +716,13 @@ def rasterize_visibility_shaded(setup: Dict[str, Tensor], shade_records: Tensor,
 
     Each tile scans the shared big list, then its own list; see BITREV16
     for the order among equal depths. CUDA tensors run the hand-written
-    kernel and CPU tensors the plain version; `launches` counts kernel
-    launches."""
+    kernel and CPU tensors the plain version."""
     args = kernel_args(setup, shade_records, tile_tris, counts, big_list,
                        width, height, tile, tile_h)
-    return _on_device("rasterize_visibility_shaded", args[0], raster_shade_cuda,
-                      raster_shade_plain)(*args)
+    return on_device("rasterize_visibility_shaded", args[0], raster_shade_cuda,
+                     raster_shade_plain)(*args)
 
 
-rasterize_visibility_shaded.launches = 0
 
 
 # -- visibility raster without shading (the refraction pass) -------------------
@@ -768,23 +733,16 @@ def visibility_cuda(edge: Tensor, tile_tris: Tensor, counts: Tensor,
     """Launch the visibility kernel (csrc/raster_shade.cu, raster_shade's
     scan and cull without its shading phase); same inputs and outputs as
     `visibility_plain`; `kept` as in `raster_shade_cuda`."""
-    from garden_tpu_torch import cuda_build
-
     dev, tiles_x, n_tiles, smem = _raster_checks(
         "visibility", edge, tile_tris, counts, big_list, width, height, tile,
         tile_h, kept)
     if big_list.shape[0] % TRI_BLOCK or tile_tris.shape[1] % TRI_BLOCK:
         raise ValueError("visibility: lists must have 16k slots")
     vis = _vis_outputs(height, width, dev)
-    _call(cuda_build.load("raster_shade").visibility_launch,
-          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 5,
-          "visibility", dev,
-          _ptr(edge), _ptr(tile_tris), _ptr(counts), _ptr(big_list),
-          big_list.shape[0], tile_tris.shape[1], n_tiles,
-          tiles_x, tile, tile_h, width, height, smem,
-          *[_ptr(vis[k]) for k in ("depth", "tri_id", "b0", "b1")],
-          _kept_ptr(kept))
-    rasterize_visibility.launches += 1
+    launch("visibility", dev, ptr(edge), ptr(tile_tris), ptr(counts), ptr(big_list),
+           big_list.shape[0], tile_tris.shape[1], n_tiles, tiles_x, tile, tile_h, width,
+           height, smem, *[ptr(vis[k]) for k in ("depth", "tri_id", "b0", "b1")],
+           kept_ptr(kept))
     return vis
 
 
@@ -807,14 +765,13 @@ def rasterize_visibility(setup: Dict[str, Tensor], tile_tris: Tensor,
     where empty) and screen barycentrics b0, b1. Each tile scans the shared
     big list, then its own list, with the tie order of BITREV16. CUDA
     tensors launch the visibility kernel, CPU tensors take
-    `visibility_plain`; `launches` counts kernel launches."""
+    `visibility_plain`."""
     args = visibility_args(setup, tile_tris, counts, big_list, width, height,
                            tile, tile_h)
     return launch_counted("rasterize_visibility", args, visibility_cuda, visibility_plain,
-                          lambda: (*band_args(args)[:8], (), "edge"))
+                          functools.partial(cull_args, kind="visibility"))
 
 
-rasterize_visibility.launches = 0
 
 
 def render_pass(clip: Tensor, indices: Tensor, tri_valid: Tensor, width: int,
@@ -951,8 +908,6 @@ def blend_cuda(records: Tensor, tile_tris: Tensor, counts: Tensor,
     output as `blend_plain`. With `kept` (tiles,) int32, the kernel also
     writes each tile's number of slots that pass its cull (the row sums
     of `tile_slot_keep(..., form="vertex")`)."""
-    from garden_tpu_torch import cuda_build
-
     dev = records.device
     if dev.type != "cuda":
         raise ValueError(f"sorted_blend_cuda needs CUDA tensors, got {dev}")
@@ -960,15 +915,15 @@ def blend_cuda(records: Tensor, tile_tris: Tensor, counts: Tensor,
     cap, n_big = tile_tris.shape[1], big_list.shape[0]
     if cap % TRI_BLOCK or n_big % TRI_BLOCK:
         raise ValueError("sorted_blend: lists must have 16k slots")
-    _check("records", records, torch.float32, (records.shape[0], EDGE_WIDTH), dev,
-           "sorted_blend")
-    _check("tile_tris", tile_tris, torch.int32, (n_tiles, cap), dev, "sorted_blend")
-    _check("counts", counts, torch.int32, (n_tiles,), dev, "sorted_blend")
-    _check("big_list", big_list, torch.int32, (n_big,), dev, "sorted_blend")
-    _check("opaque_depth", opaque_depth, torch.float32, (height, width), dev,
-           "sorted_blend")
-    _check("hdr", hdr, torch.float32, (height, width, 3), dev, "sorted_blend")
-    _check_kept(kept, n_tiles, dev, "sorted_blend")
+    check("records", records, torch.float32, (records.shape[0], EDGE_WIDTH), dev,
+          "sorted_blend")
+    check("tile_tris", tile_tris, torch.int32, (n_tiles, cap), dev, "sorted_blend")
+    check("counts", counts, torch.int32, (n_tiles,), dev, "sorted_blend")
+    check("big_list", big_list, torch.int32, (n_big,), dev, "sorted_blend")
+    check("opaque_depth", opaque_depth, torch.float32, (height, width), dev,
+          "sorted_blend")
+    check("hdr", hdr, torch.float32, (height, width, 3), dev, "sorted_blend")
+    check_kept(kept, n_tiles, dev, "sorted_blend")
     if n_big + cap > MAX_SLOTS:
         raise ValueError(f"sorted_blend: {n_big + cap} list slots, at most {MAX_SLOTS}")
     # row bands of 2048 pixels, one block each, 8 pixels a thread
@@ -977,16 +932,10 @@ def blend_cuda(records: Tensor, tile_tris: Tensor, counts: Tensor,
     out = torch.empty_like(hdr)
     # shared memory: the band's hdr rows and opaque depth, then the records
     smem = _smem_bytes("sorted_blend", n_big + cap, tile * tile_h // bands * 4 * 4)
-    _call(cuda_build.load("blend_raster").sorted_blend_launch,
-          [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int],
-          "sorted_blend", dev,
-          _ptr(records), _ptr(tile_tris), _ptr(counts), _ptr(big_list),
-          _ptr(opaque_depth), _ptr(hdr), cap, n_big, n_tiles, tiles_x, tile, tile_h,
-          width, height, bands, _ptr(rects), len(atlas_bounds), _ptr(out),
-          _kept_ptr(kept), smem)
-    rasterize_sorted_blend.launches += 1
+    launch("sorted_blend", dev, ptr(records), ptr(tile_tris), ptr(counts),
+           ptr(big_list), ptr(opaque_depth), ptr(hdr), cap, n_big, n_tiles, tiles_x,
+           tile, tile_h, width, height, bands, ptr(rects), len(atlas_bounds), ptr(out),
+           kept_ptr(kept), smem)
     return out
 
 
@@ -1011,14 +960,13 @@ def rasterize_sorted_blend(setup: Dict[str, Tensor], tri_rgba: Tensor,
     binned with a depth priority), z-tested against the opaque reverse-Z
     depth. `atlas_bounds` + `tri_atlas` clip each triangle to its
     cascade's rect. CUDA tensors launch the sorted_blend kernel, CPU
-    tensors take `blend_plain`; `launches` counts kernel launches."""
+    tensors take `blend_plain`."""
     args = blend_args(setup, tri_rgba, tile_tris, counts, big_list, opaque_depth,
                       hdr, width, height, tile, atlas_bounds, tri_atlas, tile_h)
     return launch_counted("rasterize_sorted_blend", args, blend_cuda, blend_plain,
-                          lambda: (*args[:4], *args[6:11], "vertex"))
+                          functools.partial(cull_args, kind="blend"))
 
 
-rasterize_sorted_blend.launches = 0
 
 
 # -- depth-only raster (the shadow cascades) ----------------------------------
@@ -1395,7 +1343,7 @@ def tile_slot_keep(records: Tensor, lists: Tensor, counts: Tensor, big_list: Ten
     it) and, with atlas rects, the tile meets the record's rect. Row i
     belongs to tile tiles[i] of the tile x tile_h grid (default: tile i).
     Form "vertex" (`pack_blend_records`, `oit.pack_oit_records`):
-    sorted_blend, and oit on its band grid (`oit.band_keep`). Form "edge"
+    sorted_blend, and oit on its band grid (`oit.cull_args`). Form "edge"
     (`_pack_edge_records`): depth_dense; depth_super over `super_lists`
     with no big list; depth_grid over its active rows, tiles = act_ids;
     raster_shade and visibility on their band grid (`band_args`;
@@ -1464,23 +1412,20 @@ def warp_keep(records: Tensor, lists: Tensor, counts: Tensor, width: int,
 
 def _depth_kernel_setup(kernel: str, records: Tensor, tile: int, tile_h: int,
                         atlas_bounds: tuple):
-    """Checks shared by the depth kernels' wrappers; -> (library, rects
-    tensor (n, 4) as x0 x1 y0 y1, number of rects)."""
-    from garden_tpu_torch import cuda_build
-
+    """Checks shared by the depth kernels' wrappers; -> (rects tensor (n, 4)
+    as x0 x1 y0 y1, number of rects)."""
     dev = records.device
     if dev.type != "cuda":
         raise ValueError(f"{kernel}_cuda needs CUDA tensors, got {dev}")
-    _check("records", records, torch.float32, (records.shape[0], EDGE_WIDTH), dev,
-           kernel)
+    check("records", records, torch.float32, (records.shape[0], EDGE_WIDTH), dev,
+          kernel)
     n_px = tile * tile_h
     if (DEPTH_THREADS % tile or n_px % DEPTH_THREADS
             or n_px // DEPTH_THREADS not in (4, 8, 16, 32, 64)):
         raise ValueError(f"{kernel}: a {tile}x{tile_h} tile is not a kernel shape "
                          f"(the width must divide {DEPTH_THREADS} and each thread "
                          "takes 4..64 pixels)")
-    return (cuda_build.load("depth_raster"), _rects(atlas_bounds, dev),
-            len(atlas_bounds))
+    return _rects(atlas_bounds, dev), len(atlas_bounds)
 
 
 def _smem_bytes(kernel: str, slots: int, extra: int = 0) -> int:
@@ -1493,15 +1438,6 @@ def _smem_bytes(kernel: str, slots: int, extra: int = 0) -> int:
     return smem
 
 
-def _check_kept(kept: Tensor, n_tiles: int, dev, kernel: str) -> None:
-    if kept is not None:
-        _check("kept", kept, torch.int32, (n_tiles,), dev, kernel)
-
-
-def _kept_ptr(kept: Tensor):
-    return ctypes.c_void_p(None if kept is None else kept.data_ptr())
-
-
 def depth_super_cuda(records: Tensor, sup_tris: Tensor, sup_counts: Tensor,
                      sup_grid: tuple, width: int, height: int, tile: int,
                      tile_h: int, atlas_bounds: tuple = (),
@@ -1510,7 +1446,7 @@ def depth_super_cuda(records: Tensor, sup_tris: Tensor, sup_counts: Tensor,
     output as `depth_super_plain`. With `kept` (tiles,) int32, the kernel
     also writes each tile's number of slots that pass its cull (the row
     sums of `tile_slot_keep(..., form="edge")` over `super_lists`)."""
-    lib, rects, n_rects = _depth_kernel_setup(
+    rects, n_rects = _depth_kernel_setup(
         "depth_super", records, tile, tile_h, atlas_bounds)
     sup_x, sup_y, sups_x = sup_grid
     tiles_x, tiles_y, n_tiles = _grid(width, height, tile, tile_h)
@@ -1518,17 +1454,13 @@ def depth_super_cuda(records: Tensor, sup_tris: Tensor, sup_counts: Tensor,
     dev = records.device
     if cap % TRI_BLOCK or n_sup != sups_x * -(-tiles_y // sup_y):
         raise ValueError("depth_super: sup_tris must be (n_sup, 16k)")
-    _check("sup_tris", sup_tris, torch.int32, (n_sup, cap), dev, "depth_super")
-    _check("sup_counts", sup_counts, torch.int32, (n_sup,), dev, "depth_super")
-    _check_kept(kept, n_tiles, dev, "depth_super")
+    check("sup_tris", sup_tris, torch.int32, (n_sup, cap), dev, "depth_super")
+    check("sup_counts", sup_counts, torch.int32, (n_sup,), dev, "depth_super")
+    check_kept(kept, n_tiles, dev, "depth_super")
     depth = torch.empty((tiles_y * tile_h, tiles_x * tile), device=dev)
-    _call(lib.depth_super_launch, [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int], "depth_super", dev,
-          _ptr(records), _ptr(sup_tris), _ptr(sup_counts), cap, n_tiles, tiles_x,
-          tile, tile_h, sup_x, sup_y, sups_x, _ptr(rects), n_rects, _ptr(depth),
-          _kept_ptr(kept), _smem_bytes("depth_super", cap))
-    depth_super.launches += 1
+    launch("depth_super", dev, ptr(records), ptr(sup_tris), ptr(sup_counts), cap,
+           n_tiles, tiles_x, tile, tile_h, sup_x, sup_y, sups_x, ptr(rects), n_rects,
+           ptr(depth), kept_ptr(kept), _smem_bytes("depth_super", cap))
     return depth
 
 
@@ -1541,7 +1473,7 @@ def depth_grid_cuda(depth: Tensor, records: Tensor, act_ids: Tensor,
     `kept` (rows,) int32, the kernel also writes each active row's number
     of slots that pass its cull (the row sums of `tile_slot_keep(...,
     form="edge", tiles=act_ids)`)."""
-    lib, rects, n_rects = _depth_kernel_setup(
+    rects, n_rects = _depth_kernel_setup(
         "depth_grid", records, tile, tile_h, atlas_bounds)
     tiles_x, tiles_y, _ = _grid(width, height, tile, tile_h)
     rows, cap = tile_tris.shape
@@ -1550,21 +1482,17 @@ def depth_grid_cuda(depth: Tensor, records: Tensor, act_ids: Tensor,
         raise ValueError("depth_grid: tile_tris must have 16k columns")
     if cap > MAX_SLOTS:
         raise ValueError(f"depth_grid: {cap} list slots, at most {MAX_SLOTS}")
-    _check("depth", depth, torch.float32, (tiles_y * tile_h, tiles_x * tile), dev,
-           "depth_grid")
-    _check("act_ids", act_ids, torch.int32, (rows,), dev, "depth_grid")
-    _check("act_cnt", act_cnt, torch.int32, (rows,), dev, "depth_grid")
-    _check("tile_tris", tile_tris, torch.int32, (rows, cap), dev, "depth_grid")
-    _check("bound", bound, torch.float32, (rows, cap // TRI_BLOCK + 1), dev,
-           "depth_grid")
-    _check_kept(kept, rows, dev, "depth_grid")
-    _call(lib.depth_grid_launch, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int], "depth_grid", dev,
-          _ptr(records), _ptr(act_ids), _ptr(act_cnt), _ptr(tile_tris), _ptr(bound),
-          cap, rows, tiles_x, tile, tile_h, _ptr(rects), n_rects, _ptr(depth),
-          _kept_ptr(kept), _smem_bytes("depth_grid", cap))
-    depth_grid.launches += 1
+    check("depth", depth, torch.float32, (tiles_y * tile_h, tiles_x * tile), dev,
+          "depth_grid")
+    check("act_ids", act_ids, torch.int32, (rows,), dev, "depth_grid")
+    check("act_cnt", act_cnt, torch.int32, (rows,), dev, "depth_grid")
+    check("tile_tris", tile_tris, torch.int32, (rows, cap), dev, "depth_grid")
+    check("bound", bound, torch.float32, (rows, cap // TRI_BLOCK + 1), dev,
+          "depth_grid")
+    check_kept(kept, rows, dev, "depth_grid")
+    launch("depth_grid", dev, ptr(records), ptr(act_ids), ptr(act_cnt), ptr(tile_tris),
+           ptr(bound), cap, rows, tiles_x, tile, tile_h, ptr(rects), n_rects,
+           ptr(depth), kept_ptr(kept), _smem_bytes("depth_grid", cap))
     return depth
 
 
@@ -1576,7 +1504,7 @@ def depth_dense_cuda(records: Tensor, tile_tris: Tensor, counts: Tensor,
     output as `depth_dense_plain`. With `kept` (tiles,) int32, the kernel
     also writes each tile's number of slots that pass its cull (the row
     sums of `tile_slot_keep(..., form="edge")`)."""
-    lib, rects, n_rects = _depth_kernel_setup(
+    rects, n_rects = _depth_kernel_setup(
         "depth_dense", records, tile, tile_h, atlas_bounds)
     tiles_x, tiles_y, n_tiles = _grid(width, height, tile, tile_h)
     cap = tile_tris.shape[1]
@@ -1584,32 +1512,19 @@ def depth_dense_cuda(records: Tensor, tile_tris: Tensor, counts: Tensor,
     dev = records.device
     if cap % TRI_BLOCK or n_big % TRI_BLOCK:
         raise ValueError("depth_dense: lists must have 16k slots")
-    _check("tile_tris", tile_tris, torch.int32, (n_tiles, cap), dev, "depth_dense")
-    _check("counts", counts, torch.int32, (n_tiles,), dev, "depth_dense")
-    _check("big_list", big_list, torch.int32, (n_big,), dev, "depth_dense")
-    _check("bound", bound, torch.float32, (n_tiles, cap // TRI_BLOCK + 1), dev,
-           "depth_dense")
-    _check_kept(kept, n_tiles, dev, "depth_dense")
+    check("tile_tris", tile_tris, torch.int32, (n_tiles, cap), dev, "depth_dense")
+    check("counts", counts, torch.int32, (n_tiles,), dev, "depth_dense")
+    check("big_list", big_list, torch.int32, (n_big,), dev, "depth_dense")
+    check("bound", bound, torch.float32, (n_tiles, cap // TRI_BLOCK + 1), dev,
+          "depth_dense")
+    check_kept(kept, n_tiles, dev, "depth_dense")
     if n_big + cap > MAX_SLOTS:
         raise ValueError(f"depth_dense: {n_big + cap} list slots, at most {MAX_SLOTS}")
     depth = torch.empty((tiles_y * tile_h, tiles_x * tile), device=dev)
-    _call(lib.depth_dense_launch, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int], "depth_dense", dev,
-          _ptr(records), _ptr(tile_tris), _ptr(counts), _ptr(big_list), _ptr(bound),
-          cap, n_big, n_tiles, tiles_x, tile, tile_h,
-          _ptr(rects), n_rects, _ptr(depth), _kept_ptr(kept),
-          _smem_bytes("depth_dense", n_big + cap))
-    depth_dense.launches += 1
+    launch("depth_dense", dev, ptr(records), ptr(tile_tris), ptr(counts), ptr(big_list),
+           ptr(bound), cap, n_big, n_tiles, tiles_x, tile, tile_h, ptr(rects), n_rects,
+           ptr(depth), kept_ptr(kept), _smem_bytes("depth_dense", n_big + cap))
     return depth
-
-
-def _on_device(name: str, x: Tensor, cuda_fn, plain_fn):
-    if x.device.type == "cuda":
-        return cuda_fn
-    if x.device.type == "cpu":
-        return plain_fn
-    raise ValueError(f"{name}: no path for device {x.device}")
 
 
 def named_slots(lists: Tensor, counts: Tensor, big_list: Tensor) -> Tensor:
@@ -1622,18 +1537,45 @@ def named_slots(lists: Tensor, counts: Tensor, big_list: Tensor) -> Tensor:
     return (scanned & (lists >= 0)).sum() + (big_list >= 0).sum() * lists.shape[0]
 
 
-def launch_counted(name: str, args: tuple, cuda_fn, plain_fn, cull):
-    """`_on_device(name, args[0], cuda_fn, plain_fn)(*args)`; while a span
+def cull_args(args: tuple, kind: str) -> tuple:
+    """The arguments of `tile_slot_keep` (records, lists, counts, big list,
+    width, height, tile, tile_h, rects, form[, tiles]) that give the cull of
+    a kernel called with `args`: blend_cuda ("blend"), depth_dense_cuda
+    ("depth"), depth_super_cuda ("super", each tile's super-tile list,
+    `super_lists`), depth_grid_cuda after its depth image ("grid", row i
+    the list of tile act_ids[i]), raster_shade_cuda ("shade") or
+    visibility_cuda ("visibility"); the last two cull per row band, so
+    their rows are bands (`band_args`). K7's is `oit.cull_args`."""
+    return {"blend": lambda: (*args[:4], *args[6:11], "vertex"),
+            "depth": lambda: (*args[:4], *args[5:10], "edge"),
+            "super": lambda: (args[0], *super_lists(*args[1:8]), args[1][0, :0],
+                              *args[4:9], "edge"),
+            "grid": lambda: (args[0], args[3], args[2], args[3][0, :0], *args[5:10],
+                             "edge", args[1]),
+            "shade": lambda: (args[0], *band_args(args)[2:9], (), "edge"),
+            "visibility": lambda: (*band_args(args)[:8], (), "edge")}[kind]()
+
+
+def split_warps(ca: tuple) -> Tensor:
+    """`warp_keep` over the cull arguments `ca` of depth_super or depth_grid
+    (`cull_args` kinds "super", "grid"): the survivors each warp of their
+    tiles keeps, (rows, DEPTH_WARPS, cap)."""
+    return warp_keep(*ca[:3], *ca[4:9], *ca[10:])
+
+
+def launch_counted(name: str, args: tuple, cuda_fn, plain_fn, cull_args):
+    """`on_device(name, args[0], cuda_fn, plain_fn)(*args)`; while a span
     records, also the slot counters of a culled blend-family kernel (K5,
-    K6, K7): `blend_slots`, `named_slots` over its cull grid (`cull()`, the
-    arguments of `tile_slot_keep`), and `blend_slots_kept`, the slots its
-    cull keeps, 0-d device tensors. On a card the kernel writes its own
-    per-row kept counts (its `kept` output, passed only while recording);
-    elsewhere they are the plain twin's, `tile_slot_keep`'s mask."""
-    fn = _on_device(name, args[0], cuda_fn, plain_fn)
+    K6, K7): `blend_slots`, `named_slots` over its cull grid
+    (`cull_args(args)`, the arguments of `tile_slot_keep`), and
+    `blend_slots_kept`, the slots its cull keeps, 0-d device tensors. On a
+    card the kernel writes its own per-row kept counts (its `kept` output,
+    passed only while recording); elsewhere they are the plain twin's,
+    `tile_slot_keep`'s mask."""
+    fn = on_device(name, args[0], cuda_fn, plain_fn)
     if not profiler.recording():
         return fn(*args)
-    c = cull()
+    c = cull_args(args)
     if fn is cuda_fn:
         kept = torch.zeros(c[1].shape[0], dtype=torch.int32, device=args[0].device)
         out = fn(*args, kept=kept)
@@ -1647,29 +1589,26 @@ def launch_counted(name: str, args: tuple, cuda_fn, plain_fn, cull):
 
 def depth_super(records: Tensor, *args) -> Tensor:
     """Split pass 1 (`depth_super_plain`): the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors; `launches` counts kernel launches."""
-    return _on_device("depth_super", records, depth_super_cuda,
-                      depth_super_plain)(records, *args)
+    the plain version for CPU tensors."""
+    return on_device("depth_super", records, depth_super_cuda,
+                     depth_super_plain)(records, *args)
 
 
 def depth_grid(depth: Tensor, *args) -> Tensor:
     """Split pass 2 (`depth_grid_plain`), in place on `depth`: the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors."""
-    return _on_device("depth_grid", depth, depth_grid_cuda,
-                      depth_grid_plain)(depth, *args)
+    return on_device("depth_grid", depth, depth_grid_cuda,
+                     depth_grid_plain)(depth, *args)
 
 
 def depth_dense(records: Tensor, *args) -> Tensor:
     """The one-pass depth raster (`depth_dense_plain`): the CUDA kernel for
     CUDA tensors; for CPU tensors the plain version over the kernel's own
     cull (`depth_dense_culled`, the same bits)."""
-    return _on_device("depth_dense", records, depth_dense_cuda,
-                      depth_dense_culled)(records, *args)
+    return on_device("depth_dense", records, depth_dense_cuda,
+                     depth_dense_culled)(records, *args)
 
 
-depth_super.launches = 0
-depth_grid.launches = 0
-depth_dense.launches = 0
 
 
 def depth_args(setup: Dict[str, Tensor], tile_tris: Tensor, counts: Tensor,

@@ -25,6 +25,7 @@ import torch
 
 from garden_tpu.render import oit as joit
 from garden_tpu.render import raster as jr
+from garden_tpu_torch import cuda_build
 from garden_tpu_torch.render import oit as toit
 from garden_tpu_torch.render import raster as tr
 
@@ -260,14 +261,14 @@ def test_cpu_wrappers_take_plain_versions_and_count_no_launch():
     js, ts, rgba, hdr, opaque = _blend_inputs(8, n_small=20, n_big=2)
     bins = tr.bin_triangles(ts, W, H, 32, 32, max_big=16)
     merged = tr.merge_big_list(*bins)
-    fns = (tr.rasterize_visibility, tr.rasterize_sorted_blend, toit.rasterize_oit)
-    before = [f.launches for f in fns]
+    kernels = ("visibility", "sorted_blend", "oit")
+    before = [cuda_build.launches[k] for k in kernels]
     tr.rasterize_visibility(ts, *bins, W, H, 32)
     tr.rasterize_sorted_blend(ts, torch.from_numpy(rgba), *bins,
                               torch.from_numpy(opaque), torch.from_numpy(hdr), W, H, 32)
     toit.rasterize_oit(ts, torch.from_numpy(rgba), *merged, torch.from_numpy(opaque),
                        W, H, 32)
-    assert [f.launches for f in fns] == before
+    assert [cuda_build.launches[k] for k in kernels] == before
     with pytest.raises(ValueError):
         tr.visibility_cuda(*tr.visibility_args(ts, *bins, W, H, 32))
     with pytest.raises(ValueError):

@@ -34,7 +34,7 @@ import torch
 
 from benchmark.entries import world_sim
 from benchmark.reference.render import clouds as ref_clouds
-from garden_tpu_torch import entry
+from garden_tpu_torch import cuda_build, entry
 from garden_tpu_torch.core import math3d as m3
 from garden_tpu_torch.render import clouds
 from garden_tpu_torch.utils import profiler
@@ -78,7 +78,7 @@ def _spans(fn):
 def test_cpu_tensors_give_the_plain_reference_bits():
     rays, ground = _rays((6, 20), 1), _ground((5, 7), 2)
     sun, t = torch.tensor(SUN), torch.tensor(3.5)
-    launches = (clouds.render_clouds.launches, clouds.cloud_shadow.launches)
+    launches = (cuda_build.launches["cloud_march"], cuda_build.launches["cloud_shadow"])
     rgb, alpha = clouds.render_clouds(rays, sun, time=t)
     ref_rgb, ref_alpha = ref_clouds.render_clouds(rays, sun, time=t)
     assert torch.equal(rgb, ref_rgb) and torch.equal(alpha, ref_alpha)
@@ -86,7 +86,8 @@ def test_cpu_tensors_give_the_plain_reference_bits():
     shadow = clouds.cloud_shadow(ground, sun, time=t)
     assert torch.equal(shadow, ref_clouds.cloud_shadow(ground, sun, time=t))
     assert float(shadow.min()) < 1.0
-    assert (clouds.render_clouds.launches, clouds.cloud_shadow.launches) == launches
+    assert (cuda_build.launches["cloud_march"],
+            cuda_build.launches["cloud_shadow"]) == launches
     assert all(type(n) is int for n in launches)
 
 
@@ -198,15 +199,15 @@ def test_one_call_is_one_launch_and_no_sync(cuda):
     rays_h, sun, t, ground = entry.world_sim_cloud_inputs(cuda)
     clouds.render_clouds(rays_h, sun, time=t)        # loads the library
     torch.cuda.synchronize()
-    march, shadow = clouds.render_clouds.launches, clouds.cloud_shadow.launches
+    march, shadow = cuda_build.launches["cloud_march"], cuda_build.launches["cloud_shadow"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         clouds.render_clouds(rays_h, sun, time=t)
         clouds.cloud_shadow(ground, sun, time=t)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert clouds.render_clouds.launches == march + 1
-    assert clouds.cloud_shadow.launches == shadow + 1
+    assert cuda_build.launches["cloud_march"] == march + 1
+    assert cuda_build.launches["cloud_shadow"] == shadow + 1
 
 
 @pytest.mark.gpu

@@ -22,12 +22,14 @@ and edges exactly 0 at a tile's corner centre, and check that the slots K1
 scans are those tile_slot_keep scans. Their kernels cull per row band
 (`raster.band_args`): the plain rasters on that band grid, masked, equal
 the unmasked ones on the tiles. K7's cull works on the OIT kernel's
-band grid (`oit.band_keep`): its tests add big-list holes and big triangles
+band grid (`oit.cull_args`): its tests add big-list holes and big triangles
 that each lie in a few rows, so most of a tile's bands cull them. K2 culls
 each tile's super-tile list (`raster.super_lists`), K3 each active row's
 list against the tile that `act_ids` names (`tile_slot_keep(...,
 tiles=)`): their tests draw the active rows out of tile order, and add an
 early exit after a block that the cull emptied for that row's tile only.
+`raster.cull_args` gives each of K1-K6's cull grid as tile_slot_keep's
+arguments, `oit.cull_args` K7's.
 """
 
 import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
@@ -294,7 +296,7 @@ def test_split_depth_cull_is_exact(case, rects):
     unmasked ones bit for bit, K3's early exit included, and each mask
     culls."""
     sup, grid = _split_args(case, 6, rects)
-    ca2, ca3 = chip_smoke.cull_args(sup, "super"), chip_smoke.cull_args(grid, "grid")
+    ca2, ca3 = raster.cull_args(sup, "super"), raster.cull_args(grid, "grid")
     keep2, keep3 = raster.tile_slot_keep(*ca2), raster.tile_slot_keep(*ca3)
     ref2 = raster.depth_super_plain(*sup)
     assert torch.equal(_bits(raster.depth_super_plain(*sup, keep=keep2)), _bits(ref2))
@@ -329,7 +331,7 @@ def test_grid_early_exit_after_a_culled_block():
     a = raster.depth_args(setup, lists, counts, lists[0, :0], w, h, 128, (), None, 16,
                           sup_bins=(empty, torch.zeros(1, dtype=torch.int32), (4, 1, 1)),
                           act_ids=act)["grid"]
-    ca = chip_smoke.cull_args(a, "grid")
+    ca = raster.cull_args(a, "grid")
     keep = raster.tile_slot_keep(*ca)
     assert keep[0, :16].all() and keep[1, 0] and keep[1, 32:48].all()
     assert not keep[1, 16:32].any()                     # block 1 culled for tile 0
@@ -384,8 +386,8 @@ def test_split_warp_cull_is_exact(case, rects):
     warp = _warp_of_pixels(128, 16)
     for args, kind, plain in ((sup, "super", raster.depth_super_plain),
                               (grid, "grid", raster.depth_grid_plain)):
-        ca = chip_smoke.cull_args(args, kind)
-        keep, warps = raster.tile_slot_keep(*ca), chip_smoke.split_warps(ca)
+        ca = raster.cull_args(args, kind)
+        keep, warps = raster.tile_slot_keep(*ca), raster.split_warps(ca)
         assert not (warps & ~keep[:, None, :]).any()
         assert 0 < int((warps & keep[:, None, :]).sum()) < raster.DEPTH_WARPS * int(keep.sum())
         tiles = ca[10].long() if kind == "grid" else torch.arange(keep.shape[0])
@@ -662,8 +664,8 @@ def test_raster_cull_on_small_frames(frames, shape):
 def _band_keep(kernel, a):
     """(the plain version's arguments on the kernels' band grid,
     `raster.band_args`; the kernels' cull there, tile_slot_keep over
-    `chip_smoke.cull_args`)."""
-    return raster.band_args(a), raster.tile_slot_keep(*chip_smoke.cull_args(a, kernel))
+    `raster.cull_args`)."""
+    return raster.band_args(a), raster.tile_slot_keep(*raster.cull_args(a, kernel))
 
 
 def _tile_keep_on_bands(a, keep_tile):
@@ -764,12 +766,12 @@ def _oit_inputs(case, seed, tile):
 @pytest.mark.parametrize("tile", [128, 64])
 @pytest.mark.parametrize("case", list(CASES))
 def test_oit_cull_is_exact(case, tile):
-    """K7's per-band vertex-form cull: oit_plain masked by band_keep equals
+    """K7's per-band vertex-form cull: oit_plain masked by it equals
     the unmasked one bit for bit; the band-bound big triangles are culled
     from the other bands of their tiles, and the holes are dropped."""
     w, h = W, H
     a = _oit_inputs(case, 5, tile)
-    keep = oit.band_keep(a[0], a[1], a[2], w, h, tile)
+    keep = raster.tile_slot_keep(*oit.cull_args(a))
     ref = oit.oit_plain(*a)
     out = oit.oit_plain(*a, keep=keep)
     assert torch.equal(_bits(out[0]), _bits(ref[0]))
@@ -790,7 +792,7 @@ def test_oit_cull_on_a_small_glass_frame(frames):
     bit, and the bands keep fewer slots than their lists name."""
     a = frames["oit"]
     w, h, tile = a[4:7]
-    keep = oit.band_keep(a[0], a[1], a[2], w, h, tile)
+    keep = raster.tile_slot_keep(*oit.cull_args(a))
     ref = oit.oit_plain(*a)
     out = oit.oit_plain(*a, keep=keep)
     assert torch.equal(_bits(out[0]), _bits(ref[0]))
@@ -802,11 +804,11 @@ def test_oit_cull_on_a_small_glass_frame(frames):
 def test_oit_inside_pairs_survive_the_cull(frames):
     """oit_plain's `work`, the (slot, pixel) pairs whose pixel is inside the
     slot's triangle (K7's bound counts its depth, weight and sums only
-    there), is the same with band_keep's mask: no culled pair is inside;
+    there), is the same with the cull's mask: no culled pair is inside;
     and it is a share of the kept pairs."""
     a = frames["oit"]
     w, h, tile = a[4:7]
-    keep = oit.band_keep(a[0], a[1], a[2], w, h, tile)
+    keep = raster.tile_slot_keep(*oit.cull_args(a))
     full, masked = [0], [0]
     oit.oit_plain(*a, work=full)
     oit.oit_plain(*a, keep=keep, work=masked)

@@ -30,10 +30,9 @@ import torch
 
 import __graft_entry__ as graft
 from garden_tpu.core.config import ShadowConfig as JShadowConfig
-from garden_tpu_torch import entry
+from garden_tpu_torch import cuda_build, entry
 from garden_tpu_torch.convert import from_jax
 from garden_tpu_torch.core.config import ShadowConfig
-from garden_tpu_torch.render import raster
 
 SIZE = dict(n_bodies=32, width=256, height=128, grid_dim=8)
 SHADOWS = {
@@ -78,11 +77,9 @@ def both(request):
         seen.update(out)
         return out
     tstep.renderer.render = spy
-    counts = (raster.depth_super.launches, raster.depth_grid.launches,
-              raster.depth_dense.launches)
+    counts = dict(cuda_build.launches)
     tnext, timg = tstep(tstate)
-    assert counts == (raster.depth_super.launches, raster.depth_grid.launches,
-                      raster.depth_dense.launches)   # CPU: plain versions
+    assert cuda_build.launches == counts             # CPU: plain versions
     return request.param, (jnext, jimg, jout), (tnext, timg, seen)
 
 

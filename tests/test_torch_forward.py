@@ -30,6 +30,7 @@ from garden_tpu.render import lighting as jlight
 from garden_tpu.render import mesh as jmesh
 from garden_tpu.render import raster as jr
 from garden_tpu.systems import camera as jcam
+from garden_tpu_torch import cuda_build
 from garden_tpu_torch.convert import from_jax
 from garden_tpu_torch.core.config import RenderConfig
 from garden_tpu_torch.render import forward as tfwd
@@ -170,9 +171,9 @@ def test_render_pass_matches_on_square_tiles(clip, frames):
     render_pass is the one inside its forward frame."""
     td, tclip = clip[1], clip[3]
     jout = frames[0]
-    launches = tr.rasterize_visibility.launches
+    launches = cuda_build.launches["visibility"]
     tvis, tset = tr.render_pass(tclip, td["indices"], td["tri_valid"], W, H, 128, 512)
-    assert tr.rasterize_visibility.launches == launches       # CPU: the plain version
+    assert cuda_build.launches["visibility"] == launches       # CPU: the plain version
     jt, tt = jout["tri_id"], tvis["tri_id"].numpy()
     same = jt == tt
     assert same.mean() >= 0.999

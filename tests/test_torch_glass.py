@@ -23,9 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from garden_tpu_torch import entry
+from garden_tpu_torch import cuda_build, entry
 from garden_tpu_torch.core.config import ShadowConfig
-from garden_tpu_torch.render import oit, raster
 
 SIZE = dict(n_bodies=32, width=256, height=128, grid_dim=8)
 SHADOW = dict(resolve_step=2, cascade_sizes=(256, 128, 128), atlas_tile_h=16,
@@ -143,12 +142,9 @@ def both():
         seen.update(out)
         return out
     tstep.renderer.render = spy
-    fns = (raster.rasterize_visibility_shaded, raster.rasterize_visibility,
-           raster.rasterize_sorted_blend, oit.rasterize_oit, raster.depth_dense,
-           raster.depth_super, raster.depth_grid)
-    before = [f.launches for f in fns]
+    before = dict(cuda_build.launches)
     tnext, timg = tstep(tstate)
-    assert [f.launches for f in fns] == before          # CPU: plain versions
+    assert cuda_build.launches == before                # CPU: plain versions
     return (jnext, jimg, jout), (tnext, timg, seen), tstep
 
 

@@ -16,8 +16,8 @@ rects) and the OIT accumulation (K7, whose 128x128 tiles run as sixteen
 among them, match the CPU within the image bar. All seven cull their slots;
 they equal their plain versions in every bit, and their `kept` counts
 equal the row sums of the cull's plain twin (`raster.tile_slot_keep`; for
-the row bands of K1 and K5 over `raster.band_args`, of K7
-`oit.band_keep`, of K2 over `raster.super_lists`, of K3 with
+the row bands of K1 and K5 over `raster.band_args`, of K7 over
+`oit.cull_args`, of K2 over `raster.super_lists`, of K3 with
 tiles=act_ids), at two tile shapes and at a frame size that is not a
 multiple of the tile. The tracer (`utils/profiler`) counts the card's host
 synchronizations per span, and its contact and binning counters add none.
@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from garden_tpu_torch import cuda_build
 from garden_tpu_torch.entry import (GLASS_BOXES, GLASS_OVERRIDES, SLICE_OVERRIDES,
                                     build)
 from garden_tpu_torch.physics.shapes import SHAPE_NAMES
@@ -96,11 +97,11 @@ def test_wrapper_launches_kernel_and_counts(cuda):
     bins = raster.bin_triangles(setup, w, h, 128, 96, tile_h=32)
     cpu_vis, cpu_g = raster.rasterize_visibility_shaded(setup, rec, *bins, w, h,
                                                         128, tile_h=32)
-    before = raster.rasterize_visibility_shaded.launches
+    before = cuda_build.launches["raster_shade"]
     g_vis, g_g = raster.rasterize_visibility_shaded(
         {k: v.to(cuda) for k, v in setup.items()}, rec.to(cuda),
         *[b.to(cuda) for b in bins], w, h, 128, tile_h=32)
-    assert raster.rasterize_visibility_shaded.launches == before + 1
+    assert cuda_build.launches["raster_shade"] == before + 1
     assert torch.equal(g_vis["tri_id"].cpu(), cpu_vis["tri_id"])
     assert (g_g.cpu() - cpu_g).abs().max().item() <= 2e-5
 
@@ -191,19 +192,19 @@ def test_depth_wrapper_launches_and_counts(cuda):
     setup, atl = _atlas_setup(9, w, h)
     bins = raster.bin_triangles_corner(setup, w, h, 128, 64, tile_h=16)
     cpu = raster.rasterize_depth(setup, *bins, w, h, 128, tile_h=16)
-    before = (raster.depth_dense.launches, raster.depth_super.launches,
-              raster.depth_grid.launches)
+    before = (cuda_build.launches["depth_dense"], cuda_build.launches["depth_super"],
+              cuda_build.launches["depth_grid"])
     gpu = raster.rasterize_depth({k: v.to(cuda) for k, v in setup.items()},
                                  *[b.to(cuda) for b in bins], w, h, 128, tile_h=16)
-    assert raster.depth_dense.launches == before[0] + 1
+    assert cuda_build.launches["depth_dense"] == before[0] + 1
     assert torch.equal(gpu.cpu(), cpu)
     sup = raster.bin_big_supertiles(setup, bins[2], w, h, 128, 16, 4, 8, 64)
     gs = {k: v.to(cuda) for k, v in setup.items()}
     raster.rasterize_depth(gs, *[b.to(cuda) for b in bins], w, h, 128, tile_h=16,
                            sup_bins=(sup[0].to(cuda), sup[1].to(cuda), sup[2]),
                            max_active=12)
-    assert raster.depth_super.launches == before[1] + 1
-    assert raster.depth_grid.launches == before[2] + 1
+    assert cuda_build.launches["depth_super"] == before[1] + 1
+    assert cuda_build.launches["depth_grid"] == before[2] + 1
     a = raster.depth_args(gs, *[b.to(cuda) for b in bins], w, h, 128, tile_h=16)
     bad = list(a["dense"])
     bad[1] = bad[1].long()                          # lists must be int32
@@ -318,14 +319,13 @@ def test_nonopaque_wrappers_launch_and_count(cuda):
     merged = raster.merge_big_list(*raster.bin_triangles(setup, w, h, 128, 64))
     gs, gb, gm = _to(setup, cuda), [_to(b, cuda) for b in bins], \
         [_to(m, cuda) for m in merged]
-    fns = (raster.rasterize_visibility, raster.rasterize_sorted_blend,
-           oit.rasterize_oit)
-    before = [f.launches for f in fns]
+    kernels = ("visibility", "sorted_blend", "oit")
+    before = [cuda_build.launches[k] for k in kernels]
     v = raster.rasterize_visibility(gs, *gb, w, h, 128, tile_h=32)
     b = raster.rasterize_sorted_blend(gs, rgba.to(cuda), *gb, opaque.to(cuda),
                                       hdr.to(cuda), w, h, 128, tile_h=32)
     a, r = oit.rasterize_oit(gs, rgba.to(cuda), *gm, opaque.to(cuda), w, h, 128)
-    assert [f.launches for f in fns] == [n + 1 for n in before]
+    assert [cuda_build.launches[k] for k in kernels] == [n + 1 for n in before]
     assert torch.equal(v["tri_id"].cpu(),
                        raster.rasterize_visibility(setup, *bins, w, h, 128,
                                                    tile_h=32)["tri_id"])
@@ -609,14 +609,14 @@ def test_culled_raster_matches_plain_on_card(cuda, w, h, tile, tile_h, lists):
 def test_culled_oit_matches_plain_on_card(cuda, w, h, tile):
     """K7 with its per-band cull equals oit_plain in every bit on merged
     lists (64 big slots with holes, overflowing 32-slot tile lists);
-    `kept` equals band_keep's row sums over the band grid; a null `kept`
+    `kept` equals its cull's row sums over the band grid; a null `kept`
     changes nothing."""
     setup, rgba, _, opaque = _blend_scene(44, w, h)
     merged = raster.merge_big_list(*raster.bin_triangles(setup, w, h, tile, 32,
                                                          max_big=64))
     args = [_to(a, cuda) for a in oit.oit_args(setup, rgba, *merged, opaque, w, h,
                                                tile)]
-    keep = oit.band_keep(args[0], args[1], args[2], w, h, tile)
+    keep = raster.tile_slot_keep(*oit.cull_args(args))
     kept = torch.full((keep.shape[0],), -7, dtype=torch.int32, device=cuda)
     (ka, kr), (ka0, kr0) = oit.oit_cuda(*args, kept=kept), oit.oit_cuda(*args)
     pa, pr = oit.oit_plain(*args)
@@ -891,9 +891,9 @@ def test_visibility_on_square_tiles_matches_plain_on_card(cuda, w, h, ties):
     idx = torch.tensor(np.random.default_rng(6).integers(0, 600, (400, 3)),
                        dtype=torch.int32)
     valid = torch.ones(400, dtype=torch.bool)
-    before = raster.rasterize_visibility.launches
+    before = cuda_build.launches["visibility"]
     gpu, _ = raster.render_pass(clip.to(cuda), idx.to(cuda), valid.to(cuda), w, h, 128, 512)
-    assert raster.rasterize_visibility.launches == before + 1
+    assert cuda_build.launches["visibility"] == before + 1
     cpu, _ = raster.render_pass(clip, idx, valid, w, h, 128, 512)
     for k in cpu:
         assert torch.equal(gpu[k].cpu(), cpu[k]), k
@@ -1085,9 +1085,9 @@ def test_frame_tiles_on_card(cuda):
     ref = step.render(mats, state["frame"])["image"].cpu().numpy().astype(int)
     ft = FrameTiles(step.renderer.config, step.renderer.scene_host, n_bands=2, overlap=16,
                     devices=[cuda] * 2)
-    before = raster.rasterize_visibility_shaded.launches
+    before = cuda_build.launches["raster_shade"]
     img, _ = ft.render(step.scene, mats, step.constants, ft.initial_state())
-    assert raster.rasterize_visibility_shaded.launches - before == 2
+    assert cuda_build.launches["raster_shade"] - before == 2
     img = img.cpu().numpy().astype(int)
     assert img.shape == ref.shape
     seam = set(range(64 - 2, 64 + 2))
@@ -1162,11 +1162,10 @@ def test_kernels_launch_on_their_tensors_card():
     for k in ("tri_id", "depth", "b0", "b1"):
         assert torch.equal(kvis[k], pvis[k]), k
     assert (kg - pg).abs().max().item() <= 2e-5
-    before = {k: getattr(raster, k).launches for k in ("rasterize_visibility_shaded",
-                                                       "depth_dense")}
+    before = {k: cuda_build.launches[k] for k in ("raster_shade", "depth_dense")}
     states, images = entry.dryrun_multichip(2, devices=cards)
-    assert {k: getattr(raster, k).launches - n for k, n in before.items()} == {
-        "rasterize_visibility_shaded": 2, "depth_dense": 2}
+    assert {k: cuda_build.launches[k] - n for k, n in before.items()} == {
+        "raster_shade": 2, "depth_dense": 2}
     assert images.device == cards[0] and torch.equal(images[0], images[1])
     assert states[1]["physics"]["bodies"]["pos"].device == cards[1]
 

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from garden_tpu.render import raster as jr
+from garden_tpu_torch import cuda_build
 from garden_tpu_torch.render import raster as tr
 
 W, H, TILE = 128, 128, 64
@@ -245,12 +246,12 @@ def test_cpu_wrapper_uses_plain_version_and_counts_no_launch():
     clip = _random_tris(11, n)
     _, ts = _setups(clip)
     tb = tr.bin_triangles(ts, W, H, TILE, 64)
-    before = tr.rasterize_visibility_shaded.launches
+    before = cuda_build.launches["raster_shade"]
     vis, g = tr.rasterize_visibility_shaded(ts, torch.from_numpy(_records(1, n)),
                                             *tb, W, H, TILE)
     args = tr.kernel_args(ts, torch.from_numpy(_records(1, n)), *tb, W, H, TILE)
     pvis, pg = tr.raster_shade_plain(*args, max_elems=1 << 12)   # many chunks
-    assert tr.rasterize_visibility_shaded.launches == before
+    assert cuda_build.launches["raster_shade"] == before
     assert torch.equal(g, pg)
     for k in vis:
         assert torch.equal(vis[k], pvis[k])

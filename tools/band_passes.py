@@ -31,12 +31,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("band_passes: CUDA is not available", file=sys.stderr)
         return 1
-    from chip_smoke import HEIGHT, N_BODIES, SEAM_ROWS, SOURCES, WIDTH, band_bars, card_line
+    from chip_smoke import HEIGHT, N_BODIES, SEAM_ROWS, WIDTH, band_bars, card_line
     from garden_tpu_torch import cuda_build
     from garden_tpu_torch.entry import build
     from garden_tpu_torch.parallel.frame_tiles import FrameTiles
     from garden_tpu_torch.render.deferred import DeferredRenderer
-    cuda_build.build_all(SOURCES)
+    cuda_build.build_all(cuda_build.SOURCES)
     print(f"card: {card_line()}")
     step, state = build(N_BODIES, WIDTH, HEIGHT, grid_dim=64, device="cuda")
     mats = step.instance_matrices(state["physics"])

@@ -13,9 +13,9 @@ visit every kernel. K1 runs at the flagship's shape (the slice's is the
 same frame) and at the glass step's; K4 and K6 at their two glass shapes;
 K3 in place on a copy of K2's output, the copy's own time taken off. It
 calls only arguments that every version of the wrappers takes, so it runs
-in an older checkout too: copy it and `chip_smoke.py` into that checkout
-(the tool to its tools/), and run parent, change, change, parent in one
-call. Prints the card, then one JSON line {"label", "card", "ms": {kernel:
+in an older checkout too, one whose `cuda_build` has `SOURCES`: copy it and
+`chip_smoke.py` into that checkout (the tool to its tools/), and run
+parent, change, change, parent in one call. Prints the card, then one JSON line {"label", "card", "ms": {kernel:
 [ms per round]}}.
 """
 
@@ -45,7 +45,7 @@ def main() -> int:
 
     card = chip_smoke.card_line()
     print(f"card: {card}")
-    cuda_build.build_all(chip_smoke.SOURCES)
+    cuda_build.build_all(cuda_build.SOURCES)
     size = dict(n_bodies=chip_smoke.N_BODIES, width=chip_smoke.WIDTH,
                 height=chip_smoke.HEIGHT, grid_dim=64, device="cuda")
     fns = {}
