@@ -105,6 +105,14 @@ cl. the cloud kernels (`csrc/clouds.cu`) at the world sim's shapes: the
    or below the clouds' horizon 0, one launch a call (the kernels line
    takes their launches from phase p); each kernel's
    device time, one call of its plain version, and its bound;
+at. the atmosphere kernels (`csrc/atmosphere.cu`) at play's shapes: the
+   flagship camera's 518,400 half-res view rays (12 steps), their mirror
+   images off the ground (the specular sky, 4 steps), the 128 SH
+   directions (8 steps) and the 2,073,600 full-res rays with their
+   distance to the ground (the aerial perspective): each call equal to its
+   plain version in every bit, one launch a call (the kernels line takes
+   their launches from phase p: 3 skies and 1 aerial perspective a step);
+   each kernel's device time, its plain version's, and its bound;
 then the rest of render (plain PyTorch around K1-K5):
 t. the forward renderer (`entry.build_forward`: the flagship scene and
    camera, `raster.render_pass` on 128x128 tiles) for one frame: K5 once
@@ -244,6 +252,8 @@ KERNELS = {   # name (a key of cuda_build.KERNELS) -> the TPU kernel it replaces
     "oit": "garden_tpu/render/oit.py:31",
     "cloud_march": "none: garden_tpu/render/clouds.py:render_clouds is jnp ops",
     "cloud_shadow": "none: garden_tpu/render/clouds.py:cloud_shadow is jnp ops",
+    "sky_radiance": "none: garden_tpu/render/atmosphere.py:sky_radiance is jnp ops",
+    "aerial_perspective": "none: garden_tpu/render/atmosphere.py:aerial_perspective is jnp ops",
 }
 TOL_GBUF = 2e-5            # K1's G-buffer planes (rsqrt may differ by an ulp)
 # physics on the card against the CPU: positions after 3 steps of the bench
@@ -306,6 +316,20 @@ OPS_CULL_VERTEX, OPS_CULL_EDGE, OPS_CULL_RECT = 36, 37, 24
 OPS_DENSITY = 3993
 OPS_MARCH_STEP, OPS_MARCH_RAY = 3 * OPS_DENSITY + 48, 69
 OPS_SHADOW_POINT = 2 * OPS_DENSITY + 17
+# The atmosphere kernels' float32 operations, counted from their plain
+# versions (an exp, sqrt, pow or division one each): a march sample's sun
+# transmittance 63 (two optical depths of 13 on the Chapman function's
+# upper branch, the horizon test 10, three channels' optical depth,
+# exponential and select 27), its densities 6 and three channels' step
+# optical depth, view transmittance, in-scatter and sums 57: 126; the sky
+# adds the sample's distance and height 9, the aerial perspective 4. A ray
+# 80 for its set-up (both normalizations, the intersections, the phases)
+# and 21 for the multi-scatter floor; a ray into the ground 84 more for
+# its albedo, one on the sun disk 69. A ray reads 12 bytes and the sky
+# writes 12; the aerial perspective reads 4 more and writes 24.
+OPS_ATM_SAMPLE = 126
+OPS_SKY_SAMPLE, OPS_AERIAL_SAMPLE = OPS_ATM_SAMPLE + 9, OPS_ATM_SAMPLE + 4
+OPS_ATM_RAY, OPS_SKY_FLOOR, OPS_SKY_GROUND, OPS_SKY_DISK = 80, 21, 84, 69
 SPIN_CYCLES = 4_000_000    # ~2 ms of the card's clock, ahead of a timed kernel
 
 
@@ -1027,10 +1051,12 @@ def pass_set_phases(card: str, results: dict, t_start: float) -> None:
     print(f"phase p: 3 ultra steps, launches {ulaunch}")
     check(ulaunch.items() >= {"raster_shade": 3, "depth_super": 0, "depth_grid": 0,
                               "depth_dense": 3, "cloud_march": 3,
-                              "cloud_shadow": 3}.items(),
+                              "cloud_shadow": 3, "sky_radiance": 9,
+                              "aerial_perspective": 3}.items(),
           "phase p: the ultra step did not run K1, K4 and the cloud kernels once per "
-          "step (and K2, K3 never)")
-    for k in ("cloud_march", "cloud_shadow"):
+          "step, the sky kernel three times and the aerial perspective once (and K2, "
+          "K3 never)")
+    for k in ("cloud_march", "cloud_shadow", "sky_radiance", "aerial_perspective"):
         results[k] = dict(launches=ulaunch[k], launches_by_path={"ultra (3 steps)": ulaunch[k]})
     to_light = -uc["light_dir"]
     dome, ground = dome_rays(64, "cuda"), ground_grid(64, 10.0, "cuda")
@@ -1245,6 +1271,78 @@ def cloud_phase(card: str, results: dict) -> None:
         print(f"phase cl: {k} kernel, device median {ms[k]:.4f} ms, plain {plain[k]:.4f} ms, "
               f"bound {bounds[k]}  [{card}]")
         results[k].update(max_abs_err=err[k], ms=ms[k], plain_ms=plain[k], **bounds[k])
+
+
+def atmosphere_phase(card: str, results: dict) -> None:
+    """Phase at: the sky and aerial-perspective kernels at play's shapes
+    against their plain versions, their device time, their plain
+    versions', and their bounds, into `results` (whose launches phase p
+    counted on the ultra step)."""
+    import torch
+    from garden_tpu_torch import cuda_build
+    from garden_tpu_torch.core import math3d as m3
+    from garden_tpu_torch.entry import flagship_atmosphere_inputs
+    from garden_tpu_torch.render import atmosphere
+    rays, rays_h, refl_h, depth, sun = flagship_atmosphere_inputs("cuda", N_BODIES, WIDTH,
+                                                                  HEIGHT)
+    dirs = m3.constant(atmosphere._SH_DIRS, "cuda")
+    calls = {   # name -> (kernel, fn, plain fn, rays, steps)
+        "sky (12 steps)": ("sky_radiance", lambda: atmosphere.sky_radiance(rays_h, sun),
+                           lambda: atmosphere.sky_radiance_plain(rays_h, sun), rays_h, 12),
+        "specular sky (4 steps)": (
+            "sky_radiance", lambda: atmosphere.sky_radiance(refl_h, sun, steps=4),
+            lambda: atmosphere.sky_radiance_plain(refl_h, sun, steps=4), refl_h, 4),
+        "SH sky (8 steps)": ("sky_radiance", lambda: atmosphere.sky_radiance(dirs, sun, steps=8),
+                             lambda: atmosphere.sky_radiance_plain(dirs, sun, steps=8), dirs, 8),
+        "aerial perspective (4 steps)": (
+            "aerial_perspective", lambda: atmosphere.aerial_perspective(depth, rays, sun),
+            lambda: atmosphere.aerial_perspective_plain(depth, rays, sun), rays, 4),
+    }
+    r0 = atmosphere.R_GROUND + 0.2
+    l = m3.normalize(sun)
+    err, same, timed = {}, {}, {}
+    for name, (kernel, fn, plain_fn, x, steps) in calls.items():
+        before = dict(cuda_build.launches)
+        got = fn()
+        launches = {k: n for k, n in launches_since(before).items() if n}
+        want = plain_fn()
+        torch.cuda.synchronize()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        err[name] = max(max_diff(a, b) for a, b in zip(got, want))
+        same[name] = all(same_bits(a, b) for a, b in zip(got, want))
+        check(launches == {kernel: 1}, f"phase at: {name} did not launch {kernel} once")
+        check(same[name], f"phase at: the {name} differs from its plain version")
+        check(all(bool(torch.isfinite(a).all()) for a in got),
+              f"phase at: the {name} is not finite")
+        v = m3.normalize(x)
+        n = v.shape[0] * (v.shape[1] if v.dim() == 3 else 1)
+        if kernel == "sky_radiance":
+            b = v[..., 1].double() * r0
+            ground = (v[..., 1] < 0) & (b * b + (atmosphere.R_GROUND ** 2 - r0 * r0) > 0)
+            disk = ~ground & (m3.dot(v, l) > 0.99955)
+            ops = (n * (steps * OPS_SKY_SAMPLE + OPS_ATM_RAY + OPS_SKY_FLOOR)
+                   + int(ground.sum()) * OPS_SKY_GROUND + int(disk.sum()) * OPS_SKY_DISK)
+            timed[name] = (kernel, bound(ops, n * (12 + 12)), n,
+                           f"{int(ground.sum())} into the ground, {int(disk.sum())} on the sun")
+        else:
+            timed[name] = (kernel, bound(n * (steps * OPS_AERIAL_SAMPLE + OPS_ATM_RAY),
+                                         n * (12 + 4 + 24)), n, "")
+    print(f"phase at: max |d| {err}; same bits {same}")
+    total = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0, bound_by={})
+             for k in ("sky_radiance", "aerial_perspective")}
+    for name, (kernel, fn, plain_fn, x, steps) in calls.items():
+        k, bd, n, rays_note = timed[name]
+        ms, plain = kernel_ms(fn), cuda_ms(plain_fn, reps=3)
+        print(f"phase at: {name}, {n} rays{', ' + rays_note if rays_note else ''}: {k} kernel, "
+              f"device median {ms:.4f} ms, plain {plain:.4f} ms, bound {bd}  [{card}]")
+        t = total[k]
+        t["ms"] += ms
+        t["plain_ms"] += plain
+        t["bound_ms"] += bd["bound_ms"]
+        t["max_abs_err"] = max(t["max_abs_err"], err[name])
+        t["bound_by"][name] = bd["bound_by"]
+    for k, t in total.items():
+        results[k].update(t)
 
 
 def rel_diff(a, b) -> float:
@@ -2794,6 +2892,7 @@ def main() -> int:
     physics_phases(card)
     pass_set_phases(card, results, t_start)
     cloud_phase(card, results)
+    atmosphere_phase(card, results)
     feature_phases(card, results, t_start)
     engine_phases(card, results, t_start)
     batch = world_batch_phase(card)

@@ -23,15 +23,10 @@
 // base and 400 units beyond, and the transmittance exp(-2.5 d).
 //
 // Equal bits. The plain versions run on the card as PyTorch's CUDA ops,
-// and each step here is the same float32 operation in the same order:
-// built with -fmad=false, so no multiply and add contract; a division by a
-// Python number is PyTorch's multiply by its float reciprocal (the host
-// passes those reciprocals, rounded as PyTorch rounds them); a division of
-// two tensors is IEEE's; clamps test NaN first and then take fmaxf/fminf;
-// torch.sum over three components adds (x0 + x2) + x1, as PyTorch's
-// reduction splits three inputs over two lanes; expf, rsqrtf and sqrtf are
-// the CUDA math library's, as in PyTorch. The hash works in native uint32,
-// where ops/noise.py carries the same 32 bits in int64.
+// and each step here is the same float32 operation in the same order, by
+// the rules of torch_float.cuh (the host passes the reciprocals of the
+// Python divisors, rounded as PyTorch rounds them). The hash works in
+// native uint32, where ops/noise.py carries the same 32 bits in int64.
 //
 // What bounds it on the H100: operations. A density evaluation is ~3,993
 // float and integer operations on registers alone (benchmark/metrics/
@@ -53,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "torch_float.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -60,10 +57,6 @@ constexpr int kThreads = 256;
 constexpr uint32_t kPrimeX = 501125321u;
 constexpr uint32_t kPrimeY = 1136930381u;
 constexpr uint32_t kPrimeZ = 1720413743u;
-
-// Python floats as PyTorch passes them to a float32 op: the double rounded
-// to float
-#define F32(x) (static_cast<float>(x))
 
 // clouds.BRIGHT and clouds.DARK, the sunlit and the ambient tint
 __constant__ const float kBright[3] = {F32(1.0), F32(0.98), F32(0.95)};
@@ -78,33 +71,6 @@ __device__ __forceinline__ uint32_t avalanche(uint32_t h) {
   h ^= h >> 15;
   h *= 0x85EBCA77u;
   return h ^ (h >> 13);
-}
-
-// torch.clamp(x, lo, hi), torch.clamp(x, min=lo), torch.clamp(x, max=hi)
-__device__ __forceinline__ float clamp(float x, float lo, float hi) {
-  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
-}
-
-__device__ __forceinline__ float clamp_min(float x, float lo) {
-  return isnan(x) ? x : fmaxf(x, lo);
-}
-
-__device__ __forceinline__ float clamp_max(float x, float hi) {
-  return isnan(x) ? x : fminf(x, hi);
-}
-
-// m3.dot over three components: torch.sum's (x0 + x2) + x1
-__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
-                                      float by, float bz) {
-  return (ax * bx + az * bz) + ay * by;
-}
-
-// m3.normalize, in place
-__device__ __forceinline__ void normalize(float& x, float& y, float& z) {
-  const float s = rsqrtf(clamp_min(dot3(x, y, z, x, y, z), F32(1e-12)));
-  x = x * s;
-  y = y * s;
-  z = z * s;
 }
 
 __device__ __forceinline__ float fade(float t) {

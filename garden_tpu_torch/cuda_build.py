@@ -12,14 +12,17 @@ edited kernel is rebuilt. A failed build raises; nothing falls back.
 `launch(kernel, dev, *args)` runs an entry point on `dev`'s current stream
 and counts it in `launches`. `on_device` picks a wrapper's path by its
 tensor's device: a CPU tensor takes the plain version, a CUDA tensor
-launches or raises. `check`, `check_kept`, `ptr` and `kept_ptr` are the
-wrappers' checks and pointer arguments.
+launches or raises; given a counter, it charges the call to the open span.
+`check`, `check_kept`, `check_rays`, `ptr` and `kept_ptr` are the wrappers'
+checks and pointer arguments; `f32` and `recip` round their Python numbers
+as PyTorch's float32 ops do.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -28,7 +31,10 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+import numpy as np
 import torch
+
+from garden_tpu_torch.utils import profiler
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -53,6 +59,8 @@ KERNELS = {
     "depth_dense": ("depth_raster", (_P,) * 5 + (_I,) * 6 + (_P, _I, _P, _P, _I)),
     "cloud_march": ("clouds", (_P,) * 3 + (_I,) + (_F,) * 7 + (_I,) * 2 + (_P,) * 3),
     "cloud_shadow": ("clouds", (_P,) * 3 + (_I,) + (_F,) * 2 + (_I, _P)),
+    "sky_radiance": ("atmosphere", (_P,) * 2 + (_I,) + (_F,) * 7 + (_I, _P)),
+    "aerial_perspective": ("atmosphere", (_P,) * 3 + (_I,) + (_F,) * 2 + (_I,) + (_P,) * 2),
 }
 SOURCES = sorted({source for source, _ in KERNELS.values()})
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)   # successful launches a kernel
@@ -150,14 +158,22 @@ def launch(kernel: str, dev: torch.device, *args) -> None:
         launches[kernel] += 1
 
 
-def on_device(name: str, x: torch.Tensor, cuda_fn, plain_fn):
+def on_device(name: str, x: torch.Tensor, cuda_fn, plain_fn, counter: str = None):
     """The path of wrapper `name` for `x`'s device: `cuda_fn` on a card,
-    `plain_fn` on the CPU; any other device raises."""
+    `plain_fn` on the CPU; any other device raises. With `counter`, while
+    a profiler records, the call charges the open span with
+    `<counter>_calls` 1 and `<counter>_kernel_calls` 1 when it takes the
+    kernel (0 on the CPU)."""
     if x.device.type == "cuda":
-        return cuda_fn
-    if x.device.type == "cpu":
-        return plain_fn
-    raise ValueError(f"{name}: no path for device {x.device}")
+        fn = cuda_fn
+    elif x.device.type == "cpu":
+        fn = plain_fn
+    else:
+        raise ValueError(f"{name}: no path for device {x.device}")
+    if counter is not None and profiler.recording():
+        profiler.count(f"{counter}_calls", 1)
+        profiler.count(f"{counter}_kernel_calls", int(fn is cuda_fn))
+    return fn
 
 
 def check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple, device,
@@ -179,6 +195,31 @@ def check_kept(kept: torch.Tensor, n_rows: int, dev, kernel: str) -> None:
     """`check` of an optional (n_rows,) int32 `kept` output."""
     if kept is not None:
         check("kept", kept, torch.int32, (n_rows,), dev, kernel)
+
+
+def check_rays(x: torch.Tensor, name: str, kernel: str):
+    """(leading shape, count) of argument `name` of `kernel`, a contiguous
+    (..., 3) float32 tensor on a card; raises otherwise, and past the
+    count the kernels index."""
+    shape = tuple(x.shape[:-1])
+    check(name, x, torch.float32, (*shape, 3), x.device, kernel)
+    if x.device.type != "cuda":
+        raise ValueError(f"{kernel} needs CUDA tensors, got {x.device}")
+    n = math.prod(shape)
+    if 3 * n >= 2 ** 31:
+        raise ValueError(f"{kernel}: {n} rays are more than the kernel indexes")
+    return shape, n
+
+
+def f32(x: float) -> float:
+    """A Python number as a float32 op sees it."""
+    return float(np.float32(x))
+
+
+def recip(x: float) -> float:
+    """PyTorch's reciprocal of a Python divisor on the card: a tensor
+    divided by a Python number is multiplied by float32(1) / float32(x)."""
+    return float(np.float32(1.0) / np.float32(x))
 
 
 def ptr(x: torch.Tensor) -> ctypes.c_void_p:

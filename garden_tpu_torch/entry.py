@@ -217,6 +217,11 @@ class CombinedStep:
         return step
 
 
+def _pile_side(n_bodies: int) -> int:
+    """The side of the flagship's lattice of n_bodies - 1 boxes."""
+    return max(int(round((n_bodies - 1) ** (1.0 / 3.0))), 1)
+
+
 def flagship_world(n_bodies: int, grid_dim: int = 16, cell_size: float = 2.0
                    ) -> Tuple[pw.PhysicsWorld, PhysicsConfig, int]:
     """The combined step's physics world (a plane and n_bodies - 1 boxes of
@@ -229,7 +234,7 @@ def flagship_world(n_bodies: int, grid_dim: int = 16, cell_size: float = 2.0
     w.add_body(w.shapes.plane((0, 1, 0), 0.0), motion=pw.STATIC)
     box = w.shapes.box((0.45, 0.45, 0.45))
     n_dyn = n_bodies - 1
-    side = max(int(round(n_dyn ** (1.0 / 3.0))), 1)
+    side = _pile_side(n_bodies)
     count = 0
     for iy in range(n_dyn // (side * side) + 2):
         for iz in range(side):
@@ -287,6 +292,21 @@ def world_sim_cloud_inputs(device, width: int = 1920, height: int = 1080):
     eye = c["camera_pos"]
     dist = torch.where(rays_h[..., 1] < -1e-3, -eye[1] / rays_h[..., 1], 2000.0)
     return rays_h, -c["light_dir"], c["time"], eye + rays_h * dist[..., None]
+
+
+def flagship_atmosphere_inputs(device, n_bodies: int = 10240, width: int = 1920,
+                               height: int = 1080):
+    """The atmosphere's inputs at play's shapes, from the flagship camera
+    over a pile of n_bodies: its view rays (height, width, 3), their
+    half-res decimation, those mirrored off the ground (the specular sky's
+    rays over a flat floor), each pixel's distance to the ground in km (0
+    where its ray does not meet it) and the sun (toward the light)."""
+    c = _flagship_camera(_pile_side(n_bodies), width, height, device)
+    rays = lighting.view_rays({"depth": torch.zeros(height, width, device=device)}, c)
+    rays_h = decimate2x(rays)
+    refl_h = m3.reflect(rays_h, m3.constant((0.0, 1.0, 0.0), device))
+    depth = torch.where(rays[..., 1] < -1e-3, -c["camera_pos"][1] / rays[..., 1] * 0.001, 0.0)
+    return rays, rays_h, refl_h, depth, -c["light_dir"]
 
 
 def _combined_step(phys_state, pcfg: PhysicsConfig, present_types: frozenset,
@@ -571,7 +591,7 @@ def _engine_pile(engine: Engine, n_bodies: int) -> int:
     phys.add_rigidbody(e, shapes.plane((0, 1, 0), 0.0), motion=pw.STATIC)
     box = shapes.box((0.45, 0.45, 0.45))
     n_dyn = n_bodies - 1
-    side = max(int(round(n_dyn ** (1.0 / 3.0))), 1)
+    side = _pile_side(n_bodies)
     for k in range(n_dyn):
         iy, iz, ix = k // (side * side), k // side % side, k % side
         e = w.create_entity()

@@ -7,6 +7,14 @@ and sun disk, aerial perspective on geometry, and the order-2
 spherical-harmonics projection of the sky with its irradiance; and the
 reference's offline LUTs (`transmittance_lut`, `multi_scatter_lut`),
 which the frame path does not read.
+
+`sky_radiance` and `aerial_perspective` launch the hand-written kernels of
+`csrc/atmosphere.cu` (one thread a ray, the march in registers, the sun
+read on the card) on CUDA tensors and take their plain versions,
+`sky_radiance_plain` and `aerial_perspective_plain`, on CPU tensors; the
+kernels give the plain versions' bits on the card. While a profiler
+records, each call charges the open span with `atmosphere_calls` 1 and
+`atmosphere_kernel_calls` 1 when the kernel ran (0 on the CPU).
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ import numpy as np
 import torch
 
 from garden_tpu_torch.core import math3d as m3
+from garden_tpu_torch.cuda_build import check, check_rays, f32, launch, on_device, ptr, recip
 
 Tensor = torch.Tensor
 
@@ -132,7 +141,17 @@ def sky_radiance(view_dir: Tensor, sun_dir_to_light: Tensor,
                  camera_height_km: float = 0.2, steps: int = 12) -> Tensor:
     """Single-scattered sky radiance along view rays (..., 3): a `steps`
     sample raymarch with analytic sun transmittance, a multi-scatter floor,
-    ground albedo for rays that hit the earth and the sun disk."""
+    ground albedo for rays that hit the earth and the sun disk. CUDA
+    tensors launch the sky kernel (`sky_radiance_cuda`), CPU tensors take
+    `sky_radiance_plain`."""
+    fn = on_device("sky_radiance", view_dir, sky_radiance_cuda, sky_radiance_plain,
+                   counter="atmosphere")
+    return fn(view_dir, sun_dir_to_light, camera_height_km, steps)
+
+
+def sky_radiance_plain(view_dir: Tensor, sun_dir_to_light: Tensor,
+                       camera_height_km: float = 0.2, steps: int = 12) -> Tensor:
+    """`sky_radiance` in PyTorch ops, on any device."""
     v = m3.normalize(view_dir)
     l = m3.normalize(sun_dir_to_light)
     mu_v = v[..., 1]
@@ -185,7 +204,18 @@ def aerial_perspective(view_depth_km: Tensor, view_dir: Tensor,
                        sun_dir_to_light: Tensor, camera_height_km: float = 0.2
                        ) -> Tuple[Tensor, Tensor]:
     """(transmittance (..., 3), in-scatter (..., 3)) along the view ray up
-    to the surface: 4-step analytic single scattering."""
+    to the surface: 4-step analytic single scattering. CUDA tensors launch
+    the aerial-perspective kernel (`aerial_perspective_cuda`), CPU tensors
+    take `aerial_perspective_plain`."""
+    fn = on_device("aerial_perspective", view_dir, aerial_perspective_cuda,
+                   aerial_perspective_plain, counter="atmosphere")
+    return fn(view_depth_km, view_dir, sun_dir_to_light, camera_height_km)
+
+
+def aerial_perspective_plain(view_depth_km: Tensor, view_dir: Tensor,
+                             sun_dir_to_light: Tensor, camera_height_km: float = 0.2
+                             ) -> Tuple[Tensor, Tensor]:
+    """`aerial_perspective` in PyTorch ops, on any device."""
     v = m3.normalize(view_dir)
     l = m3.normalize(sun_dir_to_light)
     mu_v = v[..., 1]
@@ -213,6 +243,47 @@ def aerial_perspective(view_depth_km: Tensor, view_dir: Tensor,
     return torch.exp(-tau), lum
 
 
+# -- the kernels (csrc/atmosphere.cu) -------------------------------------------
+
+def sky_radiance_cuda(view_dir: Tensor, sun_dir_to_light: Tensor,
+                      camera_height_km: float = 0.2, steps: int = 12) -> Tensor:
+    """Launch the sky (csrc/atmosphere.cu: sky_radiance_launch); the inputs
+    and output of `sky_radiance_plain`, in its bits. The rays are a
+    contiguous (..., 3) float32 tensor on a card, the sun (3,) beside them."""
+    shape, n = check_rays(view_dir, "view_dir", "sky_radiance")
+    dev = view_dir.device
+    check("sun_dir_to_light", sun_dir_to_light, torch.float32, (3,), dev, "sky_radiance")
+    out = torch.empty((*shape, 3), device=dev)
+    r0 = R_GROUND + camera_height_km
+    launch("sky_radiance", dev, ptr(view_dir), ptr(sun_dir_to_light), n,
+           f32(camera_height_km), f32(r0), f32(r0 * r0), f32(2.0 * r0),
+           f32(R_TOP * R_TOP - r0 * r0), f32(R_GROUND * R_GROUND - r0 * r0), recip(steps),
+           steps, ptr(out))
+    return out
+
+
+def aerial_perspective_cuda(view_depth_km: Tensor, view_dir: Tensor,
+                            sun_dir_to_light: Tensor, camera_height_km: float = 0.2
+                            ) -> Tuple[Tensor, Tensor]:
+    """Launch the aerial perspective (csrc/atmosphere.cu:
+    aerial_perspective_launch); the inputs and outputs of
+    `aerial_perspective_plain`, in its bits. The rays are a contiguous
+    (..., 3) float32 tensor on a card, the depths (...) and the sun (3,)
+    beside them."""
+    shape, n = check_rays(view_dir, "view_dir", "aerial_perspective")
+    dev = view_dir.device
+    check("view_depth_km", view_depth_km, torch.float32, shape, dev, "aerial_perspective")
+    check("sun_dir_to_light", sun_dir_to_light, torch.float32, (3,), dev,
+          "aerial_perspective")
+    trans = torch.empty((*shape, 3), device=dev)
+    inscatter = torch.empty((*shape, 3), device=dev)
+    steps = 4
+    launch("aerial_perspective", dev, ptr(view_depth_km), ptr(view_dir),
+           ptr(sun_dir_to_light), n, f32(camera_height_km), recip(steps), steps, ptr(trans),
+           ptr(inscatter))
+    return trans, inscatter
+
+
 # -- spherical-harmonics ambient ---------------------------------------------
 
 
@@ -224,7 +295,7 @@ def _fibonacci_sphere(n: int) -> np.ndarray:
                      np.sin(phi) * np.sin(theta)], axis=-1).astype(np.float32)
 
 
-_SH_DIRS = _fibonacci_sphere(128)
+_SH_DIRS = tuple(map(tuple, _fibonacci_sphere(128).tolist()))   # exact float32 values
 
 
 def _sh_terms(d: Tensor) -> Tuple[Tensor, ...]:
@@ -247,7 +318,7 @@ def _sh_basis(d: Tensor) -> Tensor:
 
 def sky_sh(sun_dir_to_light: Tensor, camera_height_km: float = 0.2) -> Tensor:
     """The sky projected into order-2 SH -> (9, 3) radiance coefficients."""
-    dirs = torch.from_numpy(_SH_DIRS).to(sun_dir_to_light.device)
+    dirs = m3.constant(_SH_DIRS, sun_dir_to_light.device)
     rad = sky_radiance(dirs, sun_dir_to_light, camera_height_km, steps=8)
     basis = _sh_basis(dirs)
     return torch.einsum("sb,sc->bc", basis, rad) * (4.0 * math.pi / dirs.shape[0])

@@ -23,14 +23,13 @@ tensor): every ray is marched, and only those see the layer.
 
 from __future__ import annotations
 
-import math
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from garden_tpu_torch.core import math3d as m3
-from garden_tpu_torch.cuda_build import check, kept_ptr, launch, on_device, ptr
+from garden_tpu_torch.cuda_build import (check, check_rays, f32, kept_ptr, launch, on_device,
+                                         ptr, recip)
 from garden_tpu_torch.ops import noise
 from garden_tpu_torch.utils import profiler
 
@@ -125,7 +124,8 @@ def render_clouds(view_dir: Tensor, sun_dir_to_light: Tensor, camera_height: flo
     `time` is a float32 scalar tensor (None: 0). CUDA tensors launch the
     march kernel (`render_clouds_cuda`), CPU tensors take
     `render_clouds_plain`."""
-    fn = _dispatch("render_clouds", view_dir, render_clouds_cuda, render_clouds_plain)
+    fn = on_device("render_clouds", view_dir, render_clouds_cuda, render_clouds_plain,
+                   counter="cloud")
     return fn(view_dir, sun_dir_to_light, camera_height, time, base_km, top_km,
               coverage, steps, seed)
 
@@ -156,31 +156,9 @@ def cloud_shadow(positions: Tensor, sun_dir_to_light: Tensor, time: Tensor = Non
     -> (...,): each point's sun ray is followed to the cloud base and
     attenuated by the density there. CUDA tensors launch the shadow kernel
     (`cloud_shadow_cuda`), CPU tensors take `cloud_shadow_plain`."""
-    fn = _dispatch("cloud_shadow", positions, cloud_shadow_cuda, cloud_shadow_plain)
+    fn = on_device("cloud_shadow", positions, cloud_shadow_cuda, cloud_shadow_plain,
+                   counter="cloud")
     return fn(positions, sun_dir_to_light, time, base_km, coverage, seed)
-
-
-def _dispatch(name: str, x: Tensor, cuda_fn, plain_fn):
-    """The path for `x`'s device; charges `cloud_calls` and
-    `cloud_kernel_calls` while recording."""
-    fn = on_device(name, x, cuda_fn, plain_fn)
-    if profiler.recording():
-        profiler.count("cloud_calls", 1)
-        profiler.count("cloud_kernel_calls", int(fn is cuda_fn))
-    return fn
-
-
-# -- the kernels (csrc/clouds.cu) ----------------------------------------------
-
-def _f32(x: float) -> float:
-    """A Python number as a float32 op sees it."""
-    return float(np.float32(x))
-
-
-def _recip(x: float) -> float:
-    """PyTorch's reciprocal of a Python divisor on the card: a tensor
-    divided by a Python number is multiplied by float32(1) / float32(x)."""
-    return float(np.float32(1.0) / np.float32(x))
 
 
 def _sun_and_time(sun_dir_to_light: Tensor, time: Tensor, dev, kernel: str
@@ -199,16 +177,8 @@ def _sun_and_time(sun_dir_to_light: Tensor, time: Tensor, dev, kernel: str
 def _rays(x: Tensor, name: str, kernel: str) -> Tuple[Tensor, tuple, int]:
     """(x contiguous, its leading shape, its count) for a (..., 3) float32
     tensor on the card."""
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"{kernel} needs CUDA tensors, got {dev}")
-    shape = tuple(x.shape[:-1])
-    n = math.prod(shape)
     x = x.contiguous()
-    check(name, x, torch.float32, (*shape, 3), dev, kernel)
-    if 3 * n >= 2 ** 31:
-        raise ValueError(f"{kernel}: {n} rays are more than the kernel indexes")
-    return x, shape, n
+    return (x, *check_rays(x, name, kernel))
 
 
 def render_clouds_cuda(view_dir: Tensor, sun_dir_to_light: Tensor,
@@ -225,9 +195,9 @@ def render_clouds_cuda(view_dir: Tensor, sun_dir_to_light: Tensor,
     rgb = torch.empty((*shape, 3), device=dev)
     alpha = torch.empty(shape, device=dev)
     up = torch.zeros((), dtype=torch.int64, device=dev) if profiler.recording() else None
-    launch("cloud_march", dev, ptr(view), ptr(sun), ptr(time), n, _f32(camera_height),
-           _f32(base_km), _f32(base_km - camera_height), _f32(top_km - camera_height),
-           _recip(top_km - base_km), _recip(steps), _f32(1.0 - coverage * 1.6), steps,
+    launch("cloud_march", dev, ptr(view), ptr(sun), ptr(time), n, f32(camera_height),
+           f32(base_km), f32(base_km - camera_height), f32(top_km - camera_height),
+           recip(top_km - base_km), recip(steps), f32(1.0 - coverage * 1.6), steps,
            seed, ptr(rgb), ptr(alpha), kept_ptr(up))
     if up is not None:
         profiler.count("cloud_rays", n)
@@ -244,6 +214,6 @@ def cloud_shadow_cuda(positions: Tensor, sun_dir_to_light: Tensor, time: Tensor 
     dev = pos.device
     sun, time = _sun_and_time(sun_dir_to_light, time, dev, "cloud_shadow")
     out = torch.empty(shape, device=dev)
-    launch("cloud_shadow", dev, ptr(pos), ptr(sun), ptr(time), n, _f32(base_km * 1000.0),
-           _f32(1.0 - coverage * 1.6), seed, ptr(out))
+    launch("cloud_shadow", dev, ptr(pos), ptr(sun), ptr(time), n, f32(base_km * 1000.0),
+           f32(1.0 - coverage * 1.6), seed, ptr(out))
     return out

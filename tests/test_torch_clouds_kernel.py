@@ -143,8 +143,8 @@ def test_reciprocals_round_as_pytorch_divides():
     # kernel does it: a multiply by float32(1) / float32(x)
     for x in (1023.0, 0.4, 0.08, 1.2, 10):
         want = (torch.tensor(1.0) / torch.tensor(float(x))).item()
-        assert clouds._recip(x) == want
-    assert clouds._f32(1.0 - 0.45 * 1.6) == torch.tensor(1.0 - 0.45 * 1.6).item()
+        assert cuda_build.recip(x) == want
+    assert cuda_build.f32(1.0 - 0.45 * 1.6) == torch.tensor(1.0 - 0.45 * 1.6).item()
 
 
 # -- the card: the kernels against the plain versions --------------------------
