@@ -539,7 +539,9 @@ UI_SYSTEMS = (ui.UiTransformSystem, ui.UiButtonSystem, ui.UiCheckboxSystem,
 class EngineFrame:
     """An Engine and a deferred renderer over its entities. `state` is the
     engine's state, the renderer's frame state under "frame". Its parts are
-    exposed so callers can time or inspect each stage."""
+    exposed so callers can time or inspect each stage; each runs in a span
+    of its name (`tick`, `instance_matrices`, `render`), the whole frame in
+    the span `step`, as `CombinedStep`'s do."""
 
     def __init__(self, engine: Engine, renderer: DeferredRenderer,
                  scene: Dict[str, torch.Tensor], constants: Dict[str, torch.Tensor],
@@ -551,7 +553,7 @@ class EngineFrame:
         self.n_instances = n_instances
         self.font = font
         self.hud_batch = hud_batch
-        self.tick = engine.build_step()
+        self.engine_step = engine.build_step()
         self.ui_atlas = font.atlas.device(engine.device)
         self.ui_sprites = self.emit_hud()
 
@@ -565,18 +567,26 @@ class EngineFrame:
         w.systems["UiInputSystem"].emit(self.hud_batch, self.font, size)
         return self.hud_batch.device_arrays(self.engine.device)
 
+    def tick(self, state: Dict[str, Any], delta_time: float) -> Dict[str, Any]:
+        """One Engine step (Input, Update, Output)."""
+        with profiler.span("tick"):
+            return self.engine_step(state, delta_time)
+
     def instance_matrices(self, state: Dict[str, Any]) -> torch.Tensor:
         """The baked world matrices of entities 0 .. n_instances - 1."""
-        return bake_world_matrices(state["components"]["transform"])[:self.n_instances]
+        with profiler.span("instance_matrices"):
+            return bake_world_matrices(state["components"]["transform"])[:self.n_instances]
 
     def render(self, inst_mats: torch.Tensor, frame: Dict[str, torch.Tensor]
                ) -> Dict[str, Any]:
-        return self.renderer.render(self.scene, inst_mats, self.constants, frame,
-                                    ui_atlas=self.ui_atlas, ui_sprites=self.ui_sprites)
+        with profiler.span("render"):
+            return self.renderer.render(self.scene, inst_mats, self.constants, frame,
+                                        ui_atlas=self.ui_atlas, ui_sprites=self.ui_sprites)
 
     def __call__(self, state: Dict[str, Any]) -> Tuple[Dict[str, Any], torch.Tensor]:
-        state = self.tick(state, ENGINE_DT)
-        out = self.render(self.instance_matrices(state), state["frame"])
+        with profiler.span("step"):
+            state = self.tick(state, ENGINE_DT)
+            out = self.render(self.instance_matrices(state), state["frame"])
         return dict(state, frame=out["frame_state"]), out["image"]
 
 

@@ -425,7 +425,9 @@ def simulate(state: Dict[str, Any], config: PhysicsConfig, delta_time,
     max_steps_per_tick), and once the sim has stayed more than one step
     behind for cascade_lag_threshold seconds, clamp to one step. Every tick
     runs max_steps_per_tick steps and keeps the first nsteps, so nothing is
-    read back to the host. Keeps the previous pose for interpolation."""
+    read back to the host; the open span counts both (`sim_steps_run`, a
+    host int, and `sim_steps_kept`, a 0-d device tensor). Keeps the
+    previous pose for interpolation."""
     h = 1.0 / config.simulation_rate
     accum = state["accum"] + delta_time
     nsteps = torch.floor(accum / h).int()
@@ -442,6 +444,8 @@ def simulate(state: Dict[str, Any], config: PhysicsConfig, delta_time,
     state = dict(state, prev_pos=prev_pos, prev_quat=prev_quat, lag_time=lag_time)
     for i in range(max_steps_per_tick):
         state = _select_tree(i < nsteps, step(state, config, h, present_types), state)
+    profiler.count("sim_steps_run", max_steps_per_tick)
+    profiler.count("sim_steps_kept", nsteps)
     return dict(state, accum=accum - nsteps.float() * h)
 
 

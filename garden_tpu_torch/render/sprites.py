@@ -15,6 +15,8 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from garden_tpu_torch.utils import profiler
+
 Tensor = torch.Tensor
 
 
@@ -120,16 +122,40 @@ class SpriteBatch:
                 "colors": t(self._colors), "count": self._count}
 
 
+def covered_pixels(rects: Tensor, width: int, height: int) -> Tensor:
+    """The pixels of a width x height frame whose centre test
+    (`composite_sprites`' `inside`: x >= rx and x < rx + rw on the integer
+    columns, the same on the rows) puts them inside each rect (n, 4), summed
+    over the rects: a 0-d int64 tensor on their device."""
+    x0, y0 = rects[:, 0], rects[:, 1]
+    x1, y1 = x0 + rects[:, 2], y0 + rects[:, 3]
+
+    def span(lo, hi, n):
+        first = torch.clamp(torch.ceil(lo), min=0.0)
+        end = torch.clamp(torch.ceil(hi), max=float(n))
+        return torch.clamp(end - first, min=0.0).long()
+
+    return (span(x0, x1, width) * span(y0, y1, height)).sum()
+
+
 def composite_sprites(image: Tensor, atlas: Tensor, sprites: Dict[str, Any]) -> Tensor:
     """Alpha-blend the sprites over the LDR image (H, W, 3) in push order:
     inside its rect each samples the atlas (A, A, 4) region at the nearest
     texel, tinted by its colour. The loop runs over the first `count`
     slots. The reference loops over the capacity and masks the slots past
     the count; those hold colour 0, so they blend alpha 0 and change
-    nothing: the same bits."""
+    nothing: the same bits. The open span counts the sprites (`ui_sprites`),
+    the pixels the loop passes over, a full frame a sprite (`ui_pixels`),
+    both host ints, and those inside a rect (`ui_pixels_covered`,
+    `covered_pixels`, a 0-d device tensor)."""
     h, w = image.shape[:2]
     a = atlas.shape[0]
     dev = image.device
+    if profiler.recording():
+        n = int(sprites["count"])
+        profiler.count("ui_sprites", n)
+        profiler.count("ui_pixels", n * h * w)
+        profiler.count("ui_pixels_covered", covered_pixels(sprites["rects"][:n], w, h))
     ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
     xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
     out = image

@@ -154,33 +154,31 @@ def profile_forward(fwd, scene, mats, constants, steps: int):
 
 
 ENGINE_STAGES = ("tick", "AnimationSystem.update", "CharacterSystem.update",
-                 "PhysicsSystem.update", "bake", "render")
+                 "PhysicsSystem.update", "instance_matrices", "render")
 
 
 def profile_engine(frame, state, steps: int):
     """Profile `steps` engine frames from `state`: the Engine's tick (each
     system's update in a range the Engine opens), the bake of the instance
-    matrices and the render, each in a range of its own. Returns (wall ms
+    matrices and the render, each in the span the frame opens for it
+    (`tick`, `instance_matrices`, `render`). Returns (wall ms
     per frame, device busy ms per frame, {stage: (host ms, device ms) per
     frame}, the profiler); busy counts the kernels and copies launched
     inside the three top-level ranges."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
     from garden_tpu_torch.entry import ENGINE_DT
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            with record_function("tick"):
-                state = frame.tick(state, ENGINE_DT)
-            with record_function("bake"):
-                mats = frame.instance_matrices(state)
-            with record_function("render"):
-                out = frame.render(mats, state["frame"])
+            state = frame.tick(state, ENGINE_DT)
+            mats = frame.instance_matrices(state)
+            out = frame.render(mats, state["frame"])
             state = dict(state, frame=out["frame_state"])
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
     stages = stage_ms(prof, ENGINE_STAGES + PHYSICS_STAGES[1:] + RENDER_STAGES, steps)
-    busy = sum(stages[n][1] for n in ("tick", "bake", "render") if n in stages)
+    busy = sum(stages[n][1] for n in ("tick", "instance_matrices", "render") if n in stages)
     return wall, busy, stages, prof
 
 
@@ -261,7 +259,7 @@ def main() -> int:
         print(f"engine frame: wall {wall:.3f} ms, device busy {busy:.3f} ms "
               f"({100 * busy / wall:.1f}% of wall)")
         for name, (host, dev) in stages.items():
-            indent = "" if name in ("tick", "bake", "render") else "  "
+            indent = "" if name in ("tick", "instance_matrices", "render") else "  "
             print(f"{indent}stage {name}: host {host:.3f} ms, device {dev:.3f} ms per frame")
         if args.trace:
             prof.export_chrome_trace(args.trace)
