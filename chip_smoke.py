@@ -68,7 +68,18 @@ n. a world of every shape type with a point joint and sleep on
    MIXED_STEPS steps on the card against the CPU within TOL_MIXED_CPU, a
    body asleep, the first MIXED_REPEAT steps twice on the card the same
    bits; cast_ray, cast_sphere and
-   cast_shape on the card against the CPU within TOL_QUERY;
+   cast_shape on the card against the CPU within TOL_QUERY, the single
+   cast_sphere one launch of the cast kernel (`csrc/queries.cu`); n.2: the
+   cast kernel at the engine frame's shapes (`entry.build_engine_frame` at
+   N_BODIES bodies and a 256x128 frame, 4 ticks; the character system's
+   three probes of the last, 8 casts over 10,248 bodies, recorded by
+   `tests/engine_casts.py`, and 8 casts over the same state aimed down at
+   the pile's 4 highest boxes and 4 characters, which must all hit): hit
+   and body equal to the plain version's, the distances of the hits within
+   CAST_ULPS ulps and point and normal within TOL_QUERY; each probe's
+   device time, its plain version's, and its bound (each body and shape
+   row read once, and the casts' arguments and hits, or the box pairs'
+   operations);
 o. time the bench world's physics step and its stages (collide, broadphase,
    narrowphase, solve_velocity, solve_position), one `simulate` tick and
    the flagship's box-only physics step; profile the bench step for the
@@ -146,7 +157,8 @@ x. x.1: a small engine world (32 bodies, 2 characters, 4 animated, a
    tick and time in every bit, the image bars of phases e and j; x.2: the
    engine frame at full size for ENGINE_FRAMES frames: K1, K2, K3 once a
    frame, every state leaf finite, each movable transform row its body's
-   interpolated pose in every bit, K1 and K2/K3 on the last frame's
+   interpolated pose in every bit, the cast kernel three times a frame,
+   K1 and K2/K3 on the last frame's
    inputs as in phases 4 and u, the tick, frame, bake and render times,
    peak memory, the frame under the profiler (`profile_engine`); x.3: a
    checkpoint saved at frame 2, loaded, stepped: frame 3 as the
@@ -254,6 +266,7 @@ KERNELS = {   # name (a key of cuda_build.KERNELS) -> the TPU kernel it replaces
     "cloud_shadow": "none: garden_tpu/render/clouds.py:cloud_shadow is jnp ops",
     "sky_radiance": "none: garden_tpu/render/atmosphere.py:sky_radiance is jnp ops",
     "aerial_perspective": "none: garden_tpu/render/atmosphere.py:aerial_perspective is jnp ops",
+    "cast_sphere": "none: garden_tpu/physics/queries.py:cast_sphere is jnp ops",
 }
 TOL_GBUF = 2e-5            # K1's G-buffer planes (rsqrt may differ by an ulp)
 # physics on the card against the CPU: positions after 3 steps of the bench
@@ -263,6 +276,20 @@ TOL_GBUF = 2e-5            # K1's G-buffer planes (rsqrt may differ by an ulp)
 # first MIXED_REPEAT steps run twice on the card; the three casts' distance,
 # point and normal
 TOL_BENCH_CPU, TOL_BENCH_WARM, TOL_MIXED_CPU, TOL_QUERY = 1e-4, 1e-5, 1e-3, 1e-4
+# the cast kernel at the engine frame's shapes against its plain version on
+# the card: the distances of the hits in ulps (the box pairs' einsums round
+# as cuBLAS picks for the batch; see csrc/queries.cu)
+CAST_ULPS = 4
+# what a cast call must move: each body row (pos 12 bytes, quat 16, shape 4,
+# has 1) and each live body's shape row (type 4, params 16) once, and per cast its arguments
+# (origin 12, direction 12, radius 4, max distance 4, excluded body 4) and
+# its hit (hit 1, body 8, distance 4, point 12, normal 12)
+CAST_ROW_BYTES, SHAPE_ROW_BYTES, CAST_ARG_BYTES, CAST_OUT_BYTES = 33, 20, 36, 37
+# float32 operations of a (cast, box) pair, counted from pair_time's box
+# case: the direction's normalize 10, the inflated half-extents 3,
+# quat_to_mat3 30, ray_box's offset and two rotations 33, its three slabs
+# 31 and its last tests 3, the max-distance test 1
+CAST_OPS_BOX = 111
 BENCH_SETTLE = 20
 MIXED_STEPS, MIXED_REPEAT = 35, 10
 N_BODIES, WIDTH, HEIGHT = 10240, 1920, 1080
@@ -824,10 +851,12 @@ def small_step_vs_cpu(build, overrides, phase: str, box_materials=None,
           f"phase {phase}: the small step on the card disagrees with the CPU")
 
 
-def physics_phases(card: str) -> None:
-    """Phases l-o: the rest of the physics world on the card."""
+def physics_phases(card: str) -> dict:
+    """Phases l-o: the rest of the physics world on the card; -> the cast
+    kernel's entry of the kernels line (phase n.2)."""
     import numpy as np
     import torch
+    from garden_tpu_torch import cuda_build
     from garden_tpu_torch.entry import flagship_world
     from garden_tpu_torch.physics import (golden, narrowphase, queries, scenes, solver,
                                           world as pw)
@@ -912,10 +941,14 @@ def physics_phases(card: str) -> None:
         st = out[dev]
         v = lambda *c: torch.tensor(c, dtype=torch.float32, device=dev)
         down = v(0.0, -1.0, 0.0)
+        before = dict(cuda_build.launches)
         hits[dev] = [queries.cast_ray(st, v(-3.5, 5.0, 0.3), down),
                      queries.cast_sphere(st, v(3.5, 5.0, -0.4), down, 0.2),
                      queries.cast_shape(st, 5, v(0.2, 6.0, 0.1), v(0.0, 0.0, 0.0, 1.0), down,
                                         max_distance=20.0, present_types=mtypes)]
+        cast_launches = {k: n for k, n in launches_since(before).items() if n}
+        check(cast_launches == ({"cast_sphere": 1} if dev == "cuda" else {}),
+              f"phase n: the casts on {dev} launched {cast_launches}")
     for name, hc, hp in zip(("cast_ray", "cast_sphere", "cast_shape"), hits["cuda"],
                             hits["cpu"]):
         d = max(max_diff(getattr(hc, k).cpu(), getattr(hp, k))
@@ -924,6 +957,9 @@ def physics_phases(card: str) -> None:
               f"distance {float(hc.distance):.5f}; max|d| vs cpu {d:.3g}")
         check(bool(hc.hit) and int(hc.body) == int(hp.body) and d <= TOL_QUERY,
               f"phase n: {name} on the card disagrees with the CPU")
+    print("phase n: the single cast_sphere on the card was one launch of the cast kernel")
+
+    cast = engine_cast_phase(card)
 
     # phase o: timings (medians of CUDA events after a warm-up)
     step = lambda s: pw.step(s, bcfg, h, btypes)
@@ -963,7 +999,82 @@ def physics_phases(card: str) -> None:
           f"{busy:.3f} ms ({100 * busy / wall:.1f}% of wall)  [{card}]")
     for name, (host, dev) in stages.items():
         print(f"phase o:   stage {name}: host {host:.3f} ms, device {dev:.3f} ms per step")
+    return cast
 
+
+
+def engine_cast_phase(card: str) -> dict:
+    """Phase n.2: the cast kernel at the engine frame's shapes against its
+    plain version on the card, timed beside it -> the kernel's entry of the
+    kernels line."""
+    import torch
+    from garden_tpu_torch.core.config import ShadowConfig
+    from garden_tpu_torch.entry import build_engine_frame
+    from garden_tpu_torch.physics import queries
+    from garden_tpu_torch.physics import shapes as sh
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from engine_casts import engine_casts
+
+    t0 = time.perf_counter()
+    eframe, estate = build_engine_frame(N_BODIES, 256, 128, device="cuda",
+                                        cfg_overrides=dict(shadow=ShadowConfig(**SMALL_SHADOW)))
+    estate, probes = engine_casts(eframe, estate, ticks=4)
+    check(len(probes) == 3, f"phase n.2: the engine tick made {len(probes)} casts, not 3")
+    # the probes mostly miss (the characters walk apart from the pile), so
+    # 8 more casts over the same state are aimed down from 3 m above the
+    # pile's 4 highest boxes and the first 4 characters' capsules
+    phys = probes[0][0]
+    b = phys["bodies"]
+    stype = phys["shapes"]["type"][b["shape"].long()]
+    boxes = torch.nonzero(b["has"] & (stype == sh.BOX)).squeeze(-1)
+    capsules = torch.nonzero(b["has"] & (stype == sh.CAPSULE)).squeeze(-1)
+    aim = torch.cat([boxes[b["pos"][boxes, 1].argsort(descending=True)[:4]], capsules[:4]])
+    e_aim = aim.shape[0]
+    full = lambda x, **kw: torch.full((e_aim,), x, device="cuda", **kw)
+    aimed = (phys, b["pos"][aim] + torch.tensor([0.05, 3.0, -0.03], device="cuda"),
+             torch.tensor([0.0, -1.0, 0.0], device="cuda").expand(e_aim, 3).contiguous(),
+             full(0.2), full(10.0), full(-1, dtype=torch.int32))
+    cast = dict(launches=0, launches_by_path={}, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                bound_ms=0.0, bound_by="bytes")
+    for k, (phys, *args) in enumerate(probes + [aimed]):
+        name = f"probe {k}" if k < len(probes) else "aimed"
+        got = queries.cast_sphere(phys, *args)
+        want = queries.cast_sphere_plain(phys, *args)
+        hits = want.hit
+        same = torch.equal(got.hit, hits) and torch.equal(got.body, want.body)
+        dist_bits = got.distance.view(torch.int32).long() - want.distance.view(torch.int32).long()
+        ulps = int(dist_bits.abs()[hits].max()) if bool(hits.any()) else 0
+        err = {f: max_diff(getattr(got, f)[hits], getattr(want, f)[hits]) if bool(hits.any())
+               else 0.0 for f in ("distance", "point", "normal")}
+        e, n = args[0].shape[0], phys["bodies"]["pos"].shape[0]
+        live = phys["bodies"]["shape"][phys["bodies"]["has"]].long()
+        n_box = int((phys["shapes"]["type"][live] == sh.BOX).sum())
+        bd = bound(e * n_box * CAST_OPS_BOX,
+                   n * CAST_ROW_BYTES + live.unique().numel() * SHAPE_ROW_BYTES
+                   + e * (CAST_ARG_BYTES + CAST_OUT_BYTES))
+        print(f"phase n.2: {name}, {e} casts x {n} bodies: hits {int(hits.sum())}, hit and "
+              f"body equal {same}, distances within {ulps} ulps (bar {CAST_ULPS}), max|d| "
+              f"{err}; bound {bd}")
+        check(same, f"phase n.2: {name}'s hits differ from the plain version's")
+        check(ulps <= CAST_ULPS and max(err.values()) <= TOL_QUERY,
+              f"phase n.2: {name}'s hits are farther than {CAST_ULPS} ulps or "
+              f"{TOL_QUERY} from the plain version's")
+        cast["max_abs_err"] = max(cast["max_abs_err"], *err.values())
+        if k == len(probes):
+            check(int(hits.sum()) == e_aim == 8,
+                  f"phase n.2: {int(hits.sum())} of the {e_aim} aimed casts hit")
+            continue
+        ms = kernel_ms(lambda: queries.cast_sphere(phys, *args))
+        plain = cuda_ms(lambda: queries.cast_sphere_plain(phys, *args), reps=3)
+        print(f"phase n.2: {name}: device median {ms:.4f} ms, plain {plain:.4f} ms  [{card}]")
+        cast["ms"] += ms
+        cast["plain_ms"] += plain
+        cast["bound_ms"] += bd["bound_ms"]
+        cast["bound_by"] = bd["bound_by"]
+    print(f"phase n.2: the engine tick's three casts: kernel {cast['ms']:.4f} ms, plain "
+          f"{cast['plain_ms']:.4f} ms, bound {cast['bound_ms']:.6f} ms by "
+          f"{cast['bound_by']} ({time.perf_counter() - t0:.1f} s)  [{card}]")
+    return cast
 
 def all_finite(tree, where: str = "") -> list:
     """Names of the floating-point tensors in a nested dict that hold a
@@ -1750,9 +1861,11 @@ def engine_phases(card: str, results: dict, t_start: float) -> None:
           f"memory {peak:.2f} GiB")
     check(launch.items() >= {"raster_shade": ENGINE_FRAMES,
                              "depth_super": ENGINE_FRAMES, "depth_grid": ENGINE_FRAMES,
-                             "depth_dense": 0, "visibility": 0}.items(),
-          "phase x.2: the engine frame did not run K1, K2 and K3 once per frame")
-    for k in ("raster_shade", "depth_super", "depth_grid"):
+                             "depth_dense": 0, "visibility": 0,
+                             "cast_sphere": 3 * ENGINE_FRAMES}.items(),
+          "phase x.2: the engine frame did not run K1, K2 and K3 once and the cast "
+          "kernel three times per frame")
+    for k in ("raster_shade", "depth_super", "depth_grid", "cast_sphere"):
         by = results[k].setdefault("launches_by_path", {})
         by[f"engine frame ({ENGINE_FRAMES} frames)"] = launch[k]
         results[k]["launches"] = sum(by.values())
@@ -2889,7 +3002,7 @@ def main() -> int:
                        ("depth_super", "flagship (5 steps)", counts["depth_super"]),
                        ("depth_grid", "flagship (5 steps)", counts["depth_grid"])):
         results[k]["launches_by_path"] = {path: n}
-    physics_phases(card)
+    results["cast_sphere"] = physics_phases(card)
     pass_set_phases(card, results, t_start)
     cloud_phase(card, results)
     atmosphere_phase(card, results)

@@ -61,6 +61,9 @@ KERNELS = {
     "cloud_shadow": ("clouds", (_P,) * 3 + (_I,) + (_F,) * 2 + (_I, _P)),
     "sky_radiance": ("atmosphere", (_P,) * 2 + (_I,) + (_F,) * 7 + (_I, _P)),
     "aerial_perspective": ("atmosphere", (_P,) * 3 + (_I,) + (_F,) * 2 + (_I,) + (_P,) * 2),
+    "cast_sphere": ("queries", (_P,) * 4 + (_I,) + (_P,) * 2 + (_I,) + (_P,) * 4 + (_I,) * 3
+                    + (_P,) + (_I,) * 2 + (_P,) * 4 + (_I,) * 2 + (_P,) * 3 + (_I,) * 5
+                    + (_P,) * 5 + (_I,) * 2 + (_P,) * 6),
 }
 SOURCES = sorted({source for source, _ in KERNELS.values()})
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)   # successful launches a kernel

@@ -7,7 +7,11 @@ body analytically and the nearest hit wins:
   surface normals; heightfields by a fixed-count raymarch.
 - `cast_sphere`: a swept sphere, by Minkowski inflation of every shape class
   (inflated face planes for hulls, a fixed-count march for heightfields
-  and meshes).
+  and meshes). On CUDA tensors it launches the hand-written kernel of
+  `csrc/queries.cu` (a thread a (cast, body) pair, each computing only its
+  body's shape class); on CPU tensors it takes `cast_sphere_plain`. While a
+  profiler records, each call charges the open span with `cast_calls` 1 and
+  `cast_kernel_calls` 1 when the kernel ran (0 on the CPU).
 - `cast_shape`: any table shape swept by conservative advancement over the
   narrowphase's signed pair distances.
 
@@ -18,11 +22,13 @@ and `cast_shape`'s advancement runs a fixed number of iterations, each a
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, NamedTuple
 
 import torch
 
 from garden_tpu_torch.core import math3d as m3
+from garden_tpu_torch.cuda_build import check, launch, on_device, ptr
 from garden_tpu_torch.physics import narrowphase as nph
 from garden_tpu_torch.physics import shapes as sh
 
@@ -361,6 +367,24 @@ def cast_sphere(state: Dict[str, Any], origin: Tensor, direction: Tensor,
     Batched: with origin and direction (E, 3), and radius, max_distance and
     exclude_body each a number or an (E,) tensor, E casts run in one pass
     over (E, N) (cast, body) pairs and every field of the hit gains the
+    leading E axis; cast e equals the single call with row e's arguments.
+
+    A CUDA origin launches the cast kernel (`cast_sphere_cuda`), a CPU one
+    takes `cast_sphere_plain`."""
+    fn = on_device("cast_sphere", origin, cast_sphere_cuda, cast_sphere_plain,
+                   counter="cast")
+    return fn(state, origin, direction, radius, max_distance, exclude_body)
+
+
+def cast_sphere_plain(state: Dict[str, Any], origin: Tensor, direction: Tensor,
+                      radius, max_distance=1e6, exclude_body=-1) -> RayHit:
+    """Swept-sphere cast: nearest time of impact against all alive bodies,
+    by Minkowski inflation of each shape by the radius (boxes by their
+    inflated slab, conservative by at most r at the corners).
+
+    Batched: with origin and direction (E, 3), and radius, max_distance and
+    exclude_body each a number or an (E,) tensor, E casts run in one pass
+    over (E, N) (cast, body) pairs and every field of the hit gains the
     leading E axis; cast e equals the single call with row e's arguments."""
     b, shapes_t, stype, params = _body_shapes(state)
     lead = origin.shape[:-1]
@@ -416,6 +440,101 @@ def cast_sphere(state: Dict[str, Any], origin: Tensor, direction: Tensor,
     return RayHit(hit=hit, body=torch.where(hit, best, torch.full_like(best, -1)),
                   distance=t_best, point=center_at_hit - n_hit * _col(radius),
                   normal=n_hit)
+
+
+# -- the kernel (csrc/queries.cu) ----------------------------------------------
+
+def _per_cast(x, lead: tuple, dtype: torch.dtype, dev, name: str) -> Tensor:
+    """A per-cast argument, a number or a tensor, as a contiguous (E,)
+    tensor of `dtype` on `dev` (a number as a float32 op sees it)."""
+    if not isinstance(x, Tensor):
+        return torch.full(lead, x, dtype=dtype, device=dev).reshape(-1)
+    if x.dtype != dtype or x.device != dev:
+        raise ValueError(f"cast_sphere: {name} is {x.dtype} on {x.device}, expected "
+                         f"{dtype} on {dev}")
+    return torch.broadcast_to(x, lead).contiguous().reshape(-1)
+
+
+def cast_sphere_cuda(state: Dict[str, Any], origin: Tensor, direction: Tensor,
+                     radius, max_distance=1e6, exclude_body=-1) -> RayHit:
+    """Launch the swept-sphere cast (csrc/queries.cu: cast_sphere_launch):
+    the arguments, batching and hit of `cast_sphere_plain`, one thread a
+    (cast, body) pair and one launch a call. The state's arrays are
+    contiguous on the origin's card; the origin and direction float32, a
+    tensor radius or max_distance float32, a tensor exclude_body int32."""
+    b, tab = state["bodies"], state["shapes"]
+    dev = origin.device
+    if origin.shape[-1:] != (3,) or origin.dtype != torch.float32:
+        raise ValueError(f"cast_sphere: origin is {origin.dtype} {tuple(origin.shape)}, "
+                         "expected float32 (..., 3)")
+    if dev.type != "cuda":
+        raise ValueError(f"cast_sphere needs CUDA tensors, got {dev}")
+    lead = tuple(origin.shape[:-1])
+    e = math.prod(lead)
+    n = b["pos"].shape[0]
+    if n == 0 or n >= 2 ** 31 or e >= 2 ** 31:
+        raise ValueError(f"cast_sphere: {e} casts over {n} bodies")
+    if direction.dtype != torch.float32 or direction.device != dev:
+        raise ValueError(f"cast_sphere: direction is {direction.dtype} on {direction.device}")
+    if not isinstance(exclude_body, Tensor) and not 0 <= exclude_body < n:
+        exclude_body = -1   # an index outside the bodies excludes none of them
+    o = origin.reshape(e, 3).contiguous()
+    d = torch.broadcast_to(direction, lead + (3,)).contiguous().reshape(e, 3)
+    r = _per_cast(radius, lead, torch.float32, dev, "radius")
+    md = _per_cast(max_distance, lead, torch.float32, dev, "max_distance")
+    excl = _per_cast(exclude_body, lead, torch.int32, dev, "exclude_body")
+    # a radius of a plain 0 leaves the mesh's triangles unmoved, as
+    # cast_sphere_plain's `offset` does
+    inflate = isinstance(radius, Tensor) or radius != 0.0
+
+    def table(name, x, dtype, shape):
+        check(name, x, dtype, shape, dev, "cast_sphere")
+        return ptr(x)
+
+    hv, hf, ct, mt, mc = (tab["hull_verts"], tab["hf_heights"], tab["comp_type"],
+                          tab["mesh_tris"], tab["mesh_cells"])
+    n_shapes = tab["type"].shape[0]
+    n_hulls, hull_nv = hv.shape[:2]
+    hull_nf = tab["hull_face_n"].shape[1]
+    n_comp, comp_k = ct.shape
+    n_mesh, mesh_tris_n = mt.shape[:2]
+    mesh_cells_n, mesh_bucket = mc.shape[1:]
+    # per cast the complement of its best key and a block counter
+    work = torch.zeros(2 * e, dtype=torch.int64, device=dev)
+    hit = torch.empty(e, dtype=torch.bool, device=dev)
+    body = torch.empty(e, dtype=torch.int64, device=dev)
+    distance = torch.empty(e, device=dev)
+    point = torch.empty(e, 3, device=dev)
+    normal = torch.empty(e, 3, device=dev)
+    launch(
+        "cast_sphere", dev,
+        table("pos", b["pos"], torch.float32, (n, 3)),
+        table("quat", b["quat"], torch.float32, (n, 4)),
+        table("shape", b["shape"], torch.int32, (n,)),
+        table("has", b["has"], torch.bool, (n,)), n,
+        table("type", tab["type"], torch.int32, (n_shapes,)),
+        table("params", tab["params"], torch.float32, (n_shapes, 4)), n_shapes,
+        table("hull_verts", hv, torch.float32, (n_hulls, hull_nv, 3)),
+        table("hull_vert_valid", tab["hull_vert_valid"], torch.bool, (n_hulls, hull_nv)),
+        table("hull_face_n", tab["hull_face_n"], torch.float32, (n_hulls, hull_nf, 3)),
+        table("hull_face_valid", tab["hull_face_valid"], torch.bool, (n_hulls, hull_nf)),
+        n_hulls, hull_nv, hull_nf,
+        table("hf_heights", hf, torch.float32, (hf.shape[0], hf.shape[1], hf.shape[1])),
+        hf.shape[0], hf.shape[1],
+        table("comp_type", ct, torch.int32, (n_comp, comp_k)),
+        table("comp_params", tab["comp_params"], torch.float32, (n_comp, comp_k, 4)),
+        table("comp_pos", tab["comp_pos"], torch.float32, (n_comp, comp_k, 3)),
+        table("comp_quat", tab["comp_quat"], torch.float32, (n_comp, comp_k, 4)),
+        n_comp, comp_k,
+        table("mesh_tris", mt, torch.float32, (n_mesh, mesh_tris_n, 3, 3)),
+        table("mesh_cells", mc, torch.int32, (n_mesh, mesh_cells_n, mesh_bucket)),
+        table("mesh_info", tab["mesh_info"], torch.float32, (n_mesh, 8)),
+        n_mesh, mesh_tris_n, mesh_cells_n, mesh_bucket, nph._mesh_grid_dim(tab),
+        ptr(o), ptr(d), ptr(r), ptr(md), ptr(excl), int(inflate), e, ptr(work), ptr(hit),
+        ptr(body), ptr(distance), ptr(point), ptr(normal))
+    return RayHit(hit=hit.reshape(lead), body=body.reshape(lead),
+                  distance=distance.reshape(lead), point=point.reshape(lead + (3,)),
+                  normal=normal.reshape(lead + (3,)))
 
 
 def cast_shape(state: Dict[str, Any], shape_index: int, origin: Tensor,
