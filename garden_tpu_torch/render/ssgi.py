@@ -7,7 +7,10 @@ surface points; every tap after it is a fixed screen offset of the
 (radiance, position, normal, visibility) planes (`ops/shifts.Shifter`), 8
 directions x 3 radii, weighted by Lambert at the receiver and the sender
 and a world-space range falloff. At half resolution the result returns to
-full size through the depth-guided upsample.
+full size through the depth-guided upsample. While a profiler records,
+the open span counts `ssgi_pixels`, the pixels gathered at the march
+resolution (a host int), and `ssgi_pixels_lit`, those with some GI above
+0 before the upsample (a 0-d device tensor).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 from garden_tpu_torch.core import math3d as m3
 from garden_tpu_torch.ops.blur import bilateral_upsample_to, decimate2x
 from garden_tpu_torch.ops.shifts import Shifter
+from garden_tpu_torch.utils import profiler
 
 Tensor = torch.Tensor
 
@@ -91,6 +95,9 @@ def compute_ssgi(position: Tensor, normal: Tensor, visible: Tensor, depth: Tenso
     # each tap stands for an equal share of the hemisphere band
     gi = gi * (intensity * 2.0 * math.pi / max(len(taps), 1))
     gi = torch.where(vis[..., None], gi, 0.0)
+    if profiler.recording():
+        profiler.count("ssgi_pixels", gi.shape[0] * gi.shape[1])
+        profiler.count("ssgi_pixels_lit", (gi.amax(-1) > 0.0).sum())
     if half_res:
         gi = bilateral_upsample_to(gi, dep, depth, full_h, full_w)
     return gi

@@ -8,7 +8,9 @@ hit's colour is the previous frame's HDR at the hit point reprojected with
 the previous camera (reflections lag one frame); the confidence fades at
 screen edges and with roughness, and the resolve mixes the environment
 specular in where it is low. A reduced-resolution result returns to full
-size through the depth-guided upsample.
+size through the depth-guided upsample. While a profiler records, the
+open span counts `ssr_rays`, the rays marched (a host int), and
+`ssr_rays_hit`, those whose confidence is above 0 (a 0-d device tensor).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from garden_tpu_torch.core import math3d as m3
 from garden_tpu_torch.core.config import SSRConfig
 from garden_tpu_torch.ops.blur import bilateral_upsample_to, decimate2x
+from garden_tpu_torch.utils import profiler
 
 Tensor = torch.Tensor
 
@@ -102,6 +105,9 @@ def trace(g: Dict[str, Tensor], depth: Tensor, prev_hdr: Tensor, prev_view_proj:
     facing = m3.dot(r, nrm) > 1e-4
     conf = (any_hit & prev_ok & facing).float() * edge_fade * rough_fade
     color = torch.where(conf[..., None] > 0.0, color, 0.0)
+    if profiler.recording():
+        profiler.count("ssr_rays", h * w)
+        profiler.count("ssr_rays_hit", (conf > 0.0).sum())
 
     if step > 1:
         # the depth-guided upsample keeps reflection silhouettes on edges
