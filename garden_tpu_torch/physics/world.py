@@ -3,7 +3,8 @@
 Port of `garden_tpu.physics.world`: `PhysicsWorld` builds the body arrays on
 the host with numpy and `device_state` copies them to a device; `step` is a
 function of that state dict; `simulate` runs the fixed-rate accumulator with
-cascade-lag clamping and keeps the previous pose for `interpolated_pose`.
+cascade-lag clamping, its steps in `fixed_steps`, and keeps the previous
+pose for `interpolated_pose`.
 
 `collide` has the reference's two branches: where the active pair budget
 covers every candidate pair, the candidate layout is the solver layout;
@@ -14,7 +15,7 @@ named as the reference's `jax.named_scope`.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -417,9 +418,21 @@ def _select_tree(did: Tensor, new: Any, old: Any) -> Any:
     return torch.where(did, new, old)
 
 
+def fixed_steps(state: Dict[str, Any], nsteps: Tensor, config: PhysicsConfig, h: float,
+                max_steps: int, present_types: Optional[frozenset]) -> Dict[str, Any]:
+    """`simulate`'s loop: max_steps fixed steps of h from `state`, keeping
+    the first nsteps (a 0-d int tensor). A pure function of the state and
+    nsteps that reads nothing back, so one CUDA graph of it stands for
+    every tick of one layout (`utils.cuda_graph.GraphedStep`)."""
+    for i in range(max_steps):
+        state = _select_tree(i < nsteps, step(state, config, h, present_types), state)
+    return state
+
+
 def simulate(state: Dict[str, Any], config: PhysicsConfig, delta_time,
              max_steps_per_tick: int = 4,
-             present_types: Optional[frozenset] = None) -> Dict[str, Any]:
+             present_types: Optional[frozenset] = None, *,
+             loop: Callable[..., Dict[str, Any]] = fixed_steps) -> Dict[str, Any]:
     """Fixed-rate accumulator stepping with cascade-lag recovery: add
     delta_time to the accumulator, run floor(accum / h) fixed steps (at most
     max_steps_per_tick), and once the sim has stayed more than one step
@@ -427,7 +440,8 @@ def simulate(state: Dict[str, Any], config: PhysicsConfig, delta_time,
     runs max_steps_per_tick steps and keeps the first nsteps, so nothing is
     read back to the host; the open span counts both (`sim_steps_run`, a
     host int, and `sim_steps_kept`, a 0-d device tensor). Keeps the
-    previous pose for interpolation."""
+    previous pose for interpolation. `loop` runs the steps, called as
+    `fixed_steps` is (the physics system passes a graphed one)."""
     h = 1.0 / config.simulation_rate
     accum = state["accum"] + delta_time
     nsteps = torch.floor(accum / h).int()
@@ -442,8 +456,7 @@ def simulate(state: Dict[str, Any], config: PhysicsConfig, delta_time,
     prev_pos = torch.where(stepped, state["bodies"]["pos"], state["prev_pos"])
     prev_quat = torch.where(stepped, state["bodies"]["quat"], state["prev_quat"])
     state = dict(state, prev_pos=prev_pos, prev_quat=prev_quat, lag_time=lag_time)
-    for i in range(max_steps_per_tick):
-        state = _select_tree(i < nsteps, step(state, config, h, present_types), state)
+    state = loop(state, nsteps, config, h, max_steps_per_tick, present_types)
     profiler.count("sim_steps_run", max_steps_per_tick)
     profiler.count("sim_steps_kept", nsteps)
     return dict(state, accum=accum - nsteps.float() * h)

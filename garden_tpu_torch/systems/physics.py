@@ -4,7 +4,11 @@ Port of `garden_tpu.systems.physics`: rigidbodies are ECS components
 referencing slots in the physics body arrays; each tick the system runs the
 fixed-rate accumulator (`world.simulate`) and writes the interpolated body
 poses into the transform components of the movable bodies, one
-`index_put` over those rows.
+`index_put` over those rows. On a card the accumulator's fixed-step loop
+(`world.fixed_steps`) replays as one CUDA graph a tick
+(`utils.cuda_graph.GraphedStep`; the first tick of a layout runs eagerly,
+the second captures), so a replayed tick opens no physics stage span; the
+accumulator's arithmetic stays eager around it.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 from garden_tpu_torch.core.config import PhysicsConfig
 from garden_tpu_torch.core.ecs import ComponentDef, Field, System, World
 from garden_tpu_torch.physics import world as pw
+from garden_tpu_torch.utils.cuda_graph import GraphedStep
 
 RIGIDBODY = ComponentDef(
     "rigidbody",
@@ -32,6 +37,10 @@ class PhysicsSystem(System):
     def __init__(self, config: Optional[PhysicsConfig] = None):
         self.config = config or PhysicsConfig()
         self.physics = pw.PhysicsWorld(self.config)
+        # fixed_steps' arguments as one tree: the config, h, the step count
+        # and the present shape types are leaves keyed by value, so a change
+        # of any of them captures a graph of its own
+        self.fixed_steps = GraphedStep(lambda args: pw.fixed_steps(*args))
 
     def attach(self, world: World) -> None:
         super().attach(world)
@@ -57,7 +66,8 @@ class PhysicsSystem(System):
 
     def update(self, state: Dict[str, Any], ctx: Dict[str, Any]) -> Dict[str, Any]:
         phys = pw.simulate(state["physics"], self.config, ctx["delta_time"],
-                           present_types=self.physics.shapes.present_types())
+                           present_types=self.physics.shapes.present_types(),
+                           loop=lambda *args: self.fixed_steps(args))
         state = dict(state, physics=phys)
         if "transform" in state["components"]:
             state = self.sync_transforms(state)

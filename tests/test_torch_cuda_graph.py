@@ -1,5 +1,7 @@
 """The combined step's physics replayed as CUDA graphs
-(`garden_tpu_torch.utils.cuda_graph.GraphedStep`, `CombinedStep.physics`).
+(`garden_tpu_torch.utils.cuda_graph.GraphedStep`, `CombinedStep.physics`),
+and the engine tick's fixed-step loop (`PhysicsSystem.fixed_steps` over
+`physics.world.fixed_steps`).
 
 On the CPU the wrapper calls `physics.world.step` eagerly every time: the
 same bits, the stage spans as before, `graph_calls` 1 and `graph_replays`
@@ -12,19 +14,40 @@ after two later steps are issued behind it, and so does its input; two
 states of one layout in turn each get their own result (the copy in); a
 second layout captures a second graph; `CombinedStep.to` a second card
 replays there; a traced replay counts 1 / 1 and opens no stage span.
+
+The engine tick: on the CPU `PhysicsSystem.update` runs the loop eagerly,
+charges its span `graph_calls` 1, `graph_replays` 0, `sim_steps_run` 4 and
+the steps kept, and leaves the physics state of the benchmark's frozen
+`simulate` (`benchmark/reference/physics/world.py`) in every bit, over ticks
+that keep 0, 1, 2 and 4 steps and the cascade clamp; the loop's config, h,
+step count and present types are leaves of its tree, so each keys a graph
+by value. On a card, 12 ticks of the benchmark's engine cell at its full
+size with such deltas: every leaf of the graphed update's physics state
+equal to eager `simulate`'s, outputs that outlive two later replays, and a
+new shape type captures a graph of its own.
 """
 
 import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
+
+import dataclasses
 
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 from torch.utils._pytree import tree_flatten, tree_map
 
+from benchmark import harness
+from benchmark.entries import engine_frame
+from benchmark.reference.core import config as ref_config
+from benchmark.reference.physics import world as ref_world
 from garden_tpu_torch import entry
+from garden_tpu_torch.core.config import EngineConfig, PhysicsConfig
+from garden_tpu_torch.engine import Engine
+from garden_tpu_torch.physics import shapes as sh
 from garden_tpu_torch.physics import world as pw
-from garden_tpu_torch.utils import profiler
-from garden_tpu_torch.utils.cuda_graph import GraphedStep
+from garden_tpu_torch.systems.physics import PhysicsSystem
+from garden_tpu_torch.utils import cuda_graph, profiler
+from garden_tpu_torch.utils.cuda_graph import GraphedStep, _Graph
 
 H = 1.0 / 60.0
 STAGES = {"collide", "broadphase", "narrowphase", "warm_match",
@@ -211,3 +234,129 @@ def test_graphed_step_counts_eager_calls_on_the_cpu(recorder):
     assert torch.equal(out["y"], torch.arange(4.0) * 2)
     (root,) = profiler.recorded()
     assert (root["counters"]["graph_calls"], root["counters"]["graph_replays"]) == (3, 0)
+
+
+# -- the engine tick's fixed-step loop ----------------------------------------
+
+# deltas from a zero accumulator that keep 0, 1, 2, 4 steps, then the
+# cascade clamp's 1 (the lag passes 0.5 s while more than one step is due)
+DELTAS = (0.005, 0.015, 0.035, 0.07, 0.45)
+KEPT = (0, 1, 2, 4, 1)
+
+
+def _small_engine():
+    """An Engine with the physics system alone, on the CPU: a plane, boxes,
+    spheres and a capsule, stepped through `PhysicsSystem.update`."""
+    pcfg = PhysicsConfig(max_bodies=16, grid_dim=8, cell_size=2.0)
+    eng = Engine(EngineConfig(capacity=16, physics=pcfg), device="cpu")
+    phys = eng.create_system(PhysicsSystem(pcfg))
+    eng.initialize()
+    shapes = phys.physics.shapes
+    phys.add_rigidbody(eng.world.create_entity(), shapes.plane((0, 1, 0), 0.0),
+                       motion=pw.STATIC)
+    box, ball = shapes.box((0.4, 0.4, 0.4)), shapes.sphere(0.3)
+    for k in range(8):
+        phys.add_rigidbody(eng.world.create_entity(), box if k % 2 else ball,
+                           position=(k * 0.9 - 3.0, 0.5 + 0.3 * k, 0.0))
+    phys.add_rigidbody(eng.world.create_entity(), shapes.capsule(0.3, 0.6),
+                       position=(0.0, 2.0, 1.5))
+    eng.build_step()
+    return eng, phys
+
+
+def test_cpu_tick_runs_the_eager_loop_of_the_frozen_simulate(recorder):
+    eng, phys = _small_engine()
+    types = phys.physics.shapes.present_types()
+    ref_cfg = ref_config.PhysicsConfig(**dataclasses.asdict(phys.config))
+    state = eng.device_state()
+    for dt, kept in zip(DELTAS, KEPT):
+        want = ref_world.simulate(state["physics"], ref_cfg, dt, present_types=types)
+        first = profiler.RECORDER.next_step
+        with profile(activities=[ProfilerActivity.CPU]):
+            state = eng._step(state, dt)
+        _same_bits(state["physics"], want)
+        spans = [s for s in profiler.recorded() if s["step"] >= first]
+        (update,) = [s for s in spans if s["name"] == "PhysicsSystem.update"]
+        counters = update["counters"]
+        assert (counters["graph_calls"], counters["graph_replays"]) == (1, 0)
+        assert (counters["sim_steps_run"], counters["sim_steps_kept"]) == (4, kept), dt
+        assert sum(s["name"] == "collide" for s in spans) == 4
+    assert phys.fixed_steps.graphs == {}
+    assert float(state["physics"]["lag_time"]) > phys.config.cascade_lag_threshold
+
+
+def test_loop_is_keyed_by_its_config_step_and_shape_types(monkeypatch):
+    """The tree the physics system hands its graphed loop: the state,
+    nsteps, and the config, h, step count and present types as leaves
+    that key a graph by value, so another shape type, config or step
+    count never replays a stale capture."""
+    eng, phys = _small_engine()
+    trees = []
+    graphed = phys.fixed_steps
+    monkeypatch.setattr(phys, "fixed_steps", lambda args: trees.append(args) or graphed(args))
+    eng._step(eng.device_state(), 0.02)
+    (tree,) = trees
+    assert tree[2:] == (phys.config, 1.0 / 60, 4, phys.physics.shapes.present_types())
+
+    def key(changes):
+        """GraphedStep's key of the tree with {index: leaf} put in."""
+        leaves, spec = tree_flatten(tuple(changes.get(i, x) for i, x in enumerate(tree)))
+        return spec, tuple(cuda_graph._leaf_key(x) for x in leaves)
+    assert key({}) == key({2: dataclasses.replace(phys.config)})
+    assert key({}) != key({2: dataclasses.replace(phys.config, solver_iterations=9)})
+    assert key({}) != key({3: 1.0 / 30}) and key({}) != key({4: 3})
+    assert key({}) != key({5: tree[5] | {sh.HULL}})
+
+
+def _kept(before, after, dt, config):
+    """The steps the accumulator kept in a tick, from its accumulator."""
+    if float(after["lag_time"]) > config.cascade_lag_threshold:
+        return 1
+    return round((float(before["accum"]) + dt - float(after["accum"]))
+                 * config.simulation_rate)
+
+
+@pytest.mark.gpu
+def test_graphed_tick_equals_eager_simulate_at_the_engine_cell(cuda):
+    """12 ticks of the engine cell: each tick's graphed update against eager
+    `simulate` from the same input, every leaf of the physics state; then
+    the whole tick steps on through the same graph."""
+    cell = harness.load_cell("engine_frame_1080p.engine")
+    run = engine_frame.build(cell["config"], cell["traffic"], 2 ** 31 + 5, [cuda])
+    phys = run.fn.engine.world.systems["PhysicsSystem"]
+    types = phys.physics.shapes.present_types()
+    assert len(types) >= 3                                   # plane, box, capsule
+    # from a zero accumulator: 1, 0 (four times), 2, 4, 4 (of 12 due), the
+    # cascade clamp's 1, then 1, 0, 1
+    deltas = (1 / 60, 0.004, 0.004, 0.004, 0.004, 0.02, 4 / 60 + 0.002, 0.2, 0.3,
+              1 / 60, 0.0, 1 / 60)
+    state, kept, clamped = run.state, [], 0
+    for dt in deltas:
+        got = phys.update(state, {"delta_time": dt})["physics"]
+        want = pw.simulate(state["physics"], phys.config, dt, present_types=types)
+        _same_bits(got, want)
+        kept.append(_kept(state["physics"], want, dt, phys.config))
+        clamped += float(want["lag_time"]) > phys.config.cascade_lag_threshold
+        state = run.fn.tick(state, dt)
+    assert {0, 1, 2, 4} <= set(kept) and clamped, kept
+    (graph,) = phys.fixed_steps.graphs.values()
+    assert isinstance(graph, _Graph)
+    # a tick's output and input, held by the caller, outlive two replays
+    before = tree_map(torch.clone, state["physics"])
+    out = phys.update(state, {"delta_time": 2 / 60})["physics"]
+    held = tree_map(torch.clone, out)
+    nxt = phys.update(dict(state, physics=out), {"delta_time": 2 / 60})
+    phys.update(nxt, {"delta_time": 2 / 60})
+    torch.cuda.synchronize()
+    _same_bits(out, held)
+    _same_bits(state["physics"], before)
+    _same_bits(out, pw.simulate(before, phys.config, 2 / 60, present_types=types))
+    # a new shape type is a new key: eager, captured, then replayed
+    phys.physics.shapes.sphere(0.25)
+    more = phys.physics.shapes.present_types()
+    assert more != types
+    for _ in range(3):
+        _same_bits(phys.update(state, {"delta_time": 1 / 60})["physics"],
+                   pw.simulate(state["physics"], phys.config, 1 / 60, present_types=more))
+    assert len(phys.fixed_steps.graphs) == 2
+    assert all(isinstance(g, _Graph) for g in phys.fixed_steps.graphs.values())
