@@ -154,7 +154,9 @@ class CombinedStep:
     the whole step in the span `step`. On a card the physics step replays
     a CUDA graph of `physics.world.step` (`utils.cuda_graph.GraphedStep`,
     one a state layout; the first call of a layout runs eagerly, the
-    second captures), so a replayed `physics` span opens no stage spans."""
+    second captures). A replayed `physics` span opens no stage span; while
+    a profiler records, its `graph_replay` span carries a record of each
+    stage span of the capture, each naming its device ops."""
 
     def __init__(self, pcfg: PhysicsConfig, present_types: frozenset,
                  renderer: DeferredRenderer, scene: Dict[str, torch.Tensor],

@@ -423,9 +423,12 @@ def fixed_steps(state: Dict[str, Any], nsteps: Tensor, config: PhysicsConfig, h:
     """`simulate`'s loop: max_steps fixed steps of h from `state`, keeping
     the first nsteps (a 0-d int tensor). A pure function of the state and
     nsteps that reads nothing back, so one CUDA graph of it stands for
-    every tick of one layout (`utils.cuda_graph.GraphedStep`)."""
+    every tick of one layout (`utils.cuda_graph.GraphedStep`). Each step,
+    with its select, runs in the span `fixed_step` with `k` its index, so a
+    replayed tick's discarded steps (k >= nsteps) are told apart."""
     for i in range(max_steps):
-        state = _select_tree(i < nsteps, step(state, config, h, present_types), state)
+        with profiler.span("fixed_step", k=i):
+            state = _select_tree(i < nsteps, step(state, config, h, present_types), state)
     return state
 
 

@@ -144,16 +144,15 @@ def composite_sprites(image: Tensor, atlas: Tensor, sprites: Dict[str, Any]) -> 
     texel, tinted by its colour. The loop runs over the first `count`
     slots. The reference loops over the capacity and masks the slots past
     the count; those hold colour 0, so they blend alpha 0 and change
-    nothing: the same bits. The open span counts the sprites (`ui_sprites`),
-    the pixels the loop passes over, a full frame a sprite (`ui_pixels`),
-    both host ints, and those inside a rect (`ui_pixels_covered`,
-    `covered_pixels`, a 0-d device tensor)."""
+    nothing: the same bits. The open span counts the pixels the loop
+    passes over, a full frame a sprite (`ui_pixels`, a host int), and those
+    inside a rect (`ui_pixels_covered`, `covered_pixels`, a 0-d device
+    tensor)."""
     h, w = image.shape[:2]
     a = atlas.shape[0]
     dev = image.device
     if profiler.recording():
         n = int(sprites["count"])
-        profiler.count("ui_sprites", n)
         profiler.count("ui_pixels", n * h * w)
         profiler.count("ui_pixels_covered", covered_pixels(sprites["rects"][:n], w, h))
     ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None]

@@ -7,8 +7,10 @@ poses into the transform components of the movable bodies, one
 `index_put` over those rows. On a card the accumulator's fixed-step loop
 (`world.fixed_steps`) replays as one CUDA graph a tick
 (`utils.cuda_graph.GraphedStep`; the first tick of a layout runs eagerly,
-the second captures), so a replayed tick opens no physics stage span; the
-accumulator's arithmetic stays eager around it.
+the second captures); the accumulator's arithmetic stays eager around it.
+A replayed tick opens no physics stage span, but while a profiler records
+its `graph_replay` span carries a record of each span of the capture: the
+4 `fixed_step` spans and their stages, each naming its device ops.
 """
 
 from __future__ import annotations

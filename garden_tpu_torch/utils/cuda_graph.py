@@ -23,14 +23,26 @@ a tensor's value, so that one captured run stands for every later call.
 
 Each call charges the innermost open span of `utils.profiler` with
 `graph_calls` 1 and `graph_replays` 1 when it replayed a graph captured by
-an earlier call (0 on eager, warm-up and capture calls). A replay enters
-none of the spans `fn` opens: on a card a replayed step's span has no
-children.
+an earlier call (0 on eager, warm-up and capture calls).
+
+A replay enters none of the spans `fn` opens, so the capture records their
+layout (`profiler.capture`): at each span's edges it reads the capturing
+stream's frontier, the nodes the next captured op will depend on, through
+the CUDA driver (ctypes on libcuda, which PyTorch has loaded; nothing is
+added to the graph). Once `fn` returns, still inside the capture, it reads
+the graph's nodes and edges: where they form one chain, as a capture on
+one stream does, a frontier's place in it is the count of device-op nodes
+(kernels, memsets, memcpys) captured before the mark, and the chain is also
+the order in which a replay runs them. Elsewhere the graph keeps no layout.
+While a profiler records, a replay runs inside `profiler.replay(layout)`:
+the span `graph_replay` around the launch, with a zero-length record of
+each of `fn`'s spans under it, each naming its range of the replay's ops.
 """
 
 from __future__ import annotations
 
 import collections
+import ctypes
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -39,6 +51,98 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from garden_tpu_torch.utils import profiler
 
 _SEEN = object()                     # a key called once, eagerly
+# CUgraphNodeType of the device-op nodes
+_OP_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
+_CAPTURE_ACTIVE = 1                  # CU_STREAM_CAPTURE_STATUS_ACTIVE
+_P = ctypes.c_void_p
+_cu: Any = None
+
+
+def _driver() -> Optional[ctypes.CDLL]:
+    """The CUDA driver's graph queries, declared once; None where the
+    driver or a query is missing."""
+    global _cu
+    if _cu is None:
+        _cu = False
+        try:
+            cu = ctypes.CDLL("libcuda.so.1")
+            sizes = ctypes.POINTER(ctypes.c_size_t)
+            for name, args in (
+                    ("cuStreamGetCaptureInfo_v2",
+                     (_P, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_uint64),
+                      ctypes.POINTER(_P), ctypes.POINTER(ctypes.POINTER(_P)), sizes)),
+                    ("cuGraphGetNodes", (_P, ctypes.POINTER(_P), sizes)),
+                    ("cuGraphGetEdges", (_P, ctypes.POINTER(_P), ctypes.POINTER(_P), sizes)),
+                    ("cuGraphNodeGetType", (_P, ctypes.POINTER(ctypes.c_int)))):
+                fn = getattr(cu, name)
+                fn.argtypes, fn.restype = args, ctypes.c_int
+            _cu = cu
+        except (OSError, AttributeError):
+            pass
+    return _cu or None
+
+
+def _capturing(stream: int, deps=None, n_deps=None) -> Optional[int]:
+    """The graph `stream` captures into (a CUgraph), or None."""
+    status, graph = ctypes.c_int(), _P()
+    err = _driver().cuStreamGetCaptureInfo_v2(_P(stream), ctypes.byref(status), None,
+                                               ctypes.byref(graph), deps, n_deps)
+    return graph.value if not err and status.value == _CAPTURE_ACTIVE else None
+
+
+def frontier(stream: int) -> Optional[Tuple[int, ...]]:
+    """The nodes the next op captured on `stream` will depend on (none
+    before the first); None where `stream` is not capturing."""
+    deps, n = ctypes.POINTER(_P)(), ctypes.c_size_t()
+    if _capturing(stream, ctypes.byref(deps), ctypes.byref(n)) is None:
+        return None
+    return tuple(deps[i] for i in range(n.value))
+
+
+def chain(stream: int) -> Optional[Tuple[Dict[Optional[int], int], List[str]]]:
+    """The graph `stream` is capturing, read as one chain: ({node: the
+    device-op nodes up to and including it}, the device-op nodes' kinds in
+    chain order); None where it is not one chain or `stream` not
+    capturing."""
+    cu, graph = _driver(), _capturing(stream)
+    if graph is None:
+        return None
+    n, m = ctypes.c_size_t(), ctypes.c_size_t()
+    if cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) or cu.cuGraphGetEdges(
+            graph, None, None, ctypes.byref(m)):
+        return None
+    nodes, src, dst = (_P * n.value)(), (_P * m.value)(), (_P * m.value)()
+    if cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) or cu.cuGraphGetEdges(
+            graph, src, dst, ctypes.byref(m)):
+        return None
+    after = dict(zip(src, dst))
+    roots = set(nodes) - set(dst)
+    if len(after) != m.value or len(set(dst)) != m.value or len(roots) > 1:
+        return None
+    node, kind = next(iter(roots), None), ctypes.c_int()
+    upto: Dict[Optional[int], int] = {}
+    kinds: List[str] = []
+    while node is not None:
+        if node in upto or cu.cuGraphNodeGetType(_P(node), ctypes.byref(kind)):
+            return None
+        if kind.value in _OP_KINDS:
+            kinds.append(_OP_KINDS[kind.value])
+        upto[node] = len(kinds)
+        node = after.get(node)
+    return (upto, kinds) if len(upto) == n.value else None
+
+
+def _resolve(layout: Optional[profiler.Layout], stream: int) -> Optional[profiler.Layout]:
+    """`layout` with its marks placed on the captured chain; None where
+    the graph is no chain or a mark was not read."""
+    read = chain(stream) if layout is not None else None
+    if read is None:
+        return None
+    upto, kinds = read
+    try:
+        return layout.resolve(lambda deps: max((upto[d] for d in deps), default=0), kinds)
+    except (KeyError, TypeError):                  # a mark off the chain, or unread
+        return None
 
 
 def _leaf_key(x: Any) -> Tuple:
@@ -83,8 +187,15 @@ class _Graph:
                 fn(tree)
             torch.cuda.current_stream().wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
+            handle = side.cuda_stream
+            layout = None
             with torch.cuda.graph(self.graph, stream=side):
-                out = fn(tree)
+                if _driver() is None:
+                    out = fn(tree)
+                else:
+                    with profiler.capture(lambda: frontier(handle)) as layout:
+                        out = fn(tree)
+                self.layout = _resolve(layout, handle)
         out_leaves, self.out_spec = tree_flatten(out)
         static_at = {id(x): k for k, x in zip(self.tensor_at, self.static_in)}
         # each output leaf: ("in", input leaf index), ("out", static output
@@ -111,7 +222,8 @@ class _Graph:
             for group in self.in_groups:
                 torch._foreach_copy_([self.static_in[k] for k in group],
                                      [src[k] for k in group])
-            self.graph.replay()
+            with profiler.replay(self.layout):
+                self.graph.replay()
             fresh = [torch.empty_like(x) for x in self.static_out]
             for group in self.out_groups:
                 torch._foreach_copy_([fresh[k] for k in group],

@@ -29,6 +29,8 @@ new shape type captures a graph of its own.
 
 import torch_threads  # noqa: F401  (first: caps torch threads under xdist)
 
+import collections
+import contextlib
 import dataclasses
 
 import pytest
@@ -36,7 +38,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 from torch.utils._pytree import tree_flatten, tree_map
 
-from benchmark import harness
+from benchmark import harness, replayed, trace
 from benchmark.entries import engine_frame
 from benchmark.reference.core import config as ref_config
 from benchmark.reference.physics import world as ref_world
@@ -201,6 +203,9 @@ def test_step_moved_to_a_second_card_replays_there():
 
 @pytest.mark.gpu
 def test_traced_replay_counts_one_call_and_one_replay(cuda, recorder):
+    """A traced replay counts 1 / 1; its only child is the `graph_replay`
+    span, under which the capture's stage spans come back as zero-length
+    `replayed` records, nested as captured."""
     step, state, _ = _pile(28, cuda)
     for _ in range(3):
         state = step.physics(state)
@@ -212,7 +217,22 @@ def test_traced_replay_counts_one_call_and_one_replay(cuda, recorder):
     assert root["name"] == "physics"
     assert (root["counters"]["graph_calls"], root["counters"]["graph_replays"]) == (1, 1)
     assert root["counters"]["syncs"] == 0 and root["counters"]["pair_slots"] > 0
-    assert [s for s in spans if s["parent"] is not None] == []
+    (rep,) = [s for s in spans if s["parent"] == root["id"]]
+    assert rep["name"] == "graph_replay" and rep["counters"] == {"syncs": 0}
+    lo, n = rep["attrs"]["graph_ops"]
+    assert lo == 0 and n > 0
+    replayed = [s for s in spans if s["attrs"].get("replayed")]
+    assert len(replayed) == len(spans) - 2
+    assert STAGES <= {s["name"] for s in replayed}
+    by_id = {s["id"]: s for s in spans}
+    for s in replayed:
+        assert s["start_ns"] == s["end_ns"] == rep["start_ns"]
+        assert s["counters"] == {"syncs": 0} and s["step"] == root["step"]
+        a, b = s["attrs"]["graph_ops"]
+        pa, pb = by_id[s["parent"]]["attrs"]["graph_ops"]
+        assert pa <= a <= b <= pb
+    assert {by_id[s["parent"]]["name"] for s in replayed if s["name"] == "broadphase"} == \
+        {"collide"}
 
 
 def test_graphed_step_counts_eager_calls_on_the_cpu(recorder):
@@ -244,11 +264,11 @@ DELTAS = (0.005, 0.015, 0.035, 0.07, 0.45)
 KEPT = (0, 1, 2, 4, 1)
 
 
-def _small_engine():
-    """An Engine with the physics system alone, on the CPU: a plane, boxes,
-    spheres and a capsule, stepped through `PhysicsSystem.update`."""
+def _small_engine(device="cpu"):
+    """An Engine with the physics system alone, on `device`: a plane,
+    boxes, spheres and a capsule, stepped through `PhysicsSystem.update`."""
     pcfg = PhysicsConfig(max_bodies=16, grid_dim=8, cell_size=2.0)
-    eng = Engine(EngineConfig(capacity=16, physics=pcfg), device="cpu")
+    eng = Engine(EngineConfig(capacity=16, physics=pcfg), device=device)
     phys = eng.create_system(PhysicsSystem(pcfg))
     eng.initialize()
     shapes = phys.physics.shapes
@@ -283,6 +303,27 @@ def test_cpu_tick_runs_the_eager_loop_of_the_frozen_simulate(recorder):
         assert sum(s["name"] == "collide" for s in spans) == 4
     assert phys.fixed_steps.graphs == {}
     assert float(state["physics"]["lag_time"]) > phys.config.cascade_lag_threshold
+
+
+def test_cpu_tick_opens_a_fixed_step_span_a_step(recorder):
+    """Each of the loop's 4 steps, kept or not, in a `fixed_step` span
+    with its index `k`, under `PhysicsSystem.update`, each holding one
+    step's stages."""
+    eng, _ = _small_engine()
+    state = eng.device_state()
+    for dt in (0.015, 0.07):
+        first = profiler.RECORDER.next_step
+        with profile(activities=[ProfilerActivity.CPU]):
+            state = eng._step(state, dt)
+        spans = [s for s in profiler.recorded() if s["step"] >= first]
+        (update,) = [s for s in spans if s["name"] == "PhysicsSystem.update"]
+        steps = [s for s in spans if s["name"] == "fixed_step"]
+        assert [s["attrs"] for s in steps] == [{"k": k} for k in range(4)]
+        assert all(s["parent"] == update["id"] for s in steps)
+        assert [s["start_ns"] < s["end_ns"] for s in steps] == [True] * 4
+        for s in steps:
+            (collide,) = [c for c in spans if c["parent"] == s["id"] and c["name"] == "collide"]
+            assert collide["start_ns"] >= s["start_ns"] and collide["end_ns"] <= s["end_ns"]
 
 
 def test_loop_is_keyed_by_its_config_step_and_shape_types(monkeypatch):
@@ -360,3 +401,170 @@ def test_graphed_tick_equals_eager_simulate_at_the_engine_cell(cuda):
                    pw.simulate(state["physics"], phys.config, 1 / 60, present_types=more))
     assert len(phys.fixed_steps.graphs) == 2
     assert all(isinstance(g, _Graph) for g in phys.fixed_steps.graphs.values())
+
+
+# -- the capture's span layout, replayed ---------------------------------------
+
+def _traced(device, fn, steps=1):
+    """fn() `steps` times under the profiler, each in a `bench.step` range:
+    the harness's view of the trace."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            with torch.profiler.record_function("bench.step"):
+                fn()
+        torch.cuda.synchronize()
+    return harness.Run(prof=trace.from_profiler(prof), devices=[device],
+                       traffic={"trace_steps": steps}, worlds=1)
+
+
+def _kind(name):
+    """An op's name, a memset's or copy's only its kind: the trace names
+    them by memory kind ("Memset (Device)", "Memset (Unknown)"), or, where
+    the driver runs the graph's nodes as its own kernels, "memset32",
+    "memcpy32_post"."""
+    kind = replayed.op_kind(name)
+    return name if kind == "kernel" else kind
+
+
+def _ops_in(name, ops, launches, ranges):
+    """The names of the device ops launched inside each range `name`, in
+    device order."""
+    out = []
+    for start, end, rname in sorted(ranges):
+        if rname == name:
+            corr = {c for t, c in launches if start <= t <= end}
+            out += [_kind(op[3]) for op in sorted(ops, key=lambda op: op[1])
+                    if op[4] in corr]
+    return out
+
+
+@pytest.fixture(scope="module")
+def headless_replay():
+    """The full-size flagship world: one traced replay of its physics step,
+    sliced (`benchmark/replayed.py`), and the trace of one eager
+    `world.step` from the same state (its launches and ranges only)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    step, state, eager = _pile(10240, cuda)
+    for _ in range(3):
+        state = step.physics(state)
+    run = _traced(cuda, lambda: step.physics(state))
+    (sliced,) = replayed.slices(run, "physics")
+    # the second of two eager steps, in a warm profiler session
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            with torch.profiler.record_function("eager"):
+                eager(state)
+        torch.cuda.synchronize()
+    ops, launches, ranges = trace.from_profiler(prof)
+    lo, hi = max(r[:2] for r in ranges if r[2] == "eager")
+    return sliced, (ops, [x for x in launches if lo <= x[0] <= hi],
+                    [r for r in ranges if lo <= r[0] <= hi])
+
+
+@pytest.mark.gpu
+def test_replayed_stages_run_the_eager_steps_kernels_in_order(headless_replay):
+    """Each replayed stage runs the kernels of the same stage of an eager
+    step from the same state, in the same order; the three the benchmark
+    reads take within 10% of the eager stage's device time."""
+    (rep, recs, ops), (eops, elaunches, eranges) = headless_replay
+    assert len(ops) == rep["attrs"]["graph_ops"][1] > 1000
+    assert STAGES <= {s["name"] for s in recs}
+    for s in recs:
+        lo, hi = s["attrs"]["graph_ops"]
+        assert [_kind(op[3]) for op in ops[lo:hi]] == _ops_in(s["name"], eops, elaunches,
+                                                               eranges), s["name"]
+    eager_ns = trace.stage_times(eops, elaunches, eranges, STAGES)
+    for s in recs:
+        if s["name"] in ("broadphase", "narrowphase", "solve_velocity"):
+            lo, hi = s["attrs"]["graph_ops"]
+            ns = sum(op[2] - op[1] for op in ops[lo:hi])
+            assert ns == pytest.approx(eager_ns[s["name"]][1], rel=0.1), s["name"]
+
+
+@pytest.mark.gpu
+def test_replayed_spans_and_the_ops_outside_them_partition_the_replay(headless_replay):
+    """Sibling records name disjoint op ranges inside their parent's; the
+    ops outside the top-level records are those the eager step launches
+    outside its top-level stage ranges, in the same order."""
+    (rep, recs, ops), (eops, elaunches, eranges) = headless_replay
+    by_id = {s["id"]: tuple(s["attrs"]["graph_ops"]) for s in recs}
+    by_id[rep["id"]] = (0, len(ops))
+    kids = collections.defaultdict(list)
+    for s in recs:
+        kids[s["parent"]].append(by_id[s["id"]])
+    for parent, ranges in kids.items():
+        ranges.sort()
+        lo, hi = by_id[parent]
+        assert lo <= ranges[0][0] and ranges[-1][1] <= hi, parent
+        assert all(a[1] <= b[0] for a, b in zip(ranges, ranges[1:])), parent
+    inside = {i for lo, hi in kids[rep["id"]] for i in range(lo, hi)}
+    outside = [_kind(op[3]) for i, op in enumerate(ops) if i not in inside]
+    top = {s["name"] for s in recs if s["parent"] == rep["id"]}
+    stage = set()
+    for start, end, name in eranges:
+        if name in top:
+            stage |= {c for t, c in elaunches if start <= t <= end}
+    step = {c for _, c in elaunches}
+    eager_outside = [_kind(op[3]) for op in sorted(eops, key=lambda op: op[1])
+                     if op[4] in step and op[4] not in stage]
+    assert 0 < len(outside) < 0.05 * len(ops)
+    assert outside == eager_outside
+
+
+@pytest.mark.gpu
+def test_layout_recording_adds_no_node_and_changes_no_bit(cuda):
+    """With no profiler recording, the graph captured while recording its
+    layout has the nodes, in the same kinds and order, of the graph
+    captured without, and its replays give the same bits."""
+    _, state, eager = _pile(10240, cuda)
+    reads, layouts, outs = [], [], []
+
+    def counted(tree):
+        out = eager(tree)
+        got = cuda_graph.chain(torch.cuda.current_stream().cuda_stream)
+        if got is not None:
+            reads.append((len(got[0]), got[1]))
+        return out
+    for recording in (True, False):
+        with pytest.MonkeyPatch.context() as mp:
+            if not recording:
+                mp.setattr(profiler, "capture", lambda mark: contextlib.nullcontext())
+            graphed, s = GraphedStep(counted), state
+            for _ in range(4):
+                s = graphed(s)
+            outs.append(s)
+            (graph,) = graphed.graphs.values()
+            layouts.append(graph.layout)
+    assert len(reads) == 2 and reads[0] == reads[1]
+    assert layouts[1] is None and layouts[0].ops == len(reads[0][1]) > 1000
+    _same_bits(outs[0], outs[1])
+
+
+@pytest.mark.gpu
+def test_discarded_steps_read_zero_on_a_tick_that_keeps_all_four(cuda, recorder):
+    """The engine tick's graphed loop on a card: a traced tick that keeps
+    4 steps reads 0 discarded device ms, one that keeps 1 reads the 3
+    others'."""
+    eng, phys = _small_engine(cuda)
+    state = eng.device_state()
+    for _ in range(3):
+        state = eng._step(state, H)
+    (graph,) = phys.fixed_steps.graphs.values()
+    assert isinstance(graph, _Graph) and graph.layout is not None
+
+    def tick(dt):
+        with profiler.span("step"):
+            eng._step(state, dt)
+    got = {}
+    for dt in (4 * H + 1e-3, H + 1e-4):
+        first = profiler.RECORDER.next_step
+        run = _traced(cuda, lambda: tick(dt))
+        (update,) = [s for s in profiler.recorded() if s["step"] >= first
+                     and s["name"] == "PhysicsSystem.update"]
+        kept = update["counters"]["sim_steps_kept"]
+        got[kept] = harness.reader("discarded_steps_device_ms.engine")(run)
+    assert set(got) == {4, 1}
+    assert got[4] == {"value": 0.0, "replays": 1}
+    assert got[1]["value"] > 0

@@ -271,7 +271,7 @@ def test_ui_pixels_covered_is_the_host_sum_of_the_clipped_rects(frame, traced):
         cols = (xs >= x) & (xs < np.float32(x + rw))
         rows = (ys >= y) & (ys < np.float32(y + rh))
         covered += int(cols.sum()) * int(rows.sum())
-    assert ui["counters"]["ui_sprites"] == n > 20
+    assert "ui_sprites" not in ui["counters"] and n > 20
     assert ui["counters"]["ui_pixels"] == n * h * w
     assert ui["counters"]["ui_pixels_covered"] == covered
     assert 0 < covered < 0.01 * n * h * w

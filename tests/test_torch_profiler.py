@@ -50,8 +50,8 @@ def _annotations(prof):
 
 def test_off_span_is_a_shared_no_op(recorder, monkeypatch):
     def no_range(name):
-        raise AssertionError(f"record_function({name!r}) entered while off")
-    monkeypatch.setattr(profiler, "record_function", no_range)
+        raise AssertionError(f"range {name!r} entered while off")
+    monkeypatch.setattr(profiler, "_open_range", no_range)
     first = profiler.span("a")
     assert first is profiler.span("b", device=0)
     with first:
@@ -303,3 +303,131 @@ def test_supertile_binning_counts_its_cap(recorder):
     assert c["tile_pairs"] == int(full.sum())
     assert c["tile_pairs_dropped"] == int((full - 4).clamp(min=0).sum()) > 0
     assert int(counts.sum()) == c["tile_pairs"] - c["tile_pairs_dropped"]
+
+
+# -- the layout of a graph capture, and its records on a replay ---------------
+
+def test_capture_records_the_layout_with_a_fake_node_counter(recorder):
+    """Inside `capture`, spans record layout entries whether or not a
+    profiler records, each with its parent and the marks read at its edges,
+    which `resolve` turns into op ranges; outside, a span records none."""
+    nodes = [0]
+
+    def ops(k):
+        nodes[0] += k
+
+    with profiler.capture(lambda: nodes[0]) as layout:
+        ops(2)                                              # before any span
+        with profiler.span("fixed_step", k=0, device=0):
+            ops(3)
+            with profiler.span("collide"):
+                ops(1)
+                with profiler.span("broadphase"):
+                    ops(4)
+            with profiler.span("empty"):
+                pass
+            ops(1)
+        with profiler.span("fixed_step", k=1):
+            ops(5)
+    assert profiler.span("outside") is profiler._OFF
+    with _cpu_profile():
+        with profiler.span("recorded"):
+            pass
+    assert [s["name"] for s in profiler.recorded()] == ["recorded"]
+    kinds = ["kernel"] * 16
+    kinds[0], kinds[9] = "memcpy", "memset"
+    layout.resolve(lambda mark: mark, kinds)
+    got = [(e["name"], e["attrs"], e["parent"], e["ops"]) for e in layout.entries]
+    assert got == [("fixed_step", {"k": 0}, None, (2, 11)),
+                   ("collide", {}, 0, (5, 10)),
+                   ("broadphase", {}, 1, (6, 10)),
+                   ("empty", {}, 0, (10, 10)),
+                   ("fixed_step", {"k": 1}, None, (11, 16))]
+    assert (layout.ops, layout.memcpy, layout.memset) == (16, [0], [9])
+    assert profiler._LAYOUT is None and recorder.stack == []
+
+
+def test_capture_under_a_recording_profiler_also_records_the_spans(recorder):
+    with _cpu_profile():
+        with profiler.capture(lambda: 7) as layout:
+            with profiler.span("outer"):
+                with profiler.span("inner", role="x"):
+                    profiler.count("n", 3)
+    outer, inner = profiler.recorded()
+    assert (outer["name"], inner["name"], inner["parent"]) == ("outer", "inner", outer["id"])
+    assert inner["counters"] == {"syncs": 0, "n": 3} and inner["attrs"] == {"role": "x"}
+    assert [(e["name"], e["parent"], e["marks"]) for e in layout.entries] == \
+        [("outer", None, (7, 7)), ("inner", 0, (7, 7))]
+
+
+def _hand_layout():
+    """Two fixed steps of a replayed tick, the first with nested stages."""
+    layout = profiler.Layout(lambda: None)
+    layout.entries = [
+        {"name": "fixed_step", "attrs": {"k": 0}, "parent": None, "ops": (1, 6)},
+        {"name": "collide", "attrs": {}, "parent": 0, "ops": (1, 4)},
+        {"name": "broadphase", "attrs": {}, "parent": 1, "ops": (1, 2)},
+        {"name": "solve_velocity", "attrs": {}, "parent": 0, "ops": (4, 6)},
+        {"name": "fixed_step", "attrs": {"k": 1}, "parent": None, "ops": (6, 9)}]
+    layout.ops, layout.memcpy, layout.memset = 10, [0], [9]
+    return layout
+
+
+def test_replay_emits_the_layout_under_its_span(recorder, monkeypatch):
+    """A recording replay: the span `graph_replay` with the graph's op
+    count and copy places, and a zero-length record an entry under it, in
+    its step, `replayed` with the entry's op range and `syncs` 0 alone;
+    the readers of `benchmark/spans.py` read the same without them. Off,
+    `replay` is the shared no-op."""
+    from benchmark import harness, spans as bench_spans
+    assert profiler.replay(_hand_layout()) is profiler._OFF
+    with _cpu_profile():
+        for kept in (1, 2):
+            with profiler.span("step"):
+                with profiler.span("PhysicsSystem.update"):
+                    with profiler.replay(_hand_layout()):
+                        torch.ones(4).sum()
+                    profiler.count("sim_steps_run", 2)
+                    profiler.count("sim_steps_kept", kept)
+                with profiler.span("render"):
+                    profiler.count("tile_pairs", 10)
+                    profiler.count("tile_pairs_dropped", kept)
+    recs = profiler.recorded()
+    for step in (0, 1):
+        got = [s for s in recs if s["step"] == step]
+        root, update, rep = got[:3]
+        assert (rep["name"], rep["parent"]) == ("graph_replay", update["id"])
+        assert rep["attrs"] == {"graph_ops": [0, 10], "memcpy": [0], "memset": [9]}
+        assert rep["end_ns"] > rep["start_ns"]
+        emitted = got[3:8]
+        assert [(s["name"], s["attrs"]) for s in emitted] == [
+            ("fixed_step", {"k": 0, "replayed": True, "graph_ops": [1, 6]}),
+            ("collide", {"replayed": True, "graph_ops": [1, 4]}),
+            ("broadphase", {"replayed": True, "graph_ops": [1, 2]}),
+            ("solve_velocity", {"replayed": True, "graph_ops": [4, 6]}),
+            ("fixed_step", {"k": 1, "replayed": True, "graph_ops": [6, 9]})]
+        ids = [s["id"] for s in emitted]
+        assert [s["parent"] for s in emitted] == [rep["id"], ids[0], ids[1], ids[0], rep["id"]]
+        for s in emitted:
+            assert s["start_ns"] == s["end_ns"] == rep["start_ns"]
+            assert (s["step"], s["device"], s["counters"]) == (step, rep["device"],
+                                                               {"syncs": 0})
+        assert [s["name"] for s in got[8:]] == ["render"]
+    assert profiler.host_ms(recs).keys() == {"step", "PhysicsSystem.update",
+                                             "graph_replay", "render"}
+    window = (recs[0]["start_ns"] - 1, recs[-1]["end_ns"] + 1, "bench.step")
+    run = harness.Run(prof=([], [], [window]), devices=[torch.device("cpu")],
+                      traffic={"trace_steps": 2}, worlds=1)
+
+    def readings():
+        return (bench_spans.syncs_per_step(run, "step"),
+                bench_spans.host_ms(run, "step", "PhysicsSystem.update"),
+                bench_spans.host_ms(run, "step", "graph_replay"),
+                bench_spans.ratio_pct(run, "step", None, "sim_steps_kept", "sim_steps_run"),
+                bench_spans.ratio_pct(run, "step", "render", "tile_pairs_dropped",
+                                      "tile_pairs"))
+    with_records = readings()
+    monkeypatch.setattr(bench_spans, "recorded", lambda: [
+        s for s in recs if not s["attrs"].get("replayed")])
+    assert readings() == with_records
+    assert with_records[3]["value"] == pytest.approx(100 * 3 / 4)
