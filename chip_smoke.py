@@ -151,7 +151,13 @@ w. a small feature frame and a small bench frame on the card against the
    feature step under the profiler;
 then the runtime (`entry.build_engine_frame`: the Engine and its systems
 over the flagship pile, 8 characters, 64 animated entities, a HUD):
-x. x.1: a small engine world (32 bodies, 2 characters, 4 animated, a
+x. x.0: the HUD composite kernel (`csrc/sprites.cu`) on the engine frame
+   at full size: one launch a frame; on the LDR frame its first step
+   composites (its -0.0 and NaN channels printed), equal in every bit to the
+   plain loop, its pairs (`ui_pixels`, counted by the kernel) equal to
+   `sprites.tile_pairs` and fewer than a full frame a sprite; its device
+   time, the plain loop's and the bound (the frame read and written once);
+   x.1: a small engine world (32 bodies, 2 characters, 4 animated, a
    spawner), 30 ticks and a 256x128 frame on the card and on the CPU:
    transforms within TOL_ENGINE_CPU, grounded flags, animation times,
    tick and time in every bit, the image bars of phases e and j; x.2: the
@@ -268,6 +274,7 @@ KERNELS = {   # name (a key of cuda_build.KERNELS) -> the TPU kernel it replaces
     "sky_radiance": "none: garden_tpu/render/atmosphere.py:sky_radiance is jnp ops",
     "aerial_perspective": "none: garden_tpu/render/atmosphere.py:aerial_perspective is jnp ops",
     "cast_sphere": "none: garden_tpu/physics/queries.py:cast_sphere is jnp ops",
+    "composite_sprites": "none: garden_tpu/render/sprites.py:composite_sprites is jnp ops",
 }
 TOL_GBUF = 2e-5            # K1's G-buffer planes (rsqrt may differ by an ulp)
 # physics on the card against the CPU: positions after 3 steps of the bench
@@ -291,6 +298,10 @@ CAST_ROW_BYTES, SHAPE_ROW_BYTES, CAST_ARG_BYTES, CAST_OUT_BYTES = 33, 20, 36, 37
 # quat_to_mat3 30, ray_box's offset and two rotations 33, its three slabs
 # 31 and its last tests 3, the max-distance test 1
 CAST_OPS_BOX = 111
+# float32 operations of a (pixel, sprite) pair of the HUD composite, counted
+# from the plain loop: the rect test 6, u and v 6, the texel coordinates 4,
+# rgb and alpha 5, the blend 10
+OPS_SPRITE = 31
 BENCH_SETTLE = 20
 MIXED_STEPS, MIXED_REPEAT = 35, 10
 N_BODIES, WIDTH, HEIGHT = 10240, 1920, 1080
@@ -1789,6 +1800,59 @@ def torch_equal_bits(x, y) -> bool:
     return torch.equal(x, y)
 
 
+def hud_phase(card: str) -> dict:
+    """Phase x.0: the HUD composite kernel (`csrc/sprites.cu`) on the engine
+    frame's HUD over the LDR frame its first step composites, against the
+    plain loop on the card, timed beside it -> the kernel's entry of the
+    kernels line."""
+    from unittest import mock
+    import torch
+    from garden_tpu_torch import cuda_build
+    from garden_tpu_torch.entry import build_engine_frame
+    from garden_tpu_torch.render import sprites
+    from garden_tpu_torch.utils import profiler
+
+    t0 = time.perf_counter()
+    frame, state = build_engine_frame(N_BODIES, WIDTH, HEIGHT, device="cuda")
+    before = dict(cuda_build.launches)
+    with mock.patch.object(sprites, "composite_sprites",
+                           wraps=sprites.composite_sprites) as spy:
+        frame(state)
+        ldr, atlas, hud = spy.call_args.args
+    torch.cuda.synchronize()
+    launch = launches_since(before)["composite_sprites"]
+    n, h, w = hud["count"], ldr.shape[0], ldr.shape[1]
+    got = sprites.composite_sprites_cuda(ldr, atlas, hud)
+    want = sprites.composite_sprites_plain(ldr, atlas, hud)
+    equal = same_bits(got, want)
+    host = int(sprites.tile_pairs(hud["rects"][:n], hud["colors"][:n],
+                                  sprites.atlas_max(atlas), w, h).sum())
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with profiler.span("hud"):
+            sprites.composite_sprites(ldr, atlas, hud)
+    counted = [r["counters"] for r in profiler.recorded() if r["name"] == "hud"][-1]
+    pairs, covered, full = int(counted["ui_pixels"]), int(counted["ui_pixels_covered"]), n * h * w
+    print(f"phase x.0: the engine frame's HUD, {n} sprites over {w}x{h}: {launch} launch a "
+          f"frame; kernel and plain loop equal in every bit {equal}; -0.0 channels in the "
+          f"LDR frame {negative_zeros(ldr)}, NaN {int(torch.isnan(ldr).sum())}; pairs the "
+          f"tiles test {pairs} (host cull {host}) of {full}, {100.0 * pairs / full:.4f}%; "
+          f"covered {covered}")
+    check(launch == 1, f"phase x.0: the HUD composite made {launch} launches, not 1")
+    check(equal, "phase x.0: the HUD kernel differs from the plain loop")
+    check(pairs == host and covered <= pairs < full,
+          "phase x.0: the kernel's pairs are not the host cull's, or it culls nothing")
+    frame_bytes = 2 * ldr.numel() * ldr.element_size()
+    bd = bound(pairs * OPS_SPRITE, frame_bytes)
+    ms = kernel_ms(lambda: sprites.composite_sprites_cuda(ldr, atlas, hud))
+    plain = cuda_ms(lambda: sprites.composite_sprites_plain(ldr, atlas, hud), reps=3)
+    print(f"phase x.0: HUD kernel device median {ms:.4f} ms, plain loop {plain:.4f} ms, "
+          f"bound {bd['bound_ms']:.6f} ms by {bd['bound_by']} "
+          f"({time.perf_counter() - t0:.1f} s)  [{card}]")
+    return dict(launches=launch, launches_by_path={"engine frame (1 frame)": launch},
+                max_abs_err=0.0 if equal else max_diff(got, want), ms=ms, plain_ms=plain,
+                **bd, bound_ms_full=bound(full * OPS_SPRITE, frame_bytes)["bound_ms"])
+
+
 def engine_phases(card: str, results: dict, t_start: float) -> None:
     """Phase x: the runtime (the ECS world, the Engine's tick, the systems,
     checkpoints, replication, the profiler) in the engine frame."""
@@ -1863,10 +1927,11 @@ def engine_phases(card: str, results: dict, t_start: float) -> None:
     check(launch.items() >= {"raster_shade": ENGINE_FRAMES,
                              "depth_super": ENGINE_FRAMES, "depth_grid": ENGINE_FRAMES,
                              "depth_dense": 0, "visibility": 0,
-                             "cast_sphere": 3 * ENGINE_FRAMES}.items(),
-          "phase x.2: the engine frame did not run K1, K2 and K3 once and the cast "
-          "kernel three times per frame")
-    for k in ("raster_shade", "depth_super", "depth_grid", "cast_sphere"):
+                             "cast_sphere": 3 * ENGINE_FRAMES,
+                             "composite_sprites": ENGINE_FRAMES}.items(),
+          "phase x.2: the engine frame did not run K1, K2, K3 and the HUD composite "
+          "once and the cast kernel three times per frame")
+    for k in ("raster_shade", "depth_super", "depth_grid", "cast_sphere", "composite_sprites"):
         by = results[k].setdefault("launches_by_path", {})
         by[f"engine frame ({ENGINE_FRAMES} frames)"] = launch[k]
         results[k]["launches"] = sum(by.values())
@@ -3011,6 +3076,7 @@ def main() -> int:
     cloud_phase(card, results)
     atmosphere_phase(card, results)
     feature_phases(card, results, t_start)
+    results["composite_sprites"] = hud_phase(card)
     engine_phases(card, results, t_start)
     batch = world_batch_phase(card)
     parallel_cli_phases(card, results, t_start)

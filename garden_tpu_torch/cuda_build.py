@@ -64,6 +64,7 @@ KERNELS = {
     "cast_sphere": ("queries", (_P,) * 4 + (_I,) + (_P,) * 2 + (_I,) + (_P,) * 4 + (_I,) * 3
                     + (_P,) + (_I,) * 2 + (_P,) * 4 + (_I,) * 2 + (_P,) * 3 + (_I,) * 5
                     + (_P,) * 5 + (_I,) * 2 + (_P,) * 6),
+    "composite_sprites": ("sprites", (_P,) * 5 + (_I,) * 4 + (_F,) + (_P,) * 2),
 }
 SOURCES = sorted({source for source, _ in KERNELS.values()})
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)   # successful launches a kernel

@@ -5,16 +5,26 @@ Port of `garden_tpu.render.sprites`: a host-side shelf-packed RGBA atlas
 (`SpriteBatch`, with nine-slice panels), and `composite_sprites`, which
 blends the sprites over an LDR image in push order, each sampling its
 atlas region at the nearest texel.
+
+On CUDA tensors `composite_sprites` launches the hand-written kernel of
+`csrc/sprites.cu` (a block a TILE_H x TILE_W tile of the frame, a thread a
+pixel, the sprites culled against the tile; `tile_pairs` is its cull on the
+host); on CPU tensors it takes `composite_sprites_plain`, a full-frame pass
+a sprite. Both give the same bits. While a profiler records, each call
+charges the open span with `ui_calls` 1 and `ui_kernel_calls` 1 when it
+took the kernel (0 on the CPU).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
+from garden_tpu_torch.cuda_build import check, kept_ptr, launch, on_device, ptr
 from garden_tpu_torch.utils import profiler
 
 Tensor = torch.Tensor
@@ -141,20 +151,33 @@ def covered_pixels(rects: Tensor, width: int, height: int) -> Tensor:
 def composite_sprites(image: Tensor, atlas: Tensor, sprites: Dict[str, Any]) -> Tensor:
     """Alpha-blend the sprites over the LDR image (H, W, 3) in push order:
     inside its rect each samples the atlas (A, A, 4) region at the nearest
-    texel, tinted by its colour. The loop runs over the first `count`
-    slots. The reference loops over the capacity and masks the slots past
-    the count; those hold colour 0, so they blend alpha 0 and change
-    nothing: the same bits. The open span counts the pixels the loop
-    passes over, a full frame a sprite (`ui_pixels`, a host int), and those
-    inside a rect (`ui_pixels_covered`, `covered_pixels`, a 0-d device
-    tensor)."""
+    texel, tinted by its colour. The first `count` slots are blended. The
+    open span counts the pixels inside a rect (`ui_pixels_covered`,
+    `covered_pixels`, a 0-d device tensor) and the (pixel, sprite) pairs the
+    path tests (`ui_pixels`).
+
+    A CUDA image launches the composite kernel (`composite_sprites_cuda`), a
+    CPU one takes `composite_sprites_plain`."""
+    fn = on_device("composite_sprites", image, composite_sprites_cuda,
+                   composite_sprites_plain, counter="ui")
+    if profiler.recording():
+        h, w = image.shape[:2]
+        n = int(sprites["count"])
+        profiler.count("ui_pixels_covered", covered_pixels(sprites["rects"][:n], w, h))
+    return fn(image, atlas, sprites)
+
+
+def composite_sprites_plain(image: Tensor, atlas: Tensor, sprites: Dict[str, Any]) -> Tensor:
+    """`composite_sprites` as one full-frame pass a sprite over the first
+    `count` slots. The reference loops over the capacity and masks the
+    slots past the count; those hold colour 0, so they blend alpha 0 and
+    change nothing: the same bits. `ui_pixels` is a full frame a sprite (a
+    host int)."""
     h, w = image.shape[:2]
     a = atlas.shape[0]
     dev = image.device
     if profiler.recording():
-        n = int(sprites["count"])
-        profiler.count("ui_pixels", n * h * w)
-        profiler.count("ui_pixels_covered", covered_pixels(sprites["rects"][:n], w, h))
+        profiler.count("ui_pixels", int(sprites["count"]) * h * w)
     ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
     xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
     out = image
@@ -171,4 +194,96 @@ def composite_sprites(image: Tensor, atlas: Tensor, sprites: Dict[str, Any]) -> 
         rgb = texel[..., :3] * color[:3]
         alpha = texel[..., 3] * color[3] * inside
         out = out * (1.0 - alpha[..., None]) + rgb * alpha[..., None]
+    return out
+
+
+# -- the kernel (csrc/sprites.cu) ----------------------------------------------
+
+TILE_W, TILE_H = 32, 8     # a block's tile of the frame (csrc/sprites.cu: kTileW, kTileH)
+
+# atlas -> (a weak reference to it, its version, its largest |texel|)
+_atlas_max: Dict[int, Tuple[Any, int, float]] = {}
+
+
+def atlas_max(atlas: Tensor) -> float:
+    """The largest |texel| of `atlas`, inf where it holds a non-finite
+    value. Read from the atlas's device once a version of the tensor (one
+    host synchronization on a card), then kept while the tensor lives."""
+    key = id(atlas)
+    hit = _atlas_max.get(key)
+    if hit is not None and hit[0]() is atlas and hit[1] == atlas._version:
+        return hit[2]
+    value = (float(torch.where(torch.isfinite(atlas), atlas.abs(), torch.inf).amax())
+             if atlas.numel() else 0.0)
+    _atlas_max[key] = (weakref.ref(atlas, lambda _, k=key: _atlas_max.pop(k, None)),
+                       atlas._version, value)
+    return value
+
+
+def tile_pairs(rects: Tensor, colors: Tensor, amax: float, width: int, height: int
+               ) -> Tensor:
+    """The kernel's cull on the host: the (pixel, sprite) pairs each TILE_H
+    x TILE_W tile of a width x height frame tests, (tiles_y, tiles_x) int64,
+    over the sprites' rects and colours (n, 4). A tile keeps a sprite when
+    one of its pixels is inside the rect (the loop's comparisons at the
+    first column and row that pass the lower test), or when texel x colour
+    could leave the finite floats for some |texel| <= amax."""
+    def reaches(s, e, lo, hi):   # (tiles, n): some integer in [lo, hi] is >= s and < e
+        return (hi[:, None] >= s) & (torch.fmax(lo[:, None], torch.ceil(s)) < e)
+
+    def tiles(n, size):
+        lo = torch.arange(0, n, size, dtype=torch.float32)
+        return lo, torch.clamp(lo + size, max=float(n)) - 1.0
+
+    rects, colors = rects.cpu(), colors.cpu()
+    (x_lo, x_hi), (y_lo, y_hi) = tiles(width, TILE_W), tiles(height, TILE_H)
+    cols = reaches(rects[:, 0], rects[:, 0] + rects[:, 2], x_lo, x_hi)
+    rows = reaches(rects[:, 1], rects[:, 1] + rects[:, 3], y_lo, y_hi)
+    forced = ~torch.isfinite(colors.abs() * amax).all(-1)
+    keep = (rows[:, None, :] & cols[None, :, :]) | forced
+    area = (y_hi - y_lo + 1).long()[:, None] * (x_hi - x_lo + 1).long()[None, :]
+    return keep.sum(-1) * area
+
+
+def composite_sprites_cuda(image: Tensor, atlas: Tensor, sprites: Dict[str, Any]) -> Tensor:
+    """Launch the composite (csrc/sprites.cu: composite_sprites_launch): the
+    arguments and bits of `composite_sprites_plain`, one launch a call and
+    none for a count of 0, which returns the image. The image (H, W, 3), the
+    atlas (A, A, 4) and the rects, regions and colors (capacity, 4) are
+    float32 on one card; the atlas and the sprite arrays contiguous.
+    `ui_pixels` is the kernel's own count of the pairs its tiles test (a 0-d
+    device tensor), made only while recording."""
+    dev = image.device
+    if image.dim() != 3 or image.shape[-1] != 3 or image.dtype != torch.float32:
+        raise ValueError(f"composite_sprites: image is {image.dtype} {tuple(image.shape)}, "
+                         "expected float32 (H, W, 3)")
+    if dev.type != "cuda":
+        raise ValueError(f"composite_sprites needs CUDA tensors, got {dev}")
+    h, w = image.shape[:2]
+    a = atlas.shape[0]
+    cap = sprites["rects"].shape[0]
+    n = int(sprites["count"])
+    if not 0 <= n <= cap or a == 0:
+        raise ValueError(f"composite_sprites: {n} of {cap} sprites over a {a}-texel atlas")
+    # the kernel reads each row of these as one float4
+    for name, x, shape in (("atlas", atlas, (a, a, 4)), ("rects", sprites["rects"], (cap, 4)),
+                           ("regions", sprites["regions"], (cap, 4)),
+                           ("colors", sprites["colors"], (cap, 4))):
+        check(name, x, torch.float32, shape, dev, "composite_sprites")
+        if x.data_ptr() % 16:
+            raise ValueError(f"composite_sprites: {name} is not 16-byte aligned")
+    recording = profiler.recording()
+    if n == 0:
+        if recording:
+            profiler.count("ui_pixels", 0)
+        return image
+    image = image.contiguous()
+    out = torch.empty_like(image)
+    pairs = (torch.empty(-(-h // TILE_H), -(-w // TILE_W), dtype=torch.int32, device=dev)
+             if recording else None)
+    launch("composite_sprites", dev, ptr(image), ptr(atlas), ptr(sprites["rects"]),
+           ptr(sprites["regions"]), ptr(sprites["colors"]), n, h, w, a, atlas_max(atlas),
+           ptr(out), kept_ptr(pairs))
+    if recording:
+        profiler.count("ui_pixels", pairs.sum())
     return out
